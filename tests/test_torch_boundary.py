@@ -1,0 +1,64 @@
+"""The port's boundary: tpuminter_torch and chip_smoke.py never import
+JAX or the JAX package.
+
+The runtime check runs in a subprocess, because this test process has
+already imported JAX (tests/conftest.py does, for the JAX package's
+tests); the static check parses every source file of the port.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "tpuminter_torch"
+FORBIDDEN = {"jax", "jaxlib", "tpuminter"}
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import tpuminter_torch
+for mod in pkgutil.walk_packages(tpuminter_torch.__path__, "tpuminter_torch."):
+    importlib.import_module(mod.name)
+from tpuminter_torch.cuda_worker import CudaMiner
+from tpuminter_torch.protocol import PowMode, Request
+from tpuminter_torch import chain
+miner = CudaMiner(device="cpu")
+res = [r for r in miner.mine(Request(1, PowMode.MIN, 0, 255, data=b"x")) if r][0]
+assert res.hash_value == min(chain.toy_hash(b"x", n) for n in range(256))
+g = chain.GENESIS_HEADER
+res = [r for r in miner.mine(Request(2, PowMode.TARGET, g.nonce - 5, g.nonce + 5,
+       header=g.pack(), target=chain.bits_to_target(g.bits))) if r][0]
+assert res.found and res.nonce == g.nonce
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tpuminter"))
+print("LOADED", bad)
+"""
+
+
+def test_port_runs_without_loading_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = {
+        str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
+        for f in files
+    }
+    assert {f: roots for f, roots in offenders.items() if roots} == {}

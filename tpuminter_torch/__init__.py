@@ -1,0 +1,29 @@
+"""tpuminter_torch: the PyTorch/CUDA port of tpuminter for NVIDIA Hopper.
+
+A package of its own beside ``tpuminter`` (the JAX/TPU reference, left
+unchanged). It imports ``torch`` and numpy, never ``jax`` and nothing of
+``tpuminter``: what it needs of the reference's framework-free modules
+(chain, protocol, the LSP client) it keeps as its own copies, and its
+only contact with the JAX package is the wire protocol.
+
+This first slice is the worker role: ``python -m tpuminter_torch.worker
+HOST:PORT`` joins an unchanged ``python -m tpuminter.coordinator`` and
+mines TARGET and MIN chunks on four hand-written CUDA kernels
+(``kernels/csrc/sha256.cu``), returning the Results the reference
+miners return. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``, which runs the kernels' plain PyTorch versions.
+
+Module counterparts (each module's docstring names its own):
+
+- ``chain`` ← ``tpuminter.chain``
+- ``protocol`` ← ``tpuminter.protocol`` (JSON codec of the worker's kinds)
+- ``lsp`` ← ``tpuminter.lsp`` (client side)
+- ``ops.sha256`` ← ``tpuminter.ops.sha256`` + the integer half of
+  ``tpuminter.ops.symbolic``
+- ``kernels`` ← ``tpuminter.kernels.sha256``
+- ``search`` ← ``tpuminter.search``
+- ``cuda_worker`` ← ``tpuminter.tpu_worker``
+- ``worker`` ← ``tpuminter.worker``
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,244 @@
+"""CudaMiner: the worker backend that mines on the hand-written kernels.
+
+Counterpart of ``tpuminter.tpu_worker`` (``TpuMiner``,
+``make_header_search``), backend ``"cuda"``. Same dispatch rule:
+
+- **TARGET at real difficulty** (target < 2^224) runs the candidate
+  pipeline (``tpuminter_torch.search``): the card sweeps slabs for
+  nonces whose top 32 hash bits are zero, ``depth`` launches in flight,
+  and the host verifies the rare candidates exactly.
+- **TARGET at toy-easy targets, or with ``exact_min``** runs the
+  tracking kernel, which compares the full hash and folds the exact
+  minimum.
+- **MIN** runs the toy-dialect fold kernel, ``depth`` launches in flight.
+
+The fast path does not track the 256-bit minimum, so an exhausted
+TARGET chunk reports the exact range minimum only when the range held a
+candidate (their min is then the range min: any hash with a nonzero top
+word loses to every candidate); otherwise it reports
+``protocol.MIN_UNTRACKED`` with ``found=False``. Construct with
+``exact_min=True`` to match the CPU miner's exhausted-min output.
+
+Rolled and SCRYPT jobs are not served yet (``unsupported`` says why, and
+the worker loop refuses them). ``device="cpu"`` runs the same miner on
+the kernels' plain versions; a CUDA device that torch cannot see raises.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Iterator, Optional, Tuple
+
+import torch
+
+from tpuminter_torch import chain, kernels
+from tpuminter_torch.ops import sha256 as ops
+from tpuminter_torch.protocol import MIN_UNTRACKED, PowMode, Request, Result
+from tpuminter_torch.search import CandidateSearch, pipeline_spans, resolve_handle
+from tpuminter_torch.worker import Miner
+
+__all__ = ["CudaMiner", "make_header_search", "DEFAULT_SLAB", "DEFAULT_DEPTH"]
+
+#: nonces per kernel launch; a Cancel lands within about two slabs
+DEFAULT_SLAB = 1 << 27
+
+#: kernel launches kept in flight
+DEFAULT_DEPTH = 2
+
+#: nonces of the genesis header hashed by the first-use self-check
+_SELF_CHECK_NONCES = 8
+
+
+def make_header_search(header80: bytes, target: int, device):
+    """The sweep/resolve/verify triple of a header-mining job:
+    ``sweep(base, n)`` launches the candidate kernel with the target's
+    hash word 1 as its cap (candidates are then true wins up to a ~2^-64
+    tail), ``resolve`` reads a handle, ``verify(nonce)`` re-hashes on
+    the host and applies the exact 256-bit compare."""
+    template = ops.header_template(header80)
+    header76 = header80[:76]
+    hw1_cap = int(ops.target_to_words(target)[1])
+
+    def sweep(base: int, n: int) -> torch.Tensor:
+        return kernels.search_candidates(template, base, n, hw1_cap, device=device)
+
+    def verify(nonce: int) -> Tuple[bool, int]:
+        h = chain.hash_to_int(chain.dsha256(header76 + struct.pack("<I", nonce)))
+        return h <= target, h
+
+    return sweep, resolve_handle, verify
+
+
+def _fast_path_ok(target: Optional[int]) -> bool:
+    """The candidate test (top 32 hash bits zero) is necessary only when
+    the target's top word is zero: every real Bitcoin difficulty. Toy
+    targets above 2^224 take the tracking kernel."""
+    return target is not None and target < 1 << 224
+
+
+class CudaMiner(Miner):
+    """Kernel-backed miner behind the standard worker interface."""
+
+    backend = "cuda"
+
+    def __init__(
+        self,
+        slab: int = DEFAULT_SLAB,
+        depth: int = DEFAULT_DEPTH,
+        exact_min: bool = False,
+        device="cuda",
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "CudaMiner needs a CUDA device and torch sees none; "
+                    "device='cpu' runs the kernels' plain versions"
+                )
+        elif self.device.type != "cpu":
+            raise ValueError(f"device must be cuda or cpu, got {self.device}")
+        if not 1 <= slab <= 1 << 30:
+            raise ValueError("slab must be in [1, 2^30]")
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        self.slab = slab
+        self.depth = depth
+        self.exact_min = exact_min
+        # scheduler hints: ask for chunks a few slabs deep
+        self.lanes = max(1, (slab * 4) // 16_384)
+        self.span = slab
+        self._checked = False
+
+    def unsupported(self, request: Request) -> Optional[str]:
+        if request.workload:
+            return f"workload {request.workload!r} is not served by this worker"
+        if request.rolled:
+            return "rolled (extranonce) jobs are not ported yet"
+        if request.mode == PowMode.SCRYPT:
+            return "the SCRYPT dialect is not ported yet"
+        return None
+
+    def mine(self, request: Request) -> Iterator[Optional[Result]]:
+        reason = self.unsupported(request)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        self._self_check()
+        if request.mode == PowMode.MIN:
+            yield from self._mine_min(request)
+        elif self.exact_min or not _fast_path_ok(request.target):
+            yield from self._mine_target_tracking(request)
+        else:
+            yield from self._mine_target_fast(request)
+
+    def _self_check(self) -> None:
+        """Known-answer test at first use: the kernels are built on this
+        machine at first use, so before mining, the digest kernel hashes
+        a few genesis-header nonces and must agree with hashlib."""
+        if self._checked:
+            return
+        header = chain.GENESIS_HEADER
+        nonces = range(header.nonce, header.nonce + _SELF_CHECK_NONCES)
+        lo = torch.tensor(list(nonces), dtype=torch.int64, device=self.device)
+        got = kernels.sha256_batch(
+            ops.header_template(header.pack()), torch.zeros_like(lo), lo
+        ).cpu().tolist()
+        for nonce, words in zip(nonces, got):
+            want = struct.unpack(">8I", header.with_nonce(nonce).block_hash())
+            if tuple(words) != want:
+                raise RuntimeError(
+                    f"kernel self-check failed on {self.device} at nonce {nonce}"
+                )
+        self._checked = True
+
+    def _slabs(self, lower: int, upper: int):
+        start = lower
+        while start <= upper:
+            take = min(self.slab, upper - start + 1)
+            yield start, take
+            start += take
+
+    # -- TARGET: candidate pipeline (production path) ---------------------
+
+    def _mine_target_fast(self, req: Request) -> Iterator[Optional[Result]]:
+        sweep, resolve, verify = make_header_search(req.header, req.target, self.device)
+        search = CandidateSearch(
+            sweep, resolve, verify, req.lower, req.upper,
+            slab=self.slab, depth=self.depth,
+        )
+        for _ in search.events():
+            yield None  # heartbeat / Cancel window per resolved slab
+        out = search.outcome
+        if out.found:
+            yield Result(
+                req.job_id, req.mode, out.nonce, out.hash_value,
+                found=True, searched=out.searched, chunk_id=req.chunk_id,
+            )
+            return
+        best = out.best  # exact range min iff any candidate surfaced
+        hash_value, nonce = best if best else (MIN_UNTRACKED, req.lower)
+        yield Result(
+            req.job_id, req.mode, nonce, hash_value, found=False,
+            searched=out.searched, chunk_id=req.chunk_id,
+        )
+
+    # -- TARGET: exact-min tracking kernel ---------------------------------
+
+    def _mine_target_tracking(self, req: Request) -> Iterator[Optional[Result]]:
+        template = ops.header_template(req.header)
+        target_words = [int(t) for t in ops.target_to_words(req.target)]
+        best: Optional[Tuple[int, int]] = None  # (hash, nonce)
+        searched = 0
+        for start, take in self._slabs(req.lower, req.upper):
+            row = kernels.search_target(
+                template, target_words, start, take, device=self.device
+            ).cpu().tolist()
+            found, first, min_words, min_off = row[0], row[1], row[2:10], row[10]
+            if found:
+                nonce = start + first
+                # the handle's min is the slab minimum, not the first hit:
+                # re-hash the winner on the host (one nonce)
+                h = chain.hash_to_int(
+                    chain.dsha256(req.header[:76] + struct.pack("<I", nonce))
+                )
+                yield Result(
+                    req.job_id, req.mode, nonce, h, found=True,
+                    searched=searched + first + 1, chunk_id=req.chunk_id,
+                )
+                return
+            value = 0  # msb-first hash words → the 256-bit hash value
+            for w in min_words:
+                value = (value << 32) | w
+            cand = (value, start + min_off)
+            if best is None or cand < best:
+                best = cand
+            searched += take
+            yield None
+        yield Result(
+            req.job_id, req.mode, best[1], best[0], found=best[0] <= req.target,
+            searched=searched, chunk_id=req.chunk_id,
+        )
+
+    # -- MIN (toy) dialect --------------------------------------------------
+
+    def _mine_min(self, req: Request) -> Iterator[Optional[Result]]:
+        template = ops.toy_template(req.data)
+
+        def dispatch(span):
+            start, take = span
+            return kernels.min_toy(
+                template, start >> 32, start & 0xFFFFFFFF, take, device=self.device
+            )
+
+        best: Optional[Tuple[int, int]] = None
+        for (start, _), handle in pipeline_spans(
+            self._slabs(req.lower, req.upper), dispatch, depth=self.depth
+        ):
+            fold_hi, fold_lo, off = handle.cpu().tolist()
+            cand = ((fold_hi << 32) | fold_lo, start + off)
+            if best is None or cand < best:
+                best = cand
+            yield None
+        yield Result(
+            req.job_id, req.mode, best[1], best[0], found=True,
+            searched=req.upper - req.lower + 1, chunk_id=req.chunk_id,
+        )

@@ -1,0 +1,314 @@
+"""The SHA-256 kernels' wrappers, their plain versions and launch counts.
+
+Counterpart of ``tpuminter.kernels.sha256``. Each wrapper runs its CUDA
+kernel (``csrc/sha256.cu``) for the card and its plain PyTorch version
+for the CPU, chosen only by where its input lies: the nonce tensors for
+:func:`sha256_batch`, the ``device`` argument for the searches (whose
+inputs are scalars). A CUDA request launches the kernel or raises;
+nothing falls back to the plain version.
+
+u32 values travel as ``int64`` tensors holding ``[0, 2^32)`` (torch's
+CPU backend has no uint32 arithmetic). A search returns a small
+``int64`` tensor, its *handle*, that the kernel writes; nothing waits
+for the device until the caller reads it:
+
+- :func:`search_candidates`: ``[found, first_off]``
+- :func:`search_target`: ``[found, first_off, min_words[8], min_off]``
+  (the min fields cover the whole range only when ``found == 0``)
+- :func:`min_toy`: ``[fold_hi, fold_lo, argmin_off]``
+
+Offsets are relative to the base; ``first_off`` is ``0x7FFFFFFF`` when
+nothing was found. Each wrapper's ``launches`` attribute counts its
+kernel launches (plain runs are not counted). The plain versions run on
+any device (their ``device`` argument); the on-card smoke test runs them
+on the card to hold each kernel against its plain version there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from tpuminter_torch.kernels import build
+from tpuminter_torch.ops import sha256 as ops
+
+__all__ = [
+    "sha256_batch", "search_target", "search_candidates", "min_toy",
+    "sha256_batch_plain", "search_target_plain", "search_candidates_plain",
+    "min_toy_plain", "KERNELS", "NOT_FOUND",
+]
+
+#: ``first_off`` when no offset of the range hit
+NOT_FOUND = 0x7FFFFFFF
+#: lanes per step of a plain version, by device type: bounds its memory
+#: (a message schedule is 64 words per lane); the card's larger step
+#: keeps its launch count low enough to time the plain version at the
+#: main path's slab
+PLAIN_CHUNK = {"cpu": 1 << 16, "cuda": 1 << 22}
+#: threads per block of every kernel (``kThreads`` in the source)
+THREADS = 256
+#: resident blocks aimed for per SM; grids are capped at this many
+BLOCKS_PER_SM = 8
+
+_I64 = torch.int64
+
+
+def _check_n(n: int) -> None:
+    if not 1 <= n <= 1 << 30:
+        raise ValueError("n must be in [1, 2^30]")
+
+
+def _check_u32(**values: int) -> None:
+    for name, v in values.items():
+        if not 0 <= v <= 0xFFFFFFFF:
+            raise ValueError(f"{name}={v} is not a u32")
+
+
+def _cuda_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device must be cpu or cuda, got {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was requested but torch sees none")
+    return torch.device("cuda", torch.cuda.current_device() if device.index is None
+                        else device.index)
+
+
+@functools.lru_cache(maxsize=64)
+def _template_struct(template: ops.NonceTemplate) -> build.TmTemplate:
+    if not 1 <= len(template.tail) <= 2 or not 1 <= len(template.positions) <= 8:
+        raise ValueError("a template has 1-2 tail blocks and 1-8 nonce bytes")
+    t = build.TmTemplate()
+    t.mid[:] = list(template.midstate)
+    tail = [w for block in template.tail for w in block]
+    t.tail[:] = tail + [0] * (32 - len(tail))
+    for p, (block, word, wshift, nshift) in enumerate(template.positions):
+        t.pos_word[p] = block * 16 + word
+        t.pos_wshift[p] = wshift
+        t.pos_nshift[p] = nshift
+    t.n_pos = len(template.positions)
+    t.n_blocks = len(template.tail)
+    t.dbl = int(template.double)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _grid(n: int, device_index: int) -> int:
+    return min(-(-n // THREADS), _sm_count(device_index) * BLOCKS_PER_SM)
+
+
+def _launch(name: str, *args) -> None:
+    err = getattr(build.library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _offsets(n: int, device):
+    """Ascending offset chunks of at most PLAIN_CHUNK lanes."""
+    device = torch.device(device)
+    step = PLAIN_CHUNK[device.type]
+    for start in range(0, n, step):
+        yield torch.arange(start, min(n, start + step), dtype=_I64, device=device)
+
+
+def _argmin_lex(keys: Sequence[torch.Tensor]) -> int:
+    """Index of the lexicographic minimum over key lanes; the lowest
+    index among equals (min + mask passes, one per key)."""
+    mask = torch.ones_like(keys[0], dtype=torch.bool)
+    big = torch.iinfo(_I64).max
+    for k in keys:
+        col = torch.where(mask, k, big)
+        mask &= col == col.min()
+    return int(torch.nonzero(mask)[0])
+
+
+# ---------------------------------------------------------------------------
+# K1: digests for explicit nonces
+# ---------------------------------------------------------------------------
+
+def sha256_batch_plain(template: ops.NonceTemplate, nonce_hi: torch.Tensor,
+                       nonce_lo: torch.Tensor) -> torch.Tensor:
+    out = torch.empty((nonce_lo.shape[0], 8), dtype=_I64, device=nonce_lo.device)
+    step = PLAIN_CHUNK[nonce_lo.device.type]
+    for start in range(0, nonce_lo.shape[0], step):
+        sl = slice(start, start + step)
+        out[sl] = torch.stack(ops.digest_words(template, nonce_hi[sl], nonce_lo[sl]), 1)
+    return out
+
+
+def sha256_batch(template: ops.NonceTemplate, nonce_hi: torch.Tensor,
+                 nonce_lo: torch.Tensor) -> torch.Tensor:
+    """Digest words for explicit nonces ``hi << 32 | lo``: ``(N,) × 2 →
+    (N, 8)`` big-endian u32 words, single or double SHA per
+    ``template.double`` (≡ the JAX package's ``pallas_sha256_batch``)."""
+    for t in (nonce_hi, nonce_lo):
+        if t.dtype != _I64 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError("nonce lanes must be contiguous 1-D int64 tensors")
+    if nonce_hi.shape != nonce_lo.shape or nonce_hi.device != nonce_lo.device:
+        raise ValueError("nonce_hi and nonce_lo must match in shape and device")
+    if nonce_lo.device.type == "cpu":
+        return sha256_batch_plain(template, nonce_hi, nonce_lo)
+    device = _cuda_device(nonce_lo.device)
+    n = nonce_lo.shape[0]
+    out = torch.empty((n, 8), dtype=_I64, device=device)
+    if n:
+        _launch(
+            "tm_sha256_batch", ctypes.byref(_template_struct(template)),
+            nonce_hi.data_ptr(), nonce_lo.data_ptr(), out.data_ptr(), n,
+            device.index, _stream(device),
+        )
+        sha256_batch.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: candidate search (the production TARGET sweep)
+# ---------------------------------------------------------------------------
+
+def search_candidates_plain(template: ops.NonceTemplate, base: int, n: int,
+                            hw1_cap: int, device="cpu") -> torch.Tensor:
+    for offs in _offsets(n, device):
+        e60, e61 = ops.e60_e61(template, 0, (base + offs) & ops.M32)
+        hw1 = ops.byteswap32((ops.DIGEST6_BIAS + e61) & ops.M32)
+        hits = torch.nonzero((e60 == ops.CAND_E60) & (hw1 <= hw1_cap))
+        if len(hits):
+            return torch.tensor([1, int(offs[hits[0, 0]])], dtype=_I64, device=device)
+    return torch.tensor([0, NOT_FOUND], dtype=_I64, device=device)
+
+
+def search_candidates(template: ops.NonceTemplate, base: int, n: int,
+                      hw1_cap: int = 0xFFFFFFFF, *, device) -> torch.Tensor:
+    """First offset in ``[0, n)`` whose nonce ``base + off`` (mod 2^32)
+    is a *candidate*: double-SHA digest word 7 is zero (the hash's top 32
+    bits) and the hash's word 1 is ``<= hw1_cap``. Offsets past the first
+    candidate may be left unsearched. Handle ``[found, first_off]``."""
+    _check_n(n)
+    _check_u32(base=base, hw1_cap=hw1_cap)
+    if not template.double:
+        raise ValueError("the candidate test needs a double-SHA template")
+    if torch.device(device).type == "cpu":
+        return search_candidates_plain(template, base, n, hw1_cap)
+    device = _cuda_device(device)
+    handle = torch.empty(2, dtype=_I64, device=device)
+    _launch(
+        "tm_search_candidates", ctypes.byref(_template_struct(template)),
+        base, n, hw1_cap, handle.data_ptr(), _grid(n, device.index),
+        device.index, _stream(device),
+    )
+    search_candidates.launches += 1
+    return handle
+
+
+# ---------------------------------------------------------------------------
+# K2: full target compare with the exact running minimum
+# ---------------------------------------------------------------------------
+
+def search_target_plain(template: ops.NonceTemplate, target_words: Sequence[int],
+                        base: int, n: int, device="cpu") -> torch.Tensor:
+    tgt = [int(t) for t in target_words]
+    best = None  # (words..., off) of the minimum so far
+    for offs in _offsets(n, device):
+        digest = ops.digest_words(template, 0, (base + offs) & ops.M32)
+        hw = ops.hash_words_be(digest)
+        i = _argmin_lex(hw)
+        cand = tuple(int(w[i]) for w in hw) + (int(offs[i]),)
+        if best is None or cand < best:
+            best = cand
+        lt = torch.zeros_like(offs, dtype=torch.bool)
+        eq = torch.ones_like(offs, dtype=torch.bool)
+        for w, t in zip(hw, tgt):
+            lt |= eq & (w < t)
+            eq &= w == t
+        hits = torch.nonzero(lt | eq)
+        if len(hits):
+            return torch.tensor([1, int(offs[hits[0, 0]]), *best], dtype=_I64,
+                                device=device)
+    return torch.tensor([0, NOT_FOUND, *best], dtype=_I64, device=device)
+
+
+def search_target(template: ops.NonceTemplate, target_words: Sequence[int],
+                  base: int, n: int, *, device) -> torch.Tensor:
+    """Full double SHA of nonces ``base + off`` (mod 2^32), ``off`` in
+    ``[0, n)``: the first offset whose 256-bit hash value is ``<=`` the
+    target (msb-first ``target_words``), with early exit, and the
+    lexicographic minimum of the hash value with its offset (ties to the
+    lowest offset). Handle ``[found, first_off, min_words[8], min_off]``."""
+    _check_n(n)
+    _check_u32(base=base)
+    words = [int(t) for t in target_words]
+    if len(words) != 8:
+        raise ValueError("target_words must be 8 msb-first u32 words")
+    _check_u32(**{f"target_word{i}": w for i, w in enumerate(words)})
+    if torch.device(device).type == "cpu":
+        return search_target_plain(template, words, base, n)
+    device = _cuda_device(device)
+    grid = _grid(n, device.index)
+    handle = torch.empty(11, dtype=_I64, device=device)
+    partial = torch.empty(grid * 9, dtype=torch.int32, device=device)
+    target = build.TmTarget()
+    target.w[:] = words
+    _launch(
+        "tm_search_target", ctypes.byref(_template_struct(template)),
+        ctypes.byref(target), base, n, handle.data_ptr(), partial.data_ptr(),
+        grid, device.index, _stream(device),
+    )
+    search_target.launches += 1
+    return handle
+
+
+# ---------------------------------------------------------------------------
+# K6: toy-dialect (MIN) fold
+# ---------------------------------------------------------------------------
+
+def min_toy_plain(template: ops.NonceTemplate, base_hi: int, base_lo: int,
+                  n: int, device="cpu") -> torch.Tensor:
+    best = None
+    for offs in _offsets(n, device):
+        lo = (base_lo + offs) & ops.M32
+        hi = (base_hi + (lo < base_lo).to(_I64)) & ops.M32  # 64-bit carry
+        digest = ops.digest_words(template, hi, lo)
+        i = _argmin_lex(digest[:2])
+        cand = (int(digest[0][i]), int(digest[1][i]), int(offs[i]))
+        if best is None or cand < best:
+            best = cand
+    return torch.tensor(best, dtype=_I64, device=device)
+
+
+def min_toy(template: ops.NonceTemplate, base_hi: int, base_lo: int, n: int,
+            *, device) -> torch.Tensor:
+    """Minimum over ``n`` consecutive 64-bit nonces from ``base_hi << 32 |
+    base_lo`` of the fold (digest words 0 and 1) of the template's hash
+    (≡ ``chain.toy_hash`` for a toy template), no early exit, ties to the
+    lowest nonce. Handle ``[fold_hi, fold_lo, argmin_off]``."""
+    _check_n(n)
+    _check_u32(base_hi=base_hi, base_lo=base_lo)
+    if torch.device(device).type == "cpu":
+        return min_toy_plain(template, base_hi, base_lo, n)
+    device = _cuda_device(device)
+    grid = _grid(n, device.index)
+    handle = torch.empty(3, dtype=_I64, device=device)
+    partial = torch.empty(grid * 3, dtype=torch.int32, device=device)
+    _launch(
+        "tm_min_toy", ctypes.byref(_template_struct(template)), base_hi, base_lo,
+        n, handle.data_ptr(), partial.data_ptr(), grid, device.index,
+        _stream(device),
+    )
+    min_toy.launches += 1
+    return handle
+
+
+#: every kernel wrapper, in table order (K1, K2, K3, K6)
+KERNELS = (sha256_batch, search_target, search_candidates, min_toy)
+for _fn in KERNELS:
+    _fn.launches = 0

@@ -1,0 +1,46 @@
+"""LSP tunables. Counterpart of ``tpuminter.lsp.params`` (``Params`` and
+the ``FAST`` settings the mining roles use)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class Params:
+    #: Declare the connection lost after this many silent epochs.
+    epoch_limit: int = 5
+    #: Epoch tick interval, in milliseconds.
+    epoch_millis: int = 2000
+    #: Sliding window: a DATA frame may be sent while
+    #: ``seq < oldest_unacked_seq + window_size``.
+    window_size: int = 1
+    #: Cap on retransmit backoff, in epochs. 0 = retransmit every epoch.
+    max_backoff_interval: int = 0
+    #: Cap on in-flight unacked DATA frames; defaults to ``window_size``.
+    max_unacked_messages: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.epoch_limit < 1 or self.epoch_millis < 1 or self.window_size < 1:
+            raise ValueError("epoch_limit, epoch_millis, window_size must be >= 1")
+        if self.max_backoff_interval < 0:
+            raise ValueError("max_backoff_interval must be >= 0")
+        if self.max_unacked_messages is None:
+            object.__setattr__(self, "max_unacked_messages", self.window_size)
+        elif self.max_unacked_messages < 1:
+            raise ValueError("max_unacked_messages must be >= 1")
+
+    @property
+    def epoch_seconds(self) -> float:
+        return self.epoch_millis / 1000.0
+
+
+#: Settings of the mining roles (the coordinator's default too).
+FAST = Params(
+    epoch_limit=5,
+    epoch_millis=250,
+    window_size=64,
+    max_backoff_interval=2,
+    max_unacked_messages=64,
+)
