@@ -12,23 +12,36 @@ caught), and without a CUDA device the script exits non-zero at once:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: nvcc builds ``tpuminter_torch/kernels/csrc/sha256.cu``;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs on the card (exact integer equality) and against hashlib, then
-   each timed at the main path's slab (2^27 nonces) beside its plain
-   version and its bound;
-4. main path: ``CudaMiner()`` with its defaults mines the genesis header
-   over a 2^30-nonce window, a regtest-difficulty window and an
-   exhausted exact-min window, and a 2^30-nonce MIN chunk; every result
-   is checked with hashlib, and every kernel must have been launched;
-5. end to end: the unchanged ``python -m tpuminter.coordinator``, the
-   port's ``python -m tpuminter_torch.worker`` and the unchanged
-   ``python -m tpuminter.client`` as separate processes, one genesis
-   TARGET job and one MIN job, each Result checked with hashlib.
+   inputs on the card (exact integer equality) and against hashlib, the
+   rolled search kernels also at the main path's shape (width 2^27, 10
+   rows, the job's real cap, a planted genesis winner, ragged and padding
+   rows), then each timed at the main path's shapes (2^27 nonces a
+   launch, 8 rows of 2^27 for the batched rolled kernel) beside its plain
+   version and its bound (``op_count``: the instructions the function
+   needs on the timed inputs);
+4. main path, in two parts, each with every launch count set to 0 just
+   before it and read just after: (a) fixed headers: ``CudaMiner()``
+   with its defaults mines the genesis header over a 2^30-nonce window,
+   a regtest-difficulty window and an exhausted exact-min window, and a
+   2^30-nonce MIN chunk; (b) rolled jobs: the genesis block as a rolled
+   job over a 2^30-index window, a mainnet-shaped block template (250-byte
+   coinbase, 12-deep Merkle branch) at difficulty 1 over four whole
+   extranonces, three times (batched with and without the shared
+   schedule, and one segment at a time), and a rolled regtest job on
+   the tracking path. Every result is checked with hashlib, and every
+   kernel of each part must have been launched in it;
+5. end to end: the unchanged ``python -m tpuminter.coordinator`` (with a
+   roll budget), the port's ``python -m tpuminter_torch.worker`` and the
+   unchanged ``python -m tpuminter.client`` as separate processes: a
+   genesis TARGET job, a MIN job and a rolled job (the genesis coinbase,
+   extranonces 0-4), each Result checked with hashlib.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
 phase 5 only starts that package's coordinator and client as processes.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -53,26 +66,244 @@ BLOCK1 = dict(
     timestamp=1231469665, bits=0x1D00FFFF, nonce=2573394689,
 )
 REGTEST_BITS = 0x207FFFFF
+#: the genesis coinbase transaction: the genesis block as a rolled job
+#: splits it at byte 48 around a one-byte extranonce (4, the scriptSig's
+#: byte), so global index (4 << 32) | GENESIS_NONCE is the genesis block
+GENESIS_COINBASE_HEX = (
+    "01000000" "01" + "00" * 32 + "ffffffff" "4d"
+    "04ffff001d0104455468652054696d65732030332f4a616e2f32303039204368616e63656c"
+    "6c6f72206f6e206272696e6b206f66207365636f6e64206261696c6f757420666f722062616e6b73"
+    "ffffffff" "01" "00f2052a01000000" "43"
+    "4104678afdb0fe5548271967f1a67130b7105cd6a828e03909a67962e0ea1f61deb649f6bc3f"
+    "4cef38c4f35504e51ec112de5c384df7ba0b8d578a4c702b6bf11d5fac"
+    "00000000"
+)
+GENESIS_ROLLED = (4 << 32) | GENESIS_NONCE
 CHECK_N = 1 << 20  # nonces per kernel-vs-plain check window
+ROWS = 8  # rows of the batched rolled kernel at the main path's shape
+#: nonces per full row of the plan that holds the batched rolled kernel
+#: against its plain version (K4's plain version sweeps ROWS rows' worth)
+PLAIN_ROW_N = 1 << 23
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 #: integer instructions an SM can issue per clock: 4 schedulers x 32 lanes,
 #: shared by the INT32 pipe (64 lanes) and IMAD on the FMA pipe, where
 #: ptxas places part of the adds; the INT32 pipe alone is reported beside
 ISSUE_LANES_PER_SM = 128
 INT32_LANES_PER_SM = 64
+M32 = 0xFFFFFFFF
 
-# Integer instructions per nonce, counted in csrc/sha256.cu at the fewest
-# Hopper instructions each source expression needs: one funnel shift
-# (SHF) per rotation, one LOP3 per logic expression of up to three
-# inputs, one IADD3 per sum of up to three terms, one PRMT per byte
-# swap, one ISETP per compare.
-ROUND_OPS = 14  # Σ1 3 SHF+LOP3, Ch LOP3, t1 2 IADD3, Σ0 3 SHF+LOP3, Maj LOP3, a, e
-SCHEDULE_OPS = 10  # σ0 2 SHF+SHR+LOP3, σ1 the same, 4-term sum 2 IADD3
-COMPRESS_OPS = 64 * ROUND_OPS + 48 * SCHEDULE_OPS + 8
-# rounds 0-61, whose a chain (Σ0, Maj, a: 6) is dead in rounds 58-61
-TRUNCATED_OPS = 62 * ROUND_OPS - 4 * 6 + 46 * SCHEDULE_OPS
-INJECT_OPS_PER_BYTE = 2  # extract the nonce byte, OR it into its word
-LOOP_OPS = 3  # offset step, nonce add, bound compare
+# ---- the bound's operation count ------------------------------------------
+#
+# The integer instructions a function needs on this run's inputs, counted
+# on a dataflow graph of SHA-256 at the fewest Hopper instructions per
+# expression: one funnel shift (SHF) per rotation, one LOP3 per logic
+# expression of up to three inputs, one IADD3 per two additions, one
+# PRMT per byte permutation, one ISETP per compare. A value is an int
+# when the launch holds it fixed (folded, free), or a node computed once
+# per row (ROW: a roll row's header) or once per nonce (NONCE). A sum
+# gathers its terms; the fixed and per-row terms of a per-nonce sum are
+# added once per row, and a per-nonce sum of one varying term and a
+# per-row part is re-associated into the sums that use it. Only nodes
+# that the function's outputs need are counted: where a compare settles
+# on its first word for all but about 2^-32 of the nonces, only that
+# word is an output.
+
+ROW, NONCE = 1, 2
+LOOP_OPS = 1  # the nonce: one add per nonce (an unrolled loop amortises its control)
+
+
+class Node:
+    __slots__ = ("level", "cost", "deps", "var", "inv")
+
+    def __init__(self, level, cost, deps, var=None, inv=()):
+        self.level, self.cost, self.deps, self.var, self.inv = level, cost, deps, var, inv
+
+
+def leaf(level):
+    return Node(level, 0, [])
+
+
+def _expr(cost, fn, *xs):
+    if all(isinstance(x, int) for x in xs):
+        return fn(*xs) & M32
+    deps = [x for x in xs if not isinstance(x, int)]
+    return Node(max(d.level for d in deps), cost, deps)
+
+
+def _add(*xs):
+    const, row, var = 0, [], []
+    for x in xs:
+        if isinstance(x, int):
+            const += x
+        elif x.level == ROW:
+            row.append(x)
+        elif x.var is not None and len(x.var) == 1:
+            var.append(x.var[0])
+            for t in x.inv:
+                if isinstance(t, int):
+                    const += t
+                else:
+                    row.append(t)
+        else:
+            var.append(x)
+    const &= M32
+    row_sum = None
+    if row:
+        n = len(row) + (const != 0)
+        row_sum = row[0] if n == 1 else Node(ROW, n // 2, row)
+    if not var:
+        return const if row_sum is None else row_sum
+    inv = row + ([const] if const else [])
+    if len(var) == 1 and not inv:
+        return var[0]
+    n = len(var) + 1 if inv else len(var)
+    return Node(NONCE, n // 2, var + ([row_sum] if row_sum is not None else []), var, inv)
+
+
+def _rotr(x, n):
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def _bsig0(x):
+    return _expr(4, lambda v: _rotr(v, 2) ^ _rotr(v, 13) ^ _rotr(v, 22), x)
+
+
+def _bsig1(x):
+    return _expr(4, lambda v: _rotr(v, 6) ^ _rotr(v, 11) ^ _rotr(v, 25), x)
+
+
+def _ssig0(x):
+    return _expr(4, lambda v: _rotr(v, 7) ^ _rotr(v, 18) ^ (v >> 3), x)
+
+
+def _ssig1(x):
+    return _expr(4, lambda v: _rotr(v, 17) ^ _rotr(v, 19) ^ (v >> 10), x)
+
+
+def _bswap(x):
+    return _expr(1, lambda v: int.from_bytes(v.to_bytes(4, "little"), "big"), x)
+
+
+def _rounds(state, block, count):
+    """Working variables after ``count`` rounds, and the e produced by
+    each round (``es[60]`` is the candidate test's e60)."""
+    from tpuminter_torch.chain import SHA256_K
+
+    w = list(block)
+    a, b, c, d, e, f, g, h = state
+    es = []
+    for i in range(count):
+        if i >= 16:
+            w.append(_add(_ssig1(w[i - 2]), w[i - 7], _ssig0(w[i - 15]), w[i - 16]))
+        t1 = _add(h, _bsig1(e), _expr(1, lambda e, f, g: g ^ (e & (f ^ g)), e, f, g),
+                  SHA256_K[i], w[i])
+        maj = _expr(1, lambda a, b, c: (a & b) | (c & (a | b)), a, b, c)
+        a, b, c, d, e, f, g, h = _add(t1, _bsig0(a), maj), a, b, c, _add(d, t1), e, f, g
+        es.append(e)
+    return [a, b, c, d, e, f, g, h], es
+
+
+def _compress(state, block):
+    v, _ = _rounds(state, block, 64)
+    return [_add(s, x) for s, x in zip(state, v)]
+
+
+def _second_block(digest):
+    return list(digest) + [0x80000000, 0, 0, 0, 0, 0, 0, 256]
+
+
+def _inject(template, hi, lo):
+    """A template's tail blocks with its nonce bytes in place: a word
+    that takes nonce bytes is one PRMT or funnel shift of its sources
+    (two when it mixes both nonce halves and fixed bytes)."""
+    blocks = [list(b) for b in template.tail]
+    by_word = {}
+    for block, word, wshift, nshift in template.positions:
+        by_word.setdefault((block, word), []).append((wshift, nshift))
+    for (block, word), parts in by_word.items():
+        const, srcs = blocks[block][word], []
+        for wshift, nshift in parts:
+            src = hi if nshift >= 32 else lo
+            if isinstance(src, int):
+                const |= ((src >> (nshift % 32)) & 0xFF) << wshift
+            elif src not in srcs:
+                srcs.append(src)
+        blocks[block][word] = (const if not srcs else Node(
+            max(s.level for s in srcs), max(1, len(srcs) + (const != 0) - 1), srcs))
+    return blocks
+
+
+def _count(outputs):
+    """(per-nonce, per-row) instructions of the nodes ``outputs`` need."""
+    cost, seen = {ROW: 0, NONCE: 0}, set()
+    stack = [o for o in outputs if isinstance(o, Node)]
+    while stack:
+        node = stack.pop()
+        if id(node) not in seen:
+            seen.add(id(node))
+            cost[node.level] += node.cost
+            stack.extend(node.deps)
+    return cost[NONCE], cost[ROW]
+
+
+def _hdr_e60(mid, tail3, nonce):
+    """e60 of an 80-byte header's double SHA from its midstate."""
+    first = _compress(mid, list(tail3) + [_bswap(nonce), 0x80000000] + [0] * 10 + [640])
+    return _rounds(_h0(), _second_block(first), 61)[1][60]
+
+
+def _h0():
+    from tpuminter_torch.chain import SHA256_H0
+
+    return list(SHA256_H0)
+
+
+def op_count(name: str, template=None, base_hi: int = 0):
+    """(per-nonce, per-row) integer instructions kernel ``name``'s
+    function needs on the timed inputs (a launch's template, or a roll
+    row's header, held fixed; hash word 0 settles every compare but for
+    about 2^-32 of the nonces)."""
+    nonce = leaf(NONCE)
+    if name.startswith("search_candidates_hdr"):
+        # a roll row's header: midstate and tail words per row; e60 == CAND
+        per_nonce, per_row = _count([_hdr_e60([leaf(ROW) for _ in range(8)],
+                                              [leaf(ROW) for _ in range(3)], nonce)])
+        return per_nonce + 1 + LOOP_OPS, per_row
+    hi = leaf(NONCE) if name == "sha256_batch" else base_hi
+    state = list(template.midstate)
+    for block in _inject(template, hi, nonce):
+        state = _compress(state, block)
+    if name == "sha256_batch":  # every digest word is written
+        if template.double:
+            state = _compress(_h0(), _second_block(state))
+        return _count(state)[0] + LOOP_OPS, 0
+    if name == "min_toy":  # the fold's high word (digest word 0) against the min
+        return _count([state[0]])[0] + 2 + LOOP_OPS, 0
+    e60 = _rounds(_h0(), _second_block(state), 61)[1][60]
+    if name == "search_candidates":  # e60 == CAND
+        return _count([e60])[0] + 1 + LOOP_OPS, 0
+    if name == "search_target":
+        # hash word 0 = bswap(H7 + e60) against the target's and the min's
+        # word 0 (< and == each)
+        return _count([_bswap(_add(_h0()[7], e60))])[0] + 4 + LOOP_OPS, 0
+    raise ValueError(name)
+
+
+def roll_op_count(job, en_hi: int = 0) -> int:
+    """Integer instructions one extranonce row of the roll needs: the
+    coinbase's tail blocks and its second hash, three compressions per
+    branch level, the header's first block (the job's constants fold)."""
+    en = leaf(NONCE)
+    state = list(job.coinbase.midstate)
+    for block in _inject(job.coinbase, en_hi, en):
+        state = _compress(state, block)
+    node = _compress(_h0(), _second_block(state))
+    for sib in job.branch:
+        pair = _compress(_compress(_h0(), node + list(sib)),
+                         [0x80000000] + [0] * 14 + [512])
+        node = _compress(_h0(), _second_block(pair))
+    mid = _compress(_h0(), list(job.head9) + node[:7])
+    return _count(mid + [node[7]])[0]
 
 
 def say(*parts) -> None:
@@ -90,26 +321,6 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def first_hash_ops(template) -> int:
-    return len(template.tail) * COMPRESS_OPS + INJECT_OPS_PER_BYTE * len(template.positions)
-
-
-def ops_per_nonce(name: str, template) -> int:
-    """Integer instructions one nonce costs in kernel ``name``."""
-    first = first_hash_ops(template)
-    second = COMPRESS_OPS if template.double else 0
-    if name == "sha256_batch":
-        return first + second + LOOP_OPS
-    if name == "search_candidates":
-        return first + TRUNCATED_OPS + 4 + LOOP_OPS  # add, PRMT, 2 ISETP
-    if name == "search_target":
-        # 8 PRMT for the hash words, 2 ISETP per target word, 2 per min key
-        return first + second + 8 + 16 + 18 + LOOP_OPS
-    if name == "min_toy":
-        return first + second + 2 + 6 + LOOP_OPS  # 64-bit carry, 3-key compare
-    raise ValueError(name)
-
-
 def sass_summary(so_path: str):
     """Per kernel of the built library: SASS instruction count and the
     most frequent opcodes (from cuobjdump), or None without cuobjdump."""
@@ -122,9 +333,12 @@ def sass_summary(so_path: str):
     for line in sass.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            name = next((k for k in ("sha256_batch", "search_target", "search_candidates",
-                                     "min_toy", "reduce", "fill") if k in mangled), mangled)
-            name += "<9>" if "ILi9E" in mangled else "<3>" if "ILi3E" in mangled else ""
+            name = next((k for k in ("sha256_batch", "search_target",
+                                     "search_candidates_hdr_batch", "search_candidates_hdr",
+                                     "search_candidates", "min_toy", "extranonce_roll",
+                                     "reduce", "fill_rows", "fill") if k in mangled), mangled)
+            name += ("<9>" if "ILi9E" in mangled else "<3>" if "ILi3E" in mangled
+                     else "<sched>" if "ILb1E" in mangled else "")
             counts[name] = {}
         elif name and line.strip().startswith("/*") and "*/" in line:
             text = line.split("*/", 1)[1].strip()
@@ -136,10 +350,12 @@ def sass_summary(so_path: str):
     return counts
 
 
-def event_ms(fn, reps: int):
+def event_ms(fn, reps: int, warmup: bool = True):
     """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
-    call, with CUDA events; returns (ms, last output)."""
-    out = fn()
+    call unless ``warmup`` is false (a plain version, which has nothing
+    to build), with CUDA events; returns (ms, last output)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -187,7 +403,15 @@ def phase_kernels(dev, rng):
         "search_target": KernelStats("search_target", "tpuminter/kernels/sha256.py:257"),
         "search_candidates": KernelStats(
             "search_candidates", "tpuminter/kernels/sha256.py:371"),
+        "search_candidates_hdr": KernelStats(
+            "search_candidates_hdr", "tpuminter/kernels/sha256.py:489"),
+        "search_candidates_hdr_batch": KernelStats(
+            "search_candidates_hdr_batch", "tpuminter/kernels/sha256.py:606 (sched=False)"),
+        "search_candidates_hdr_batch_sched": KernelStats(
+            "search_candidates_hdr_batch_sched", "tpuminter/kernels/sha256.py:606 (sched=True)"),
         "min_toy": KernelStats("min_toy", "tpuminter/kernels/sha256.py:733"),
+        "extranonce_roll": KernelStats(
+            "extranonce_roll", "tpuminter/ops/merkle.py:84 (jnp program, no pallas_call)"),
     }
     genesis = chain.GENESIS_HEADER
     hdr = ops.header_template(genesis.pack())
@@ -275,6 +499,9 @@ def phase_kernels(dev, rng):
             fail(f"min_toy base {base}: fold disagrees with toy_hash")
     say("  min_toy: 3 windows of 2^20 equal to plain (incl. a base_lo wrap); folds equal to toy_hash")
 
+    rolled = rolled_kernel_checks(dev, rng, stats, tw[1])
+    torch.cuda.empty_cache()  # the timings below start from a clean allocator
+
     # timing at the main path's slab; candidate-free inputs so no early exit
     n = DEFAULT_SLAB
     base = int(rng.integers(0, (1 << 32) - n))
@@ -301,22 +528,222 @@ def phase_kernels(dev, rng):
         f"{int_rate:.4e} op/s (INT32 pipe alone: half); memory {MEM_BYTES_PER_S:.3e} B/s")
     for name, (tmpl, kernel, plain, nbytes) in runs.items():
         ms, got = event_ms(kernel, 5)
-        plain_ms, want = event_ms(plain, 1)
+        plain_ms, want = event_ms(plain, 1, warmup=False)
         stats[name].agree(got, want, f"slab of {n}")
-        ops_n = ops_per_nonce(name, tmpl) * n
-        bound_ms = max(nbytes / MEM_BYTES_PER_S, ops_n / int_rate) * 1e3
-        int32_pipe_ms = ops_n / (int_rate * INT32_LANES_PER_SM / ISSUE_LANES_PER_SM) * 1e3
-        stats[name].timing = dict(
-            n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="bytes" if nbytes / MEM_BYTES_PER_S > ops_n / int_rate else "operations",
-            ops_per_nonce=ops_per_nonce(name, tmpl), int32_pipe_ms=int32_pipe_ms,
-        )
-        say(f"  {name}: {ms:.3f} ms/launch at n={n} ({n / ms / 1e6:.3f} GH/s), plain "
-            f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms, INT32 pipe alone "
-            f"{int32_pipe_ms:.3f} ms ({ops_per_nonce(name, tmpl)} op/nonce)")
+        per_nonce, per_row = op_count(name, tmpl)
+        record(stats[name], n, n, ms, plain_ms, nbytes, per_nonce, per_nonce * n + per_row,
+               int_rate)
     del big_hi, big_lo
     torch.cuda.empty_cache()
+    time_rolled_kernels(dev, rng, stats, rolled, int_rate, tw[1])
     return stats
+
+
+def record(st, n, plain_n, ms, plain_ms, nbytes, per_unit, ops_total, int_rate,
+           unit="nonce") -> None:
+    """A kernel's timing row: its time beside its plain version's and
+    its bound, the larger of its bytes over the memory rate and its
+    counted instructions over the integer issue rate."""
+    ops_ms = ops_total / int_rate * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    st.timing = dict(
+        n=n, plain_n=plain_n, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms > ops_ms else "operations", ops_per_nonce=per_unit,
+        int32_pipe_ms=ops_ms * ISSUE_LANES_PER_SM / INT32_LANES_PER_SM,
+    )
+    rate = f"{n / ms / 1e6:.3f} GH/s" if unit == "nonce" else f"{n} {unit}s"
+    say(f"  {st.name}: {ms:.4f} ms/launch at n={n} ({rate}), plain "
+        f"{plain_ms:.1f} ms at n={plain_n}, bound {max(bytes_ms, ops_ms):.4f} ms, INT32 "
+        f"pipe alone {ops_ms * ISSUE_LANES_PER_SM / INT32_LANES_PER_SM:.4f} ms "
+        f"({per_unit} op/{unit})")
+
+
+def i64(values, dev):
+    return torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
+
+
+def mainnet_template(rng):
+    """A mainnet block template's shape, from the seed: a 250-byte
+    coinbase with a 4-byte extranonce, and a 12-deep Merkle branch."""
+    return rng.bytes(120), rng.bytes(126), tuple(rng.bytes(32) for _ in range(12))
+
+
+def host_rows(header80, prefix, suffix, size, branch, ens, ops, chain):
+    """(midstates, tail words) of each extranonce's header, by hashlib."""
+    cb = chain.CoinbaseTemplate(prefix, suffix, size)
+    mids, tails = [], []
+    for e in ens:
+        t = ops.header_template(chain.rolled_header(header80, cb, branch, e).pack())
+        mids.append(list(t.midstate))
+        tails.append(list(t.tail[0][:3]))
+    return mids, tails
+
+
+def rolled_kernel_checks(dev, rng, stats, hw1_cap):
+    """The roll, K4 and both K5 arms against their plain versions (and
+    the roll against hashlib) on the genesis block as a rolled job and a
+    mainnet-shaped template."""
+    from tpuminter_torch import chain, rolled
+    from tpuminter_torch.kernels import sha256 as K
+    from tpuminter_torch.ops import merkle
+    from tpuminter_torch.ops import sha256 as ops
+
+    genesis = chain.GENESIS_HEADER.pack()
+    cb = bytes.fromhex(GENESIS_COINBASE_HEX)
+    g_job = merkle.build_roll(genesis, cb[:48], cb[49:], 1, ())
+    prefix, suffix, branch = mainnet_template(rng)
+    m_job = merkle.build_roll(genesis, prefix, suffix, 4, branch)
+    e_job = merkle.build_roll(genesis, prefix, suffix, 4, ())
+
+    st = stats["extranonce_roll"]
+    cases = ((g_job, (cb[:48], cb[49:], 1, ()), [3, 4, 5]),
+             (m_job, (prefix, suffix, 4, branch), [0, 1, 2, 3, 0xFFFFFFFF]),
+             (e_job, (prefix, suffix, 4, ()), [0, 7, 0xDEADBEEF]))
+    for job, parts, ens in cases:
+        hi, lo = i64([e >> 32 for e in ens], dev), i64([e & M32 for e in ens], dev)
+        got = K.extranonce_roll(job, hi, lo)
+        want = K.extranonce_roll_plain(job, hi, lo)
+        for g, w, what in zip(got, want, ("midstates", "tail words")):
+            st.agree(g, w, f"{len(parts[3])}-deep {what}")
+        host = host_rows(genesis, *parts, ens, ops, chain)
+        if [t.cpu().tolist() for t in got] != list(host):
+            fail(f"extranonce_roll {len(parts[3])}-deep branch disagrees with hashlib")
+    g_mids, g_tails = K.extranonce_roll(g_job, i64([0], dev), i64([4], dev))
+    if [g_mids[0].tolist(), g_tails[0].tolist()] != [
+            list(ops.header_template(genesis).midstate), list(ops.header_template(genesis).tail[0][:3])]:
+        fail("extranonce 4 of the genesis coinbase does not roll to the genesis header")
+    say("  extranonce_roll: 12-deep and empty branches equal to plain and to hashlib; "
+        "extranonce 4 of the genesis coinbase rolls to the genesis header")
+
+    st = stats["search_candidates_hdr"]
+    m_mids, m_tails = K.extranonce_roll(m_job, i64([0, 0], dev), i64([0, 1], dev))
+    k4_cases = [
+        (g_mids[0], g_tails[0], GENESIS_NONCE - 1000, 4096, [1, 1000]),
+        (g_mids[0], g_tails[0], GENESIS_NONCE - 4095, 4096, [1, 4095]),
+        (g_mids[0], g_tails[0], GENESIS_NONCE - 4095, 4095, [0, K.NOT_FOUND]),
+    ]
+    k4_cases += [(m_mids[i % 2], m_tails[i % 2], int(rng.integers(0, 1 << 32)), CHECK_N, None)
+                 for i in range(3)]
+    for mid, tail, base, n, expect in k4_cases:
+        got = K.search_candidates_hdr(mid, tail, base, n, hw1_cap)
+        st.agree(got, K.search_candidates_hdr_plain(mid, tail, base, n, hw1_cap),
+                 f"base {base} n {n}")
+        if expect is not None and got.cpu().tolist() != expect:
+            fail(f"search_candidates_hdr base {base} n {n}: {got.tolist()} != {expect}")
+    say(f"  search_candidates_hdr: {len(k4_cases)} windows equal to plain; genesis as a "
+        "rolled job at offsets 1000 and 4095, masked by n")
+
+    # a mainnet-shaped plan: extranonces 0-2 over full rows, a ragged row,
+    # the genesis row with its winner, padding rows
+    mids, tails = K.extranonce_roll(
+        m_job, i64([0] * 4, dev), i64([0, 1, 2, 2], dev))
+    mids = torch.cat([mids, g_mids, torch.zeros((2, 8), dtype=torch.int64, device=dev)])
+    tails = torch.cat([tails, g_tails, torch.zeros((2, 3), dtype=torch.int64, device=dev)])
+    bases = i64([int(rng.integers(0, 1 << 32)) for _ in range(4)]
+                + [GENESIS_NONCE - 1000, 0, 0], dev)
+    valids = i64([CHECK_N] * 3 + [12345, CHECK_N, 0, 0], dev)
+    arms = []
+    for name, sched in (("search_candidates_hdr_batch", False),
+                        ("search_candidates_hdr_batch_sched", True)):
+        got = getattr(K, name)(mids, tails, bases, valids, CHECK_N, hw1_cap)
+        stats[name].agree(got, K.search_candidates_hdr_batch_plain(
+            mids, tails, bases, valids, CHECK_N, hw1_cap, sched=sched), "mainnet-shaped plan")
+        arms.append(got)
+        goffs = i64([k * CHECK_N for k in range(7)], dev)
+        if rolled.fold_rows(got, goffs).tolist() != [1, 4 * CHECK_N + 1000]:
+            fail(f"{name}: the genesis row's winner is not the plan's first candidate")
+    if not torch.equal(arms[0], arms[1]):
+        fail("the two arms of search_candidates_hdr_batch disagree")
+    say("  search_candidates_hdr_batch, both arms: a 7-row plan (3 extranonces, a ragged "
+        "row, the genesis row, 2 padding rows) equal to plain and to each other")
+    return dict(m_job=m_job, m_mids=m_mids, m_tails=m_tails, g_mid=g_mids[0], g_tail=g_tails[0])
+
+
+def time_rolled_kernels(dev, rng, stats, rolled, int_rate, hw1_cap):
+    """K4 at the main path's slab, both K5 arms at its width (8 rows of
+    2^27 nonces of one extranonce) and the roll at its rows (a window's
+    extranonce and the padding rows' extranonce 0), each timed
+    candidate-free (cap 0: no early exit) beside its bound. The plain
+    versions run at the job's real cap on inputs that hold a winner, and
+    each kernel must equal its plain version there: K4 over 2^26 nonces
+    with the genesis nonce in the middle; each K5 arm on a plan of the
+    main path's shape (width 2^27, roll_batch + 2 = 10 rows): six
+    2^23-nonce rows of the mainnet-shaped template, a ragged row, the
+    genesis row with its winner 2^22 in, two padding rows."""
+    from tpuminter_torch import chain
+    from tpuminter_torch.cuda_worker import DEFAULT_SLAB
+    from tpuminter_torch.kernels import sha256 as K
+
+    n = DEFAULT_SLAB
+    chunk = K.PLAIN_CHUNK["cuda"]
+    genesis = chain.GENESIS_HEADER
+
+    def swept(handle, valids):
+        """Nonces the plain version hashed: its chunks up to each row's
+        first candidate."""
+        total = 0
+        for (found, off), valid in zip(handle.tolist(), valids):
+            total += min(valid, -(-(off + 1) // chunk) * chunk) if found else valid
+        return total
+
+    def genesis_candidate(base, handle, what):
+        found, off = handle.tolist()
+        value = chain.hash_to_int(genesis.with_nonce((base + off) & M32).block_hash())
+        if not found or value >> 224 or (value >> 192) & M32 > hw1_cap:
+            fail(f"{what}: no hashlib-checked candidate in the genesis row")
+
+    mid, tail = rolled["m_mids"][0], rolled["m_tails"][0]
+    g_mid, g_tail = rolled["g_mid"], rolled["g_tail"]
+    base = int(rng.integers(0, (1 << 32) - n))
+    mids, tails = mid.repeat(ROWS, 1).contiguous(), tail.repeat(ROWS, 1).contiguous()
+    bases = i64([k * n for k in range(ROWS)], dev)
+    valids = i64([n] * ROWS, dev)
+    # the comparison plan at the main path's shape
+    p_mids, p_tails = K.extranonce_roll(rolled["m_job"], i64([0] * 7, dev), i64(range(7), dev))
+    zeros = torch.zeros((2, 8), dtype=torch.int64, device=dev)
+    p_mids = torch.cat([p_mids, g_mid[None], zeros])
+    p_tails = torch.cat([p_tails, g_tail[None], zeros[:, :3]])
+    genesis_base = GENESIS_NONCE - PLAIN_ROW_N // 2
+    p_base_list = [int(rng.integers(0, 1 << 32)) for _ in range(7)] + [genesis_base, 0, 0]
+    p_valid_list = [PLAIN_ROW_N] * 6 + [PLAIN_ROW_N - 12345, PLAIN_ROW_N, 0, 0]
+    p_bases, p_valids = i64(p_base_list, dev), i64(p_valid_list, dev)
+    k4_n = ROWS * PLAIN_ROW_N
+    k4_base = GENESIS_NONCE - k4_n // 2
+
+    per_nonce, per_row = op_count("search_candidates_hdr")
+    ms, _ = event_ms(lambda: K.search_candidates_hdr(mid, tail, base, n, 0), 5)
+    plain_ms, want = event_ms(
+        lambda: K.search_candidates_hdr_plain(g_mid, g_tail, k4_base, k4_n, hw1_cap), 1,
+        warmup=False)
+    got = K.search_candidates_hdr(g_mid, g_tail, k4_base, k4_n, hw1_cap)
+    stats["search_candidates_hdr"].agree(got, want, f"{k4_n} nonces around the genesis nonce")
+    genesis_candidate(k4_base, got, "search_candidates_hdr")
+    record(stats["search_candidates_hdr"], n, swept(want[None], [k4_n]), ms, plain_ms,
+           16 + 88, per_nonce, per_nonce * n + per_row, int_rate)
+    for name, sched in (("search_candidates_hdr_batch", False),
+                        ("search_candidates_hdr_batch_sched", True)):
+        fn = getattr(K, name)
+        ms, _ = event_ms(lambda: fn(mids, tails, bases, valids, n, 0), 5)
+        plain_ms, want = event_ms(lambda: K.search_candidates_hdr_batch_plain(
+            p_mids, p_tails, p_bases, p_valids, n, hw1_cap, sched=sched), 1, warmup=False)
+        got = fn(p_mids, p_tails, p_bases, p_valids, n, hw1_cap)
+        stats[name].agree(got, want, "10-row plan of width 2^27 at the real cap")
+        genesis_candidate(genesis_base, got[7], name)
+        if got[8:].tolist() != [[0, K.NOT_FOUND]] * 2:
+            fail(f"{name}: a padding row reported a candidate")
+        record(stats[name], ROWS * n, swept(want, p_valid_list), ms, plain_ms,
+               ROWS * (13 * 8 + 16), per_nonce, (per_nonce * n + per_row) * ROWS, int_rate)
+
+    job = rolled["m_job"]
+    en_hi, en_lo = i64([0, 0], dev), i64([1, 0], dev)
+    ms, got = event_ms(lambda: K.extranonce_roll(job, en_hi, en_lo), 20)
+    plain_ms, want = event_ms(lambda: K.extranonce_roll_plain(job, en_hi, en_lo), 1,
+                              warmup=False)
+    for g, w in zip(got, want):
+        stats["extranonce_roll"].agree(g, w, "2 rows, 12-deep")
+    per_row = roll_op_count(job)
+    record(stats["extranonce_roll"], 2, 2, ms, plain_ms, 8 * len(job.words()) + 2 * 8 * 13,
+           per_row, 2 * per_row, int_rate, unit="row")
 
 
 def phase_main_path(card: str):
@@ -334,8 +761,7 @@ def phase_main_path(card: str):
         if res.found != (got <= tgt):
             fail(f"{what}: found={res.found} but hash <= target is {got <= tgt}")
 
-    for fn in kernels.KERNELS:
-        fn.launches = 0
+    reset_launches(kernels)
     miner = CudaMiner()
     exact = CudaMiner(exact_min=True)
     # genesis at real difficulty over 2^30 + 4095 nonces (candidate kernel)
@@ -382,12 +808,114 @@ def phase_main_path(card: str):
         fail("MIN: reported fold is not toy_hash of the reported nonce")
     say(f"  MIN 2^30: nonce {res.nonce} fold {res.hash_value:#018x}, toy_hash-checked; "
         f"{(1 << 30) / dt / 1e9:.3f} GH/s on {card}")
+    return read_launches(kernels, FIXED_PATH_KERNELS, "fixed-header")
+
+
+#: the kernels each part of the main path must launch
+FIXED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates", "min_toy")
+ROLLED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates_hdr",
+                       "search_candidates_hdr_batch", "search_candidates_hdr_batch_sched",
+                       "extranonce_roll")
+
+
+def reset_launches(kernels) -> None:
+    for fn in kernels.KERNELS:
+        fn.launches = 0
+
+
+def read_launches(kernels, required, path):
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    say(f"  launches on the main path: {launches}")
-    for name, count in launches.items():
-        if count < 1:
-            fail(f"kernel {name} was not launched on the main path")
+    say(f"  launches on the {path} path: {launches}")
+    for name in required:
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the {path} path")
     return launches
+
+
+def phase_rolled_path(card: str, rng):
+    from tpuminter_torch import chain, kernels
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.protocol import MIN_UNTRACKED, PowMode, Request
+
+    genesis = chain.GENESIS_HEADER
+    target = chain.bits_to_target(genesis.bits)
+    cb = bytes.fromhex(GENESIS_COINBASE_HEX)
+
+    def check(req, res, what):
+        """Re-roll the reported index's header on the host and re-hash."""
+        en, nonce = chain.split_global(res.nonce, req.nonce_bits)
+        tmpl = chain.CoinbaseTemplate(req.coinbase_prefix, req.coinbase_suffix,
+                                      req.extranonce_size)
+        hdr = chain.rolled_header(req.header, tmpl, req.branch, en).with_nonce(nonce)
+        got = chain.hash_to_int(hdr.block_hash())
+        if got != res.hash_value or res.found != (got <= req.target):
+            fail(f"{what}: the Result fails the hashlib check")
+        return en, nonce
+
+    def mine(miner, req):
+        """A Result and its time, up to the end of the device work the
+        run launched (a window abandoned in flight above a winner
+        included)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = drain(miner.mine(req))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    reset_launches(kernels)
+    # (a) the genesis block as a rolled job, 2^30 + 4095 indices
+    req = Request(11, PowMode.TARGET, GENESIS_ROLLED - (1 << 30) + 1, GENESIS_ROLLED + 4095,
+                  header=genesis.pack(), target=target, coinbase_prefix=cb[:48],
+                  coinbase_suffix=cb[49:], extranonce_size=1, nonce_bits=32)
+    res, dt = mine(CudaMiner(), req)
+    en, nonce = check(req, res, "genesis as a rolled job")
+    if not res.found:
+        fail("genesis as a rolled job: no winner")
+    note = "" if res.nonce == GENESIS_ROLLED else " (an earlier winner, hashlib-checked)"
+    say(f"  genesis as a rolled job: extranonce {en} nonce {nonce}{note}; {res.searched} "
+        f"indices in {dt:.3f} s = {res.searched / dt / 1e9:.3f} GH/s on {card}")
+    rates = {"genesis_rolled": res.searched / dt / 1e9}
+    # (b) a mainnet-shaped template at difficulty 1 over four whole extranonces
+    prefix, suffix, branch = mainnet_template(rng)
+    req = Request(12, PowMode.TARGET, 0, (4 << 32) - 1, header=genesis.pack(),
+                  target=target, coinbase_prefix=prefix, coinbase_suffix=suffix,
+                  extranonce_size=4, branch=branch, nonce_bits=32)
+    results = []
+    for label, miner in (("roll_batch=8, sched on", CudaMiner()),
+                         ("roll_batch=8, sched off", CudaMiner(sched_share=False)),
+                         ("roll_batch=1 (K4)", CudaMiner(roll_batch=1))):
+        res, dt = mine(miner, req)
+        en, nonce = check(req, res, f"mainnet-shaped job, {label}")
+        results.append(res)
+        rates[label] = res.searched / dt / 1e9
+        say(f"  mainnet-shaped job, {label}: found={res.found} extranonce {en} nonce "
+            f"{nonce}, hashlib-checked; {res.searched} indices in {dt:.3f} s = "
+            f"{rates[label]:.3f} GH/s on {card}")
+    if any(r != results[0] for r in results):
+        fail(f"the mainnet-shaped job's three Results differ: {results}")
+    # (b') the same template at target 1 over one whole extranonce: no
+    # winner, so every window is swept (the path's sustained rate)
+    req = dataclasses.replace(req, job_id=14, lower=5 << 32, upper=(6 << 32) - 1, target=1)
+    res, dt = mine(CudaMiner(), req)
+    if res.found or res.searched != 1 << 32:
+        fail(f"sustained run: unexpected Result {res}")
+    if res.hash_value != MIN_UNTRACKED:
+        check(req, res, "sustained run")  # the surfaced candidates' minimum
+    rates["sustained"] = res.searched / dt / 1e9
+    say(f"  mainnet-shaped template, target 1, one whole extranonce: exhausted, "
+        f"{res.searched} indices in {dt:.3f} s = {rates['sustained']:.3f} GH/s on {card}")
+    # (c) a rolled regtest job: the tracking path
+    regtest = genesis.pack()[:72] + struct.pack("<I", REGTEST_BITS) + b"\0" * 4
+    req = Request(13, PowMode.TARGET, (4 << 32) - 2048, (4 << 32) + 2047, header=regtest,
+                  target=chain.bits_to_target(REGTEST_BITS), coinbase_prefix=prefix,
+                  coinbase_suffix=suffix, extranonce_size=4, branch=branch, nonce_bits=32)
+    res, _ = mine(CudaMiner(), req)
+    en, nonce = check(req, res, "rolled regtest job")
+    if not res.found:
+        fail("rolled regtest job: no winner")
+    say(f"  rolled regtest job (tracking path): extranonce {en} nonce {nonce}, found, "
+        "hashlib-checked")
+    return read_launches(kernels, ROLLED_PATH_KERNELS, "rolled"), rates
 
 
 def free_udp_port() -> int:
@@ -423,7 +951,7 @@ def phase_end_to_end() -> None:
         return lines[0].split()
 
     try:
-        start("coordinator", ["tpuminter.coordinator", str(port)])
+        start("coordinator", ["tpuminter.coordinator", str(port), "--roll-budget", "2"])
         deadline = time.time() + 60
         while "listening" not in open(os.path.join(log_dir, "e2e_coordinator.log")).read():
             if procs[0].poll() is not None or time.time() > deadline:
@@ -444,6 +972,23 @@ def phase_end_to_end() -> None:
         if int(fold) != chain.toy_hash(data.encode(), int(nonce)):
             fail(f"e2e MIN Result {fold} {nonce} fails the toy_hash check")
         say(f"  e2e MIN: Result {fold} {nonce} (toy_hash-checked)")
+        cb = bytes.fromhex(GENESIS_COINBASE_HEX)
+        t0 = time.perf_counter()
+        _, hash_hex, en_arg, nonce_arg = client([
+            "--header", genesis.pack().hex(), "--bits", "0x1d00ffff",
+            "--coinbase-prefix", cb[:48].hex(), "--coinbase-suffix", cb[49:].hex(),
+            "--extranonce-size", "1", "--max-extranonce", "4"])
+        dt = time.perf_counter() - t0
+        en, nonce = int(en_arg.split("=")[1]), int(nonce_arg.split("=")[1])
+        hdr = chain.rolled_header(genesis.pack(), chain.CoinbaseTemplate(cb[:48], cb[49:], 1),
+                                  (), en).with_nonce(nonce)
+        digest = hdr.block_hash()
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
+            fail(f"e2e rolled Result {hash_hex} extranonce={en} nonce={nonce} fails the "
+                 "hashlib check")
+        say(f"  e2e rolled: Result {hash_hex} extranonce={en} nonce={nonce} "
+            f"(re-rolled and hashlib-checked; {dt:.1f} s through the client)")
         if procs[1].poll() is not None:
             fail("the worker exited early")
     except BaseException:
@@ -474,15 +1019,19 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+
+    def phase(title):
+        say(f"== {title}   [{time.perf_counter() - t_start:.1f} s]")
+
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
-    say("== 1. environment")
+    phase("1. environment")
     say(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     say(smi)
     card_tag = f"{card}, {smi.split(',')[-1].strip()} limit"
 
-    say("== 2. build")
+    phase("2. build")
     info = build.build()
     say(f"  nvcc built {os.path.relpath(info.path, ROOT)} in {info.seconds:.1f} s")
     for line in info.log.splitlines():
@@ -494,27 +1043,33 @@ def main() -> int:
         say(f"  SASS {kernel}: {sum(ops_count.values())} instructions; "
             + ", ".join(f"{op} {c}" for op, c in top))
 
-    say("== 3. kernels against their plain versions")
+    phase("3. kernels against their plain versions")
     stats = phase_kernels(dev, np.random.default_rng(SEED))
 
-    say("== 4. main path (CudaMiner defaults)")
-    launches = phase_main_path(card_tag)
+    phase("4a. main path, fixed headers (CudaMiner defaults)")
+    fixed = phase_main_path(card_tag)
+    phase("4b. main path, rolled jobs")
+    rolled, rates = phase_rolled_path(card_tag, np.random.default_rng(SEED + 1))
 
-    say("== 5. end to end: coordinator + port worker + client processes")
+    phase("5. end to end: coordinator + port worker + client processes")
     phase_end_to_end()
 
     rows = []
     for name, st in stats.items():
         t = st.timing
+        path = fixed if name in FIXED_PATH_KERNELS else rolled
         rows.append({
             "name": name, "route": "cuda",
             "source": "tpuminter_torch/kernels/csrc/sha256.cu",
-            "replaces": st.replaces, "launches": launches[name],
+            "replaces": st.replaces, "launches": path[name],
+            "launches_by_path": {"fixed": fixed[name], "rolled": rolled[name]},
             "max_abs_err": st.max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-            "n": t["n"], "ops_per_nonce": t["ops_per_nonce"],
+            "n": t["n"], "plain_n": t.get("plain_n", t["n"]),
+            "ops_per_nonce": t["ops_per_nonce"],
             "int32_pipe_ms": t["int32_pipe_ms"], "checks": st.checks,
         })
+    say(json.dumps({"rolled_ghs": rates}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": rows}))

@@ -30,6 +30,15 @@ g = chain.GENESIS_HEADER
 res = [r for r in miner.mine(Request(2, PowMode.TARGET, g.nonce - 5, g.nonce + 5,
        header=g.pack(), target=chain.bits_to_target(g.bits))) if r][0]
 assert res.found and res.nonce == g.nonce
+cb = bytes(range(60))
+rolled = Request(3, PowMode.TARGET, 0, (3 << 8) - 1, header=g.pack(), target=1 << 255,
+                 coinbase_prefix=cb[:20], coinbase_suffix=cb[20:], extranonce_size=1,
+                 branch=(cb[:32],), nonce_bits=8)
+res = [r for r in miner.mine(rolled) if r][0]
+tmpl = chain.CoinbaseTemplate(cb[:20], cb[20:], 1)
+en, nonce = chain.split_global(res.nonce, 8)
+hdr = chain.rolled_header(g.pack(), tmpl, (cb[:32],), en).with_nonce(nonce)
+assert res.found and chain.hash_to_int(hdr.block_hash()) == res.hash_value <= 1 << 255
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tpuminter"))
 print("LOADED", bad)

@@ -151,3 +151,25 @@ def test_sha256_batch_plain_matches_hashlib():
         nonce = (int(hi[i]) << 32) | int(lo[i])
         want = ref_chain.sha256(data + nonce.to_bytes(8, "big"))
         assert bytes().join(int(w).to_bytes(4, "big") for w in got[i]) == want
+
+
+def test_bound_op_count_walks_sha256_itself():
+    """The on-card script's bound counts instructions on a dataflow graph
+    of SHA-256: folded on constants the graph is SHA-256 (hashlib), a
+    compression of run-time words costs 64 rounds x 14 + 48 schedule
+    words x 10 + 8 final adds, and every rolled search arm counts one
+    function."""
+    import hashlib
+    import struct
+
+    import chip_smoke as cs
+
+    msg = bytes(range(55))
+    block = struct.unpack(">16I", msg + b"\x80" + struct.pack(">Q", 8 * len(msg)))
+    words = cs._compress(cs._h0(), list(block))
+    assert struct.pack(">8I", *words) == hashlib.sha256(msg).digest()
+    var = [cs.leaf(cs.NONCE) for _ in range(24)]
+    assert cs._count(cs._compress(var[:8], var[8:])) == (64 * 14 + 48 * 10 + 8, 0)
+    arms = {cs.op_count(name) for name in ("search_candidates_hdr", "search_candidates_hdr_batch",
+                                           "search_candidates_hdr_batch_sched")}
+    assert len(arms) == 1

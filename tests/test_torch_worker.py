@@ -84,10 +84,12 @@ def test_cuda_miner_refuses_what_it_does_not_serve():
                           target=TARGET, coinbase_prefix=b"\x01", nonce_bits=4)
     scrypt = port.Request(7, port.PowMode.SCRYPT, 0, 255, header=GENESIS.pack(),
                           target=TARGET)
-    for req in (rolled, scrypt):
+    workload = port.Request(8, port.PowMode.MIN, 0, 255, data=b"x", workload="dict")
+    for req in (scrypt, workload):
         assert miner.unsupported(req)
         with pytest.raises(NotImplementedError):
             next(miner.mine(req))
+    assert miner.unsupported(rolled) is None  # rolled jobs are served
     assert miner.unsupported(_port_request(REQUESTS["min"])) is None
 
 
@@ -120,7 +122,7 @@ def test_codec_round_trips_with_reference(msg):
 
 def test_codec_drops_what_a_json_worker_never_receives():
     with pytest.raises(port.ProtocolError):
-        port.decode_msg(ref.encode_msg(ref.Beacon(1, 2, 3, 4, 5)))
+        port.decode_msg(ref.encode_msg(ref.Steal(job_id=1)))
     with pytest.raises(port.ProtocolError):
         port.decode_msg(ref.encode_msg(ref.Assign(1, 2, 3, 4), binary=True))
 

@@ -6,11 +6,11 @@ unchanged). It imports ``torch`` and numpy, never ``jax`` and nothing of
 (chain, protocol, the LSP client) it keeps as its own copies, and its
 only contact with the JAX package is the wire protocol.
 
-This first slice is the worker role: ``python -m tpuminter_torch.worker
+The port so far is the worker role: ``python -m tpuminter_torch.worker
 HOST:PORT`` joins an unchanged ``python -m tpuminter.coordinator`` and
-mines TARGET and MIN chunks on four hand-written CUDA kernels
-(``kernels/csrc/sha256.cu``), returning the Results the reference
-miners return. Entry points run on ``cuda`` unless the caller passes
+mines TARGET (fixed-header and rolled, extranonce included) and MIN
+chunks on hand-written CUDA kernels (``kernels/csrc/sha256.cu``),
+returning the Results the reference miners return. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
 Module counterparts (each module's docstring names its own):
@@ -20,8 +20,10 @@ Module counterparts (each module's docstring names its own):
 - ``lsp`` ← ``tpuminter.lsp`` (client side)
 - ``ops.sha256`` ← ``tpuminter.ops.sha256`` + the integer half of
   ``tpuminter.ops.symbolic``
+- ``ops.merkle`` ← ``tpuminter.ops.merkle``
 - ``kernels`` ← ``tpuminter.kernels.sha256``
 - ``search`` ← ``tpuminter.search``
+- ``rolled`` ← ``tpuminter.rolled``
 - ``cuda_worker`` ← ``tpuminter.tpu_worker``
 - ``worker`` ← ``tpuminter.worker``
 """

@@ -3,9 +3,10 @@
 Counterpart of ``tpuminter.chain``, reduced to what the worker role
 uses: the SHA-256 constants and pure-Python compression (the midstate
 that templates are built from), double SHA-256, the toy hash of the MIN
-dialect, difficulty decoding, and the 80-byte block header with the
-genesis block. Extranonce rolling, Merkle trees and scrypt wait for the
-rolled and SCRYPT dialects.
+dialect, difficulty decoding, the 80-byte block header with the genesis
+block, and the extranonce roll's host reference (coinbase template,
+Merkle branch fold, rolled headers and the global-index arithmetic of
+rolled jobs). Scrypt waits for the SCRYPT dialect.
 
 All functions are pure and host-side (hashlib / pure Python).
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 import hashlib
 import struct
 from dataclasses import dataclass, replace
-from typing import Sequence, Tuple
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 __all__ = [
     "SHA256_K",
@@ -29,6 +30,13 @@ __all__ = [
     "BlockHeader",
     "GENESIS_HEADER",
     "GENESIS_HASH_HEX",
+    "merkle_root_from_branch",
+    "CoinbaseTemplate",
+    "rolled_header",
+    "split_global",
+    "roll_span",
+    "rolled_segments",
+    "rolled_tiles",
 ]
 
 HEADER_SIZE = 80
@@ -160,6 +168,9 @@ class BlockHeader:
     def with_nonce(self, nonce: int) -> "BlockHeader":
         return replace(self, nonce=nonce & _MASK32)
 
+    def with_merkle_root(self, root: bytes) -> "BlockHeader":
+        return replace(self, merkle_root=root)
+
     def block_hash(self) -> bytes:
         return dsha256(self.pack())
 
@@ -176,3 +187,103 @@ GENESIS_HEADER = BlockHeader(
 )
 
 GENESIS_HASH_HEX = "000000000019d6689c085ae165831e934ff763ae46a2a6c172b3f1b60a8ce26f"
+
+
+# ---------------------------------------------------------------------------
+# Merkle branch and extranonce rolling (host reference of the device roll)
+# ---------------------------------------------------------------------------
+
+def merkle_root_from_branch(leaf: bytes, branch: Iterable[bytes], index: int = 0) -> bytes:
+    """Fold a leaf up a Merkle branch to the root."""
+    node = leaf
+    idx = index
+    for sibling in branch:
+        node = dsha256(sibling + node) if idx & 1 else dsha256(node + sibling)
+        idx //= 2
+    return node
+
+
+@dataclass(frozen=True)
+class CoinbaseTemplate:
+    """A coinbase transaction split around its extranonce bytes:
+    ``txid(e) = dsha256(prefix ‖ e as extranonce_size little-endian
+    bytes ‖ suffix)``."""
+
+    prefix: bytes
+    suffix: bytes
+    extranonce_size: int = 4
+
+    def serialize(self, extranonce: int) -> bytes:
+        return (
+            self.prefix
+            + int(extranonce).to_bytes(self.extranonce_size, "little")
+            + self.suffix
+        )
+
+    def txid(self, extranonce: int) -> bytes:
+        return dsha256(self.serialize(extranonce))
+
+    def merkle_root(self, extranonce: int, branch: Sequence[bytes]) -> bytes:
+        return merkle_root_from_branch(self.txid(extranonce), branch, index=0)
+
+
+def rolled_header(
+    header80: bytes, coinbase: CoinbaseTemplate, branch: Sequence[bytes], extranonce: int,
+) -> BlockHeader:
+    """The header mined at ``extranonce``: ``header80`` with its Merkle
+    root replaced by the root of the rolled coinbase (the coinbase is
+    leaf 0)."""
+    root = coinbase.merkle_root(extranonce, branch)
+    return BlockHeader.unpack(header80).with_merkle_root(root)
+
+
+def split_global(index: int, nonce_bits: int = 32) -> Tuple[int, int]:
+    """A rolled job's global index → ``(extranonce, nonce)``: global
+    index ``g`` is extranonce ``g >> nonce_bits`` with header nonce
+    ``g & (2^nonce_bits - 1)``."""
+    return index >> nonce_bits, index & ((1 << nonce_bits) - 1)
+
+
+def roll_span(extranonce0: int, count: int, nonce_bits: int = 32) -> Tuple[int, int]:
+    """Inclusive global-index range of ``count`` whole extranonce
+    segments from ``extranonce0``: how a ``RollAssign`` expands. The
+    coordinator carves with the same formula, so the two must agree bit
+    for bit."""
+    if count < 1:
+        raise ValueError("roll_span needs count >= 1")
+    lower = extranonce0 << nonce_bits
+    return lower, ((extranonce0 + count) << nonce_bits) - 1
+
+
+def rolled_segments(
+    lower: int, upper: int, nonce_bits: int = 32
+) -> Iterator[Tuple[int, int, int, int]]:
+    """Split ``[lower, upper]`` (global indices) into per-extranonce
+    segments ``(extranonce, global_base, nonce_lo, nonce_hi)``, the
+    spans over which the header is constant."""
+    idx = lower
+    mask = (1 << nonce_bits) - 1
+    while idx <= upper:
+        en = idx >> nonce_bits
+        seg_end = min(upper, ((en + 1) << nonce_bits) - 1)
+        yield en, en << nonce_bits, idx & mask, seg_end & mask
+        idx = seg_end + 1
+
+
+def rolled_tiles(
+    lower: int, upper: int, nonce_bits: int = 32, width: Optional[int] = None
+) -> Iterator[Tuple[int, int, int, int]]:
+    """:func:`rolled_segments` cut at ``width`` granularity: tiles
+    ``(extranonce, nonce_base, count, global_base)`` of at most ``width``
+    nonces that never cross an extranonce boundary, in ascending global
+    order. One tile is one row of a batched rolled sweep; ``width=None``
+    means whole segments."""
+    for en, base_g, n_lo, n_hi in rolled_segments(lower, upper, nonce_bits):
+        if width is None or width >= (1 << nonce_bits):
+            yield en, n_lo, n_hi - n_lo + 1, base_g | n_lo
+            continue
+        b = n_lo
+        while b <= n_hi:
+            take = min(width, n_hi - b + 1)
+            yield en, b, take, base_g | b
+            b += take

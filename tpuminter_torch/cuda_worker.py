@@ -11,6 +11,13 @@ Counterpart of ``tpuminter.tpu_worker`` (``TpuMiner``,
   tracking kernel, which compares the full hash and folds the exact
   minimum.
 - **MIN** runs the toy-dialect fold kernel, ``depth`` launches in flight.
+- **Rolled TARGET** (extranonce jobs, ``tpuminter_torch.rolled``) at
+  real difficulty runs ``rolled.mine_rolled_fast``: the roll kernel
+  feeds the batched dynamic-header candidate kernel, ``roll_batch`` rows
+  per launch (``roll_batch=1``: one segment at a time on K4); at
+  toy-easy targets it runs ``rolled.mine_rolled_tracking``, each
+  segment's header built on the host and swept by the tracking kernel.
+  ``exact_min`` does not apply to rolled jobs, as in the reference.
 
 The fast path does not track the 256-bit minimum, so an exhausted
 TARGET chunk reports the exact range minimum only when the range held a
@@ -19,9 +26,10 @@ word loses to every candidate); otherwise it reports
 ``protocol.MIN_UNTRACKED`` with ``found=False``. Construct with
 ``exact_min=True`` to match the CPU miner's exhausted-min output.
 
-Rolled and SCRYPT jobs are not served yet (``unsupported`` says why, and
-the worker loop refuses them). ``device="cpu"`` runs the same miner on
-the kernels' plain versions; a CUDA device that torch cannot see raises.
+SCRYPT jobs and workloads are not served yet (``unsupported`` says why,
+and the worker loop refuses them). ``device="cpu"`` runs the same miner
+on the kernels' plain versions; a CUDA device that torch cannot see
+raises.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from tpuminter_torch import chain, kernels
+from tpuminter_torch import chain, kernels, rolled
 from tpuminter_torch.ops import sha256 as ops
 from tpuminter_torch.protocol import MIN_UNTRACKED, PowMode, Request, Result
 from tpuminter_torch.search import CandidateSearch, pipeline_spans, resolve_handle
@@ -87,6 +95,8 @@ class CudaMiner(Miner):
         depth: int = DEFAULT_DEPTH,
         exact_min: bool = False,
         device="cuda",
+        roll_batch: int = 8,
+        sched_share: bool = True,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -101,9 +111,15 @@ class CudaMiner(Miner):
             raise ValueError("slab must be in [1, 2^30]")
         if depth < 1:
             raise ValueError("depth must be >= 1")
+        if roll_batch < 1:
+            raise ValueError("roll_batch must be >= 1")
         self.slab = slab
         self.depth = depth
         self.exact_min = exact_min
+        #: extranonce rows per rolled launch; 1 = one segment at a time (K4)
+        self.roll_batch = roll_batch
+        #: K5's shared-schedule arm and one roll per distinct extranonce
+        self.sched_share = sched_share
         # scheduler hints: ask for chunks a few slabs deep
         self.lanes = max(1, (slab * 4) // 16_384)
         self.span = slab
@@ -112,8 +128,6 @@ class CudaMiner(Miner):
     def unsupported(self, request: Request) -> Optional[str]:
         if request.workload:
             return f"workload {request.workload!r} is not served by this worker"
-        if request.rolled:
-            return "rolled (extranonce) jobs are not ported yet"
         if request.mode == PowMode.SCRYPT:
             return "the SCRYPT dialect is not ported yet"
         return None
@@ -125,6 +139,17 @@ class CudaMiner(Miner):
         self._self_check()
         if request.mode == PowMode.MIN:
             yield from self._mine_min(request)
+        elif request.rolled:
+            if _fast_path_ok(request.target):
+                yield from rolled.mine_rolled_fast(
+                    request, slab=self.slab, depth=self.depth,
+                    roll_batch=self.roll_batch, sched_share=self.sched_share,
+                    device=self.device, progress=self.progress_cb,
+                )
+            else:
+                yield from rolled.mine_rolled_tracking(
+                    request, self._mine_target_tracking, progress=self.progress_cb,
+                )
         elif self.exact_min or not _fast_path_ok(request.target):
             yield from self._mine_target_tracking(request)
         else:

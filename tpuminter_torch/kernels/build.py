@@ -106,6 +106,11 @@ def library() -> ctypes.CDLL:
             tmpl, ctypes.POINTER(TmTarget), u32, u32, ptr, ptr, i32, i32, ptr,
         ],
         "tm_min_toy": [tmpl, u32, u32, u32, ptr, ptr, i32, i32, ptr],
+        "tm_search_candidates_hdr": [ptr, ptr, u32, u32, u32, ptr, i32, i32, ptr],
+        "tm_search_candidates_hdr_batch": [
+            ptr, ptr, ptr, ptr, i32, u32, u32, i32, ptr, i32, i32, ptr,
+        ],
+        "tm_extranonce_roll": [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,13 +1,18 @@
 // SHA-256 mining kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (tpuminter_torch/kernels/build.py).
 //
-// Four kernels, each replacing one Pallas kernel of
-// tpuminter/kernels/sha256.py:
+// Six kernels, each replacing one Pallas kernel of
+// tpuminter/kernels/sha256.py, and the extranonce roll:
 //
-//   tm_sha256_batch       <- pallas_sha256_batch        (sha256.py:87)
-//   tm_search_target      <- pallas_search_target       (sha256.py:257)
-//   tm_search_candidates  <- pallas_search_candidates   (sha256.py:371)
-//   tm_min_toy            <- pallas_min_toy             (sha256.py:733)
+//   tm_sha256_batch                <- pallas_sha256_batch                (sha256.py:87)
+//   tm_search_target               <- pallas_search_target               (sha256.py:257)
+//   tm_search_candidates           <- pallas_search_candidates           (sha256.py:371)
+//   tm_search_candidates_hdr       <- pallas_search_candidates_hdr       (sha256.py:489)
+//   tm_search_candidates_hdr_batch <- pallas_search_candidates_hdr_batch (sha256.py:606),
+//                                     both sched arms
+//   tm_min_toy                     <- pallas_min_toy                     (sha256.py:733)
+//   tm_extranonce_roll             <- the jnp roll of tpuminter/ops/merkle.py:84
+//                                     (a jitted program there, no pallas_call)
 //
 // What bounds them: 32-bit integer issue. A nonce costs one or two
 // 64-round compressions (~2,000-2,400 integer instructions each: adds,
@@ -20,8 +25,14 @@
 //   * rotations are single funnel shifts (__funnelshift_r), Ch and Maj
 //     the two-operation forms that compile to LOP3;
 //   * the message schedule is a rolling 16-word window in registers;
-//   * K3 stops the second compression after round 61 (digest words 6
-//     and 7 only), and every search exits early through one device word;
+//   * K3-K5 stop the second compression after round 61 (digest words 6
+//     and 7 only), and every search exits early through one device word
+//     (one per row for K5);
+//   * K4/K5 take the header from device memory (the roll's output) and
+//     keep its padding words as compile-time constants, so the compiler
+//     folds the schedule terms they feed; K5's sched arm also computes
+//     each row's nonce-free prefix (rounds 0-2, w16, w17, most of w18
+//     and w19) once, outside the nonce loop;
 //   * reductions are per-thread, then per-block in shared memory, then
 //     one small block over the per-block partials: no atomics on the
 //     min path, and results do not depend on scheduling order.
@@ -207,6 +218,106 @@ __device__ __forceinline__ void second_e60_e61(const TmTemplate& t, uint32_t lo,
   e61 = v[4];
 }
 
+// ---- dynamic headers (K4, K5) -------------------------------------------
+//
+// An 80-byte header's second block is tail words t0..t2 (Merkle word 7,
+// time, bits), the byteswapped nonce, then constant FIPS padding.
+
+constexpr uint32_t kHdrLen = 640u;  // bit length of an 80-byte header
+
+__device__ __forceinline__ void header_block(uint32_t t0, uint32_t t1, uint32_t t2,
+                                             uint32_t nonce, uint32_t (&m)[16]) {
+  m[0] = t0; m[1] = t1; m[2] = t2; m[3] = bswap32(nonce);
+  m[4] = 0x80000000u;
+#pragma unroll
+  for (int i = 5; i < 15; ++i) m[i] = 0;
+  m[15] = kHdrLen;
+}
+
+// (e60, e61) of the second compression given the first hash's state.
+__device__ __forceinline__ void truncated_second(const uint32_t (&first)[8], uint32_t& e60,
+                                                 uint32_t& e61) {
+  uint32_t s[8], m[16], v[8];
+  second_block(first, m);
+  init_state(s);
+  rounds<62>(s, m, v, &e60);
+  e61 = v[4];
+}
+
+// The plain body: the whole first compression per nonce.
+__device__ __forceinline__ void header_e60_e61(const uint32_t (&mid)[8], uint32_t t0,
+                                               uint32_t t1, uint32_t t2, uint32_t nonce,
+                                               uint32_t& e60, uint32_t& e61) {
+  uint32_t s[8], m[16];
+  header_block(t0, t1, t2, nonce, m);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = mid[i];
+  compress(s, m);
+  truncated_second(s, e60, e61);
+}
+
+// What no nonce changes (ops/sha256.py prepare_hdr): the state after
+// rounds 0-2, w16, w17, and w18 less sigma0(w3), w19 less w3.
+struct HdrPrep {
+  uint32_t mid[8];
+  uint32_t v[8];
+  uint32_t w16, w17, p18, p19;
+};
+
+__device__ __forceinline__ void round_step(uint32_t (&x)[8], uint32_t k, uint32_t w) {
+  const uint32_t t1 = x[7] + big_sigma1(x[4]) + ch(x[4], x[5], x[6]) + k + w;
+  const uint32_t t2 = big_sigma0(x[0]) + maj(x[0], x[1], x[2]);
+  x[7] = x[6]; x[6] = x[5]; x[5] = x[4]; x[4] = x[3] + t1;
+  x[3] = x[2]; x[2] = x[1]; x[1] = x[0]; x[0] = t1 + t2;
+}
+
+__device__ __forceinline__ void prepare_hdr(const uint32_t (&mid)[8], uint32_t t0,
+                                            uint32_t t1, uint32_t t2, HdrPrep& p) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) p.mid[i] = p.v[i] = mid[i];
+  round_step(p.v, kK[0], t0);
+  round_step(p.v, kK[1], t1);
+  round_step(p.v, kK[2], t2);
+  // w9 = w10 = w11 = w12 = w14 = 0, w4 = 0x80000000, w15 = 640
+  p.w16 = t0 + small_sigma0(t1);
+  p.w17 = t1 + small_sigma0(t2) + small_sigma1(kHdrLen);
+  p.p18 = t2 + small_sigma1(p.w16);
+  p.p19 = small_sigma0(0x80000000u) + small_sigma1(p.w17);
+}
+
+// The sched body (ops/sha256.py hash_prepared_e60_e61): rounds 3-63 of
+// the first compression from a prepared row, then the truncated second.
+__device__ __forceinline__ void prepared_e60_e61(const HdrPrep& p, uint32_t nonce,
+                                                 uint32_t& e60, uint32_t& e61) {
+  uint32_t w[64];
+  w[0] = w[1] = w[2] = 0;  // dead past round 2
+  w[3] = bswap32(nonce);
+  w[4] = 0x80000000u;
+#pragma unroll
+  for (int i = 5; i < 15; ++i) w[i] = 0;
+  w[15] = kHdrLen;
+  w[16] = p.w16;
+  w[17] = p.w17;
+  w[18] = p.p18 + small_sigma0(w[3]);
+  w[19] = p.p19 + w[3];
+#pragma unroll
+  for (int i = 20; i < 64; ++i) {
+    w[i] = small_sigma1(w[i - 2]) + w[i - 7] + small_sigma0(w[i - 15]) + w[i - 16];
+  }
+  uint32_t x[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = p.v[i];
+#pragma unroll
+  for (int i = 3; i < 64; ++i) round_step(x, kK[i], w[i]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] += p.mid[i];
+  truncated_second(x, e60, e61);
+}
+
+__device__ __forceinline__ bool is_candidate(uint32_t e60, uint32_t e61, uint32_t hw1_cap) {
+  return e60 == kCandE60 && bswap32(kDigest6Bias + e61) <= hw1_cap;
+}
+
 // Lexicographic a < b over K u32 keys.
 template <int K>
 __device__ __forceinline__ bool lex_less(const uint32_t (&a)[K], const uint32_t (&b)[K]) {
@@ -254,6 +365,14 @@ __global__ void fill_kernel(long long* h, long long v0, long long v1, int count)
   }
 }
 
+// Writes `rows` handles [v0, v1].
+__global__ void fill_rows_kernel(long long* h, long long v0, long long v1, int rows) {
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += gridDim.x * blockDim.x) {
+    h[2 * r] = v0;
+    h[2 * r + 1] = v1;
+  }
+}
+
 // ---- K1: digests for explicit nonces (one thread per nonce) -------------
 
 __global__ void __launch_bounds__(kThreads)
@@ -293,6 +412,166 @@ search_candidates_kernel(const TmTemplate t, uint32_t base, uint32_t n,
       }
     }
   }
+}
+
+// ---- K4: K3's test under a header read from device memory -------------
+//
+// The roll writes the header's midstate and tail words to device memory;
+// every thread reads them once. Same ascending warps and early exit as K3.
+__global__ void __launch_bounds__(kThreads)
+search_candidates_hdr_kernel(const long long* mid8, const long long* tail3, uint32_t base,
+                             uint32_t n, uint32_t hw1_cap, unsigned long long* h) {
+  uint32_t mid[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mid[i] = (uint32_t)mid8[i];
+  const uint32_t t0 = (uint32_t)tail3[0], t1 = (uint32_t)tail3[1], t2 = (uint32_t)tail3[2];
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t w0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31u); w0 < n;
+       w0 += stride) {
+    if (w0 > *(volatile unsigned long long*)&h[1]) break;
+    const uint32_t off = w0 + lane;
+    if (off < n) {
+      uint32_t e60, e61;
+      header_e60_e61(mid, t0, t1, t2, base + off, e60, e61);
+      if (is_candidate(e60, e61, hw1_cap)) {
+        atomicMin(&h[1], (unsigned long long)off);
+        h[0] = 1;
+      }
+    }
+  }
+}
+
+// ---- K5: K4 over B roll rows in one launch ------------------------------
+//
+// Row r sweeps offsets [0, min(valid_r, width)) of its own header from
+// base_r and exits early on its own handle word h[2r + 1]. The grid is
+// persistent and walks the flattened index row * width + off, so rows
+// share every SM and a ragged or empty row (valid 0) frees its threads
+// at once. Each lane's offsets ascend within a row; a lane skips the
+// rest of a row once its offset passes the row's valid count or the
+// row's lowest candidate so far, so every offset below the final
+// h[2r + 1] is evaluated, as in K3. A lane reloads the row's header
+// (and, with kSched, recomputes the row's nonce-free prefix) only when
+// it moves to the next row.
+template <bool kSched>
+__global__ void __launch_bounds__(kThreads)
+search_candidates_hdr_batch_kernel(const long long* mids, const long long* tails,
+                                   const long long* bases, const long long* valids,
+                                   int rows, uint32_t width, uint32_t hw1_cap,
+                                   unsigned long long* h) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  const unsigned long long i0 = (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int row = (int)(i0 / width);
+  uint32_t off = (uint32_t)(i0 - (unsigned long long)row * width);
+  int loaded = -1;
+  uint32_t mid[8], t0 = 0, t1 = 0, t2 = 0, base = 0, limit = 0;
+  HdrPrep prep;
+  while (row < rows) {
+    if (row != loaded) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mid[i] = (uint32_t)mids[row * 8 + i];
+      t0 = (uint32_t)tails[row * 3];
+      t1 = (uint32_t)tails[row * 3 + 1];
+      t2 = (uint32_t)tails[row * 3 + 2];
+      base = (uint32_t)bases[row];
+      const long long valid = valids[row];
+      limit = valid < (long long)width ? (uint32_t)(valid > 0 ? valid : 0) : width;
+      if (kSched) prepare_hdr(mid, t0, t1, t2, prep);
+      loaded = row;
+    }
+    unsigned long long* hr = h + 2 * row;
+    if (off < limit && off <= *(volatile unsigned long long*)&hr[1]) {
+      uint32_t e60, e61;
+      if (kSched) {
+        prepared_e60_e61(prep, base + off, e60, e61);
+      } else {
+        header_e60_e61(mid, t0, t1, t2, base + off, e60, e61);
+      }
+      if (is_candidate(e60, e61, hw1_cap)) {
+        atomicMin(&hr[1], (unsigned long long)off);
+        hr[0] = 1;
+      }
+      off += stride;
+    } else {
+      // nothing left for this lane in this row: on to its first offset
+      // past the row's end
+      off += ((width - 1u - off) / stride + 1u) * stride;
+    }
+    while (off >= width && row < rows) {
+      off -= width;
+      ++row;
+    }
+  }
+}
+
+// ---- the extranonce roll: one thread per extranonce row -----------------
+//
+// job (int64 words): coinbase midstate [8] | coinbase tail blocks
+// [16 * n_blocks], extranonce bytes zeroed | byte positions [4 * n_pos]
+// (block, word, word shift, extranonce shift) | branch [8 * depth] |
+// header words 0-8 [9] | time, bits [2]. Per row: the coinbase txid
+// (double SHA), the branch fold with the coinbase always on the left,
+// then the header's first block: midstate (8) and tail words (3).
+// Run once per window on a few rows; what bounds it is launch latency.
+__global__ void extranonce_roll_kernel(const long long* job, int n_blocks, int n_pos,
+                                       int depth, const long long* en_hi,
+                                       const long long* en_lo, long long* mids,
+                                       long long* tails, int rows) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const uint32_t hi = (uint32_t)en_hi[r], lo = (uint32_t)en_lo[r];
+  const long long* cb_tail = job + 8;
+  const long long* pos = cb_tail + 16 * n_blocks;
+  const long long* branch = pos + 4 * n_pos;
+  const long long* head = branch + 8 * depth;
+  uint32_t s[8], m[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = (uint32_t)job[i];
+  for (int b = 0; b < n_blocks; ++b) {
+    for (int i = 0; i < 16; ++i) m[i] = (uint32_t)cb_tail[16 * b + i];
+    for (int p = 0; p < n_pos; ++p) {
+      if (pos[4 * p] == b) {
+        const int nshift = (int)pos[4 * p + 3];
+        const uint32_t src = nshift >= 32 ? hi : lo;
+        m[pos[4 * p + 1]] |= ((src >> (nshift & 31)) & 0xFFu) << pos[4 * p + 2];
+      }
+    }
+    compress(s, m);
+  }
+  second_block(s, m);
+  init_state(s);
+  compress(s, m);  // s = the coinbase txid's words
+  for (int d = 0; d < depth; ++d) {
+    uint32_t t[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = s[i];
+      m[8 + i] = (uint32_t)branch[8 * d + i];
+    }
+    init_state(t);
+    compress(t, m);
+    m[0] = 0x80000000u;
+#pragma unroll
+    for (int i = 1; i < 15; ++i) m[i] = 0;
+    m[15] = 512;
+    compress(t, m);
+    second_block(t, m);
+    init_state(s);
+    compress(s, m);
+  }
+  uint32_t hs[8];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) m[i] = (uint32_t)head[i];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) m[9 + i] = s[i];
+  init_state(hs);
+  compress(hs, m);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mids[8 * r + i] = hs[i];
+  tails[3 * r] = s[7];
+  tails[3 * r + 1] = (uint32_t)head[9];
+  tails[3 * r + 2] = (uint32_t)head[10];
 }
 
 // ---- K2: full target compare + exact running minimum --------------------
@@ -429,6 +708,45 @@ int tm_search_target(const TmTemplate* t, const TmTarget* target, uint32_t base,
   search_target_kernel<<<grid, kThreads, 0, s>>>(
       *t, *target, base, n, (unsigned long long*)handle, partial);
   reduce_kernel<9><<<1, kThreads, 0, s>>>(partial, grid, handle, 2);
+  return finish();
+}
+
+int tm_search_candidates_hdr(const long long* mid8, const long long* tail3, uint32_t base,
+                             uint32_t n, uint32_t hw1_cap, long long* handle, int grid,
+                             int device, void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = (cudaStream_t)stream;
+  fill_kernel<<<1, 32, 0, s>>>(handle, 0, kNotFound, 2);
+  search_candidates_hdr_kernel<<<grid, kThreads, 0, s>>>(
+      mid8, tail3, base, n, hw1_cap, (unsigned long long*)handle);
+  return finish();
+}
+
+int tm_search_candidates_hdr_batch(const long long* mids, const long long* tails,
+                                   const long long* bases, const long long* valids,
+                                   int rows, uint32_t width, uint32_t hw1_cap, int sched,
+                                   long long* handle, int grid, int device, void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = (cudaStream_t)stream;
+  fill_rows_kernel<<<(rows + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      handle, 0, kNotFound, rows);
+  unsigned long long* h = (unsigned long long*)handle;
+  if (sched) {
+    search_candidates_hdr_batch_kernel<true><<<grid, kThreads, 0, s>>>(
+        mids, tails, bases, valids, rows, width, hw1_cap, h);
+  } else {
+    search_candidates_hdr_batch_kernel<false><<<grid, kThreads, 0, s>>>(
+        mids, tails, bases, valids, rows, width, hw1_cap, h);
+  }
+  return finish();
+}
+
+int tm_extranonce_roll(const long long* job, int n_blocks, int n_pos, int depth,
+                       const long long* en_hi, const long long* en_lo, long long* mids,
+                       long long* tails, int rows, int device, void* stream) {
+  cudaSetDevice(device);
+  extranonce_roll_kernel<<<(rows + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
+      job, n_blocks, n_pos, depth, en_hi, en_lo, mids, tails, rows);
   return finish();
 }
 

@@ -3,9 +3,11 @@
 Counterpart of ``tpuminter.kernels.sha256``. Each wrapper runs its CUDA
 kernel (``csrc/sha256.cu``) for the card and its plain PyTorch version
 for the CPU, chosen only by where its input lies: the nonce tensors for
-:func:`sha256_batch`, the ``device`` argument for the searches (whose
-inputs are scalars). A CUDA request launches the kernel or raises;
-nothing falls back to the plain version.
+:func:`sha256_batch`, the header tensors for the rolled searches and
+the extranonce tensors for :func:`extranonce_roll`, the ``device``
+argument for the fixed-template searches (whose inputs are scalars). A
+CUDA request launches the kernel or raises; nothing falls back to the
+plain version.
 
 u32 values travel as ``int64`` tensors holding ``[0, 2^32)`` (torch's
 CPU backend has no uint32 arithmetic). A search returns a small
@@ -16,6 +18,14 @@ for the device until the caller reads it:
 - :func:`search_target`: ``[found, first_off, min_words[8], min_off]``
   (the min fields cover the whole range only when ``found == 0``)
 - :func:`min_toy`: ``[fold_hi, fold_lo, argmin_off]``
+- :func:`search_candidates_hdr`: ``[found, first_off]``
+- :func:`search_candidates_hdr_batch` and its ``_sched`` arm: ``(B, 2)``,
+  ``[found, first_off]`` per row
+
+The rolled kernels read their headers from device memory, where
+:func:`extranonce_roll` writes them: ``(B, 8)`` midstates and ``(B, 3)``
+tail words (Merkle word 7, time, bits), so no header crosses to the
+host while a rolled job is swept.
 
 Offsets are relative to the base; ``first_off`` is ``0x7FFFFFFF`` when
 nothing was found. Each wrapper's ``launches`` attribute counts its
@@ -33,12 +43,17 @@ from typing import Sequence
 import torch
 
 from tpuminter_torch.kernels import build
+from tpuminter_torch.ops import merkle
 from tpuminter_torch.ops import sha256 as ops
 
 __all__ = [
     "sha256_batch", "search_target", "search_candidates", "min_toy",
+    "search_candidates_hdr", "search_candidates_hdr_batch",
+    "search_candidates_hdr_batch_sched", "extranonce_roll",
     "sha256_batch_plain", "search_target_plain", "search_candidates_plain",
-    "min_toy_plain", "KERNELS", "NOT_FOUND",
+    "min_toy_plain", "search_candidates_hdr_plain",
+    "search_candidates_hdr_batch_plain", "extranonce_roll_plain",
+    "KERNELS", "NOT_FOUND",
 ]
 
 #: ``first_off`` when no offset of the range hit
@@ -110,6 +125,18 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
+def _check_lanes(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != _I64 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int64 tensor of shape {tuple(shape)}")
+
+
+def _same_device(*tensors: torch.Tensor) -> torch.device:
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError("inputs must lie on one device")
+    return device
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -120,6 +147,13 @@ def _offsets(n: int, device):
     step = PLAIN_CHUNK[device.type]
     for start in range(0, n, step):
         yield torch.arange(start, min(n, start + step), dtype=_I64, device=device)
+
+
+def _candidate_hits(e60, e61, hw1_cap: int) -> torch.Tensor:
+    """Indices of the lanes that pass the candidate test: digest word 7
+    zero and hash word 1 ``<= hw1_cap``."""
+    hw1 = ops.byteswap32((ops.DIGEST6_BIAS + e61) & ops.M32)
+    return torch.nonzero((e60 == ops.CAND_E60) & (hw1 <= hw1_cap))
 
 
 def _argmin_lex(keys: Sequence[torch.Tensor]) -> int:
@@ -180,8 +214,7 @@ def search_candidates_plain(template: ops.NonceTemplate, base: int, n: int,
                             hw1_cap: int, device="cpu") -> torch.Tensor:
     for offs in _offsets(n, device):
         e60, e61 = ops.e60_e61(template, 0, (base + offs) & ops.M32)
-        hw1 = ops.byteswap32((ops.DIGEST6_BIAS + e61) & ops.M32)
-        hits = torch.nonzero((e60 == ops.CAND_E60) & (hw1 <= hw1_cap))
+        hits = _candidate_hits(e60, e61, hw1_cap)
         if len(hits):
             return torch.tensor([1, int(offs[hits[0, 0]])], dtype=_I64, device=device)
     return torch.tensor([0, NOT_FOUND], dtype=_I64, device=device)
@@ -308,7 +341,169 @@ def min_toy(template: ops.NonceTemplate, base_hi: int, base_lo: int, n: int,
     return handle
 
 
-#: every kernel wrapper, in table order (K1, K2, K3, K6)
-KERNELS = (sha256_batch, search_target, search_candidates, min_toy)
+# ---------------------------------------------------------------------------
+# K4 and K5: candidate search under dynamic headers (the rolled sweep)
+# ---------------------------------------------------------------------------
+
+def _first_hdr_candidate(mid, tail, base: int, n: int, hw1_cap: int, device,
+                         sched: bool = False) -> list:
+    """``[found, first_off]`` of one header (words as ints), plain."""
+    prep = ops.prepare_hdr(mid, *tail) if sched else None
+    for offs in _offsets(n, device):
+        nonces = (base + offs) & ops.M32
+        if sched:
+            e60, e61 = ops.hash_prepared_e60_e61(prep, nonces)
+        else:
+            e60, e61 = ops.header_e60_e61_dyn(mid, tail, nonces)
+        hits = _candidate_hits(e60, e61, hw1_cap)
+        if len(hits):
+            return [1, int(offs[hits[0, 0]])]
+    return [0, NOT_FOUND]
+
+
+def search_candidates_hdr_plain(mid8: torch.Tensor, tail3: torch.Tensor, base: int,
+                                n: int, hw1_cap: int) -> torch.Tensor:
+    found = _first_hdr_candidate(mid8.tolist(), tail3.tolist(), base, n, hw1_cap,
+                                 mid8.device)
+    return torch.tensor(found, dtype=_I64, device=mid8.device)
+
+
+def search_candidates_hdr(mid8: torch.Tensor, tail3: torch.Tensor, base: int, n: int,
+                          hw1_cap: int = 0xFFFFFFFF) -> torch.Tensor:
+    """:func:`search_candidates` under a header given as values: its
+    midstate ``mid8`` (8,) and tail words ``tail3`` (3,), int64 tensors
+    (an :func:`extranonce_roll` row, never read by the host). First
+    candidate offset in ``[0, n)`` from nonce ``base``. Handle
+    ``[found, first_off]``."""
+    _check_n(n)
+    _check_u32(base=base, hw1_cap=hw1_cap)
+    _check_lanes("mid8", mid8, (8,))
+    _check_lanes("tail3", tail3, (3,))
+    device = _same_device(mid8, tail3)
+    if device.type == "cpu":
+        return search_candidates_hdr_plain(mid8, tail3, base, n, hw1_cap)
+    device = _cuda_device(device)
+    handle = torch.empty(2, dtype=_I64, device=device)
+    _launch(
+        "tm_search_candidates_hdr", mid8.data_ptr(), tail3.data_ptr(), base, n, hw1_cap,
+        handle.data_ptr(), _grid(n, device.index), device.index, _stream(device),
+    )
+    search_candidates_hdr.launches += 1
+    return handle
+
+
+def search_candidates_hdr_batch_plain(mids: torch.Tensor, tails: torch.Tensor,
+                                      bases: torch.Tensor, valids: torch.Tensor,
+                                      width: int, hw1_cap: int,
+                                      sched: bool = False) -> torch.Tensor:
+    """Plain version of both K5 arms; ``sched`` selects the
+    shared-schedule formula (:func:`ops.prepare_hdr`)."""
+    rows = []
+    for mid, tail, base, valid in zip(mids.tolist(), tails.tolist(), bases.tolist(),
+                                      valids.tolist()):
+        n = min(max(valid, 0), width)
+        rows.append(_first_hdr_candidate(mid, tail, base, n, hw1_cap, mids.device, sched)
+                    if n else [0, NOT_FOUND])
+    return torch.tensor(rows, dtype=_I64, device=mids.device).reshape(-1, 2)
+
+
+def _hdr_batch(arm, mids, tails, bases, valids, width: int, hw1_cap: int,
+               sched: bool) -> torch.Tensor:
+    """Both K5 arms: validation, the plain version for the CPU, and the
+    launch, counted on ``arm`` (the public wrapper)."""
+    if not 1 <= width <= 1 << 30:
+        raise ValueError("width must be in [1, 2^30]")
+    _check_u32(hw1_cap=hw1_cap)
+    b = mids.shape[0] if mids.dim() == 2 else -1
+    _check_lanes("mids", mids, (b, 8))
+    _check_lanes("tails", tails, (b, 3))
+    _check_lanes("bases", bases, (b,))
+    _check_lanes("valids", valids, (b,))
+    device = _same_device(mids, tails, bases, valids)
+    if device.type == "cpu":
+        return search_candidates_hdr_batch_plain(mids, tails, bases, valids, width,
+                                                 hw1_cap, sched)
+    device = _cuda_device(device)
+    handle = torch.empty((b, 2), dtype=_I64, device=device)
+    if b:
+        _launch(
+            "tm_search_candidates_hdr_batch", mids.data_ptr(), tails.data_ptr(),
+            bases.data_ptr(), valids.data_ptr(), b, width, hw1_cap, int(sched),
+            handle.data_ptr(), _grid(b * width, device.index), device.index,
+            _stream(device),
+        )
+        arm.launches += 1
+    return handle
+
+
+def search_candidates_hdr_batch(mids: torch.Tensor, tails: torch.Tensor,
+                                bases: torch.Tensor, valids: torch.Tensor, width: int,
+                                hw1_cap: int = 0xFFFFFFFF) -> torch.Tensor:
+    """:func:`search_candidates_hdr` over ``B`` roll rows in one launch:
+    row ``r`` sweeps offsets ``[0, min(valids[r], width))`` of its own
+    header (``mids`` (B, 8), ``tails`` (B, 3)) from nonce ``bases[r]``,
+    int64 tensors on one device. Handle ``(B, 2)``, ``[found,
+    first_off]`` per row, offsets relative to the row's base. This arm
+    runs the whole first compression per nonce (the reference's
+    ``sched=False`` body)."""
+    return _hdr_batch(search_candidates_hdr_batch, mids, tails, bases, valids, width,
+                      hw1_cap, sched=False)
+
+
+def search_candidates_hdr_batch_sched(mids: torch.Tensor, tails: torch.Tensor,
+                                      bases: torch.Tensor, valids: torch.Tensor,
+                                      width: int,
+                                      hw1_cap: int = 0xFFFFFFFF) -> torch.Tensor:
+    """:func:`search_candidates_hdr_batch` with each row's nonce-free
+    prefix (rounds 0-2, ``w16``, ``w17``, most of ``w18``/``w19``)
+    computed once per row, outside the nonce loop (the reference's
+    ``sched=True`` body). Same handle, bit for bit."""
+    return _hdr_batch(search_candidates_hdr_batch_sched, mids, tails, bases, valids,
+                      width, hw1_cap, sched=True)
+
+
+# ---------------------------------------------------------------------------
+# the extranonce roll
+# ---------------------------------------------------------------------------
+
+extranonce_roll_plain = merkle.roll_plain
+
+
+@functools.lru_cache(maxsize=16)
+def _job_buffer(job: merkle.RollJob, device: torch.device) -> torch.Tensor:
+    return torch.tensor(job.words(), dtype=_I64, device=device)
+
+
+def extranonce_roll(job: merkle.RollJob, en_hi: torch.Tensor, en_lo: torch.Tensor):
+    """Roll extranonces ``en_hi << 32 | en_lo`` ((B,) int64 tensors) into
+    their headers: ``(midstates (B, 8), tail words (B, 3))`` int64
+    tensors on the same device (≡ ``chain.rolled_header`` per row)."""
+    b = en_lo.shape[0] if en_lo.dim() == 1 else -1
+    _check_lanes("en_hi", en_hi, (b,))
+    _check_lanes("en_lo", en_lo, (b,))
+    device = _same_device(en_hi, en_lo)
+    if device.type == "cpu":
+        return extranonce_roll_plain(job, en_hi, en_lo)
+    device = _cuda_device(device)
+    mids = torch.empty((b, 8), dtype=_I64, device=device)
+    tails = torch.empty((b, 3), dtype=_I64, device=device)
+    if b:
+        cb = job.coinbase
+        _launch(
+            "tm_extranonce_roll", _job_buffer(job, device).data_ptr(), len(cb.tail),
+            len(cb.positions), len(job.branch), en_hi.data_ptr(), en_lo.data_ptr(),
+            mids.data_ptr(), tails.data_ptr(), b, device.index, _stream(device),
+        )
+        extranonce_roll.launches += 1
+    return mids, tails
+
+
+#: every kernel wrapper, in table order (K1, K2, K3, K4, K5 both arms,
+#: K6, then the roll)
+KERNELS = (
+    sha256_batch, search_target, search_candidates, search_candidates_hdr,
+    search_candidates_hdr_batch, search_candidates_hdr_batch_sched, min_toy,
+    extranonce_roll,
+)
 for _fn in KERNELS:
     _fn.launches = 0

@@ -1,8 +1,11 @@
 """SHA-256 message templates and the plain batched hash on torch lanes.
 
-Counterpart of ``tpuminter.ops.sha256`` (templates, ``target_to_words``)
-and of the integer half of ``tpuminter.ops.symbolic`` (``CAND_E60``,
-``DIGEST6_BIAS`` and the truncated second compression).
+Counterpart of ``tpuminter.ops.sha256`` (templates, ``target_to_words``,
+the dynamic-header hashes ``header_digest_dyn`` and
+``header_e60_e61_dyn``) and of the integer half of
+``tpuminter.ops.symbolic`` (``CAND_E60``, ``DIGEST6_BIAS``, the
+truncated second compression, and the shared-schedule split
+``prepare_hdr`` / ``hash_prepared_e60_e61``).
 
 - **Templates.** A mining message is constant except for a few nonce
   bytes near its end. :func:`_build_template` compresses every block
@@ -12,6 +15,13 @@ and of the integer half of ``tpuminter.ops.symbolic`` (``CAND_E60``,
   runtime argument, so one build of them serves every job; the JAX
   package instead bakes each template into its kernels' instruction
   stream (``ops.symbolic``), one compile per job.
+- **Dynamic headers.** A rolled job's header changes with its
+  extranonce, so the rolled kernels take the header's midstate and its
+  three tail words before the nonce (Merkle word 7, time, bits) as
+  values, not as a template: :func:`header_digest_dyn`,
+  :func:`header_e60_e61_dyn`, and :func:`prepare_hdr` with
+  :func:`hash_prepared_e60_e61`, which compute once per header what no
+  nonce changes (rounds 0-2 and four schedule words).
 - **Plain lanes.** The batched functions below are the kernels' plain
   versions. Torch's CPU backend has no add, shift or compare for
   ``torch.uint32``, so a u32 lane is an ``int64`` tensor holding a value
@@ -43,6 +53,11 @@ __all__ = [
     "e60_e61",
     "byteswap32",
     "hash_words_be",
+    "HEADER_TAIL_PAD",
+    "header_digest_dyn",
+    "header_e60_e61_dyn",
+    "prepare_hdr",
+    "hash_prepared_e60_e61",
 ]
 
 M32 = 0xFFFFFFFF
@@ -268,3 +283,68 @@ def hash_words_be(digest: Sequence[Lane]) -> List[Lane]:
     significant first: Bitcoin reads the digest as a little-endian
     integer, so word j = byteswap(digest[7 - j])."""
     return [byteswap32(digest[7 - j]) for j in range(8)]
+
+
+# ---------------------------------------------------------------------------
+# dynamic headers: midstate and tail words as values
+# ---------------------------------------------------------------------------
+
+#: schedule words 4..15 of an 80-byte header's tail block: the FIPS
+#: padding of an 80-byte message (0x80, then the 640-bit length)
+HEADER_TAIL_PAD: Tuple[int, ...] = (0x80000000, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 640)
+
+
+def _header_block(tailw3: Sequence[Lane], nonces: Lane) -> List[Lane]:
+    # the little-endian nonce at header offset 76, read as a big-endian
+    # schedule word, is byteswap(nonce)
+    return [tailw3[0], tailw3[1], tailw3[2], byteswap32(nonces), *HEADER_TAIL_PAD]
+
+
+def header_digest_dyn(midstate8: Sequence[Lane], tailw3: Sequence[Lane],
+                      nonces: Lane) -> List[Lane]:
+    """Double-SHA-256 digest words of a header given by its midstate (8
+    words) and tail words ``(merkle word 7, time, bits)``, for each nonce
+    lane (≡ ``digest_words(header_template(header), 0, nonces)``)."""
+    state = _compress(midstate8, _header_block(tailw3, nonces))
+    return _compress(SHA256_H0, list(state) + list(_SECOND_PAD))
+
+
+def header_e60_e61_dyn(midstate8: Sequence[Lane], tailw3: Sequence[Lane],
+                       nonces: Lane):
+    """``(e60, e61)`` of the second compression for a dynamic header."""
+    state = _compress(midstate8, _header_block(tailw3, nonces))
+    return _compress_e60_e61(SHA256_H0, list(state) + list(_SECOND_PAD))
+
+
+def prepare_hdr(midstate8: Sequence[Lane], t0: Lane, t1: Lane, t2: Lane) -> Tuple:
+    """What no nonce changes in a header's first-hash tail block: the
+    state after rounds 0-2 (the nonce enters at word 3), schedule words
+    ``w16`` and ``w17``, and the nonce-free parts ``p18`` (missing
+    ``σ0(w3)``) and ``p19`` (missing ``w3``) of ``w18`` and ``w19``.
+    Feed it to :func:`hash_prepared_e60_e61`."""
+    v = list(midstate8)
+    for i, wi in enumerate((t0, t1, t2)):
+        v = _round(v, SHA256_K[i], wi)
+    pad = HEADER_TAIL_PAD  # schedule word k >= 4 is pad[k - 4]
+    w16 = _add(t0, _sigma0(t1), pad[5], _sigma1(pad[10]))
+    w17 = _add(t1, _sigma0(t2), pad[6], _sigma1(pad[11]))
+    p18 = _add(t2, pad[7], _sigma1(w16))
+    p19 = _add(_sigma0(pad[0]), pad[8], _sigma1(w17))
+    return tuple(midstate8), tuple(v), w16, w17, p18, p19
+
+
+def hash_prepared_e60_e61(prep: Tuple, nonces: Lane):
+    """``(e60, e61)`` from a :func:`prepare_hdr` stage: rounds 3-63 of
+    the first hash, then the truncated second compression (≡
+    :func:`header_e60_e61_dyn` on the same header)."""
+    midstate8, v, w16, w17, p18, p19 = prep
+    w3 = byteswap32(nonces)
+    w: List[Lane] = [0, 0, 0, w3, *HEADER_TAIL_PAD,  # w0..w2 are dead past round 2
+                     w16, w17, _add(p18, _sigma0(w3)), _add(p19, w3)]
+    for i in range(20, 64):
+        w.append(_add(w[i - 16], _sigma0(w[i - 15]), w[i - 7], _sigma1(w[i - 2])))
+    v = list(v)
+    for i in range(3, 64):
+        v = _round(v, SHA256_K[i], w[i])
+    state = [_add(s, x) for s, x in zip(midstate8, v)]
+    return _compress_e60_e61(SHA256_H0, state + list(_SECOND_PAD))

@@ -1,18 +1,19 @@
 """The wire messages a JSON worker speaks.
 
 Counterpart of ``tpuminter.protocol``, reduced to the JSON codec of the
-kinds a classic (non-rolled, no-workload) worker sends and receives:
-``Join``, ``Request``, ``Result``, ``Setup``, ``Assign``, ``Refuse`` and
-``Cancel``. The JSON shapes are the reference's exactly, so this module
-and ``tpuminter.protocol`` decode each other's payloads; that wire is
-the port's only contact with the JAX package.
+kinds a worker without workloads sends and receives: ``Join``,
+``Request``, ``Result``, ``Setup``, ``Assign``, ``Refuse``, ``Cancel``
+and the roll-budget dialect's ``RollAssign`` and ``Beacon``. The JSON
+shapes are the reference's exactly, so this module and
+``tpuminter.protocol`` decode each other's payloads; that wire is the
+port's only contact with the JAX package.
 
-A worker that joins with ``codec="json"``, ``roll=False`` and no
-workloads is sent only JSON ``Setup``/``Assign``/``Cancel`` (the
-reference protocol's "No flag day" negotiation), so the binary codec,
-the roll dialect and the coordinator-internal kinds are not copied.
-Any other payload raises :class:`ProtocolError`, which the worker logs
-and drops.
+A worker that joins with ``codec="json"`` and no workloads is sent only
+JSON ``Setup``/``Assign``/``Cancel``, plus ``RollAssign`` when it
+advertises ``roll`` (the reference protocol's "No flag day"
+negotiation), so the binary codec and the coordinator-internal kinds
+are not copied. Any other payload raises :class:`ProtocolError`, which
+the worker logs and drops.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ __all__ = [
     "Assign",
     "Refuse",
     "Cancel",
+    "RollAssign",
+    "Beacon",
     "Message",
     "ProtocolError",
     "MIN_UNTRACKED",
@@ -65,7 +68,8 @@ class Join:
     """Worker → coordinator: I am a miner. ``lanes`` is a relative
     throughput hint, ``span`` the worker's pipeline-stage size in nonces;
     ``codec``/``roll``/``workloads``/``agg`` are capability
-    advertisements (this port's worker sends the classic defaults)."""
+    advertisements (this port's worker sends JSON, ``roll`` unless told
+    not to, and no workloads)."""
 
     backend: str = "cpu"
     lanes: int = 1
@@ -82,7 +86,7 @@ class Request:
     targeted modes use an 80-byte ``header`` and a 256-bit ``target``.
     A rolled job (``coinbase_prefix`` set) ranges over global indices
     ``extranonce << nonce_bits | nonce``; ``workload`` names a pluggable
-    workload. Both decode here so the worker can refuse them."""
+    workload (decoded so the worker can refuse it)."""
 
     job_id: int
     mode: PowMode
@@ -179,7 +183,38 @@ class Cancel:
     job_id: int
 
 
-Message = Union[Join, Request, Result, Setup, Assign, Refuse, Cancel]
+@dataclass(frozen=True)
+class RollAssign:
+    """Coordinator → worker: mine extranonces ``[extranonce0,
+    extranonce0 + count)`` of a set-up rolled job, each over its full
+    ``2^nonce_bits`` nonce sweep (``chain.roll_span`` expands it). Sent
+    only to workers whose ``Join`` advertised ``roll``. ``lease_epoch``
+    is non-zero only toward federation aggregators."""
+
+    job_id: int
+    chunk_id: int
+    extranonce0: int
+    count: int
+    lease_epoch: int = 0
+
+
+@dataclass(frozen=True)
+class Beacon:
+    """Worker → coordinator: progress inside a ``RollAssign`` chunk.
+    Every global index of the chunk up to ``high_water`` was swept with
+    no winner; ``nonce``/``hash_value`` are the running minimum over
+    that prefix (``MIN_UNTRACKED`` where the fast path does not track
+    it). ``lease_epoch`` echoes the RollAssign's."""
+
+    job_id: int
+    chunk_id: int
+    high_water: int
+    nonce: int
+    hash_value: int
+    lease_epoch: int = 0
+
+
+Message = Union[Join, Request, Result, Setup, Assign, Refuse, Cancel, RollAssign, Beacon]
 
 _JSON_OPEN = 0x7B  # ord("{")
 
@@ -279,6 +314,27 @@ def encode_msg(msg: Message) -> bytes:
         }
     elif isinstance(msg, Cancel):
         obj = {"kind": "cancel", "job_id": msg.job_id}
+    elif isinstance(msg, RollAssign):
+        obj = {
+            "kind": "rassign",
+            "job_id": msg.job_id,
+            "chunk_id": msg.chunk_id,
+            "e0": msg.extranonce0,
+            "count": msg.count,
+        }
+        if msg.lease_epoch:
+            obj["le"] = msg.lease_epoch
+    elif isinstance(msg, Beacon):
+        obj = {
+            "kind": "beacon",
+            "job_id": msg.job_id,
+            "chunk_id": msg.chunk_id,
+            "hw": msg.high_water,
+            "nonce": msg.nonce,
+            "hash": f"{msg.hash_value:x}",
+        }
+        if msg.lease_epoch:
+            obj["le"] = msg.lease_epoch
     else:
         raise ProtocolError(f"not a message of this codec: {msg!r}")
     return json.dumps(obj, separators=(",", ":")).encode()
@@ -340,6 +396,26 @@ def decode_msg(raw) -> Message:
             )
         if kind == "cancel":
             return Cancel(job_id=int(obj["job_id"]))
+        if kind == "rassign":
+            count = int(obj["count"])
+            if count < 1:
+                raise ProtocolError("roll assign must cover >= 1 extranonce")
+            return RollAssign(
+                job_id=int(obj["job_id"]),
+                chunk_id=int(obj["chunk_id"]),
+                extranonce0=int(obj["e0"]),
+                count=count,
+                lease_epoch=int(obj.get("le", 0)),
+            )
+        if kind == "beacon":
+            return Beacon(
+                job_id=int(obj["job_id"]),
+                chunk_id=int(obj["chunk_id"]),
+                high_water=int(obj["hw"]),
+                nonce=int(obj["nonce"]),
+                hash_value=int(obj["hash"], 16),
+                lease_epoch=int(obj.get("le", 0)),
+            )
     except (KeyError, ValueError, TypeError) as exc:
         raise ProtocolError(f"malformed {kind} message: {exc}") from exc
     raise ProtocolError(f"unknown message kind: {kind!r}")

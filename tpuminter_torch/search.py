@@ -86,11 +86,17 @@ class SearchOutcome:
 
 
 class CandidateSearch:
-    """Exact lowest-winner search over ``[lower, upper]`` (inclusive, u32
-    header nonces): at most ``slab`` nonces per sweep, ``depth`` sweeps in
-    flight. Drive it with :meth:`events`, a generator yielding ``None``
-    after every resolved sweep (the worker's heartbeat and Cancel point);
-    when it stops, :attr:`outcome` is set.
+    """Exact lowest-winner search over ``[lower, upper]`` (inclusive): at
+    most ``slab`` indices per sweep, ``depth`` sweeps in flight. Drive it
+    with :meth:`events`, a generator yielding ``None`` after every
+    resolved sweep (the worker's heartbeat and Cancel point); when it
+    stops, :attr:`outcome` is set.
+
+    Indices are u32 header nonces by default; ``domain`` widens them,
+    for a rolled job's global indices (extranonce × nonce, where a sweep
+    is one batched window of roll rows). Nothing else changes: the
+    bookkeeping is keyed by whatever integers ``sweep`` and ``verify``
+    speak.
 
     When a verified win ends the search, up to ``depth - 1`` in-flight
     handles above it are abandoned, never resolved (safe, see
@@ -107,11 +113,12 @@ class CandidateSearch:
         *,
         slab: int = 1 << 27,
         depth: int = 2,
+        domain: int = 1 << 32,
     ):
-        if not 0 <= lower <= upper <= 0xFFFFFFFF:
-            raise ValueError(f"bad range [{lower}, {upper}]")
-        if not 1 <= slab <= 1 << 30:
-            raise ValueError("slab must be in [1, 2^30]")
+        if not 0 <= lower <= upper < domain:
+            raise ValueError(f"bad range [{lower}, {upper}] for domain {domain}")
+        if not 1 <= slab < 1 << 32:
+            raise ValueError("slab must be in [1, 2^32)")
         if depth < 1:
             raise ValueError("depth must be >= 1")
         self._sweep, self._resolve, self._verify = sweep, resolve, verify
@@ -125,6 +132,28 @@ class CandidateSearch:
         self.outcome: Optional[SearchOutcome] = None
         self._searched = 0
         self._candidates: List[Tuple[int, int]] = []
+
+    @property
+    def searched(self) -> int:
+        """Indices swept so far (an early exit counts its covered prefix)."""
+        return self._searched
+
+    def settled_high_water(self) -> Optional[int]:
+        """Highest ``g`` such that every index of ``[lower, g]`` is swept
+        with no winner accepted below it, or None while nothing is: what
+        a progress beacon may report."""
+        lo = self._unsearched_min()
+        if lo is None:
+            return self.upper
+        if lo <= self.lower:
+            return None
+        return lo - 1
+
+    def best_candidate(self) -> Optional[Tuple[int, int]]:
+        """(hash, index) minimum over the candidates surfaced so far."""
+        if not self._candidates:
+            return None
+        return min((h, n) for n, h in self._candidates)
 
     def _issue_one(self) -> None:
         start, end = self._pending.popleft()

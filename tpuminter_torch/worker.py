@@ -1,12 +1,13 @@
 """Worker role: the Miner interface, the LSP role loop and the CLI.
 
 Counterpart of ``tpuminter.worker`` (``Miner``, ``run_miner``, ``main``)
-for a worker that speaks the classic dialect only: it joins with the
-JSON codec, without the roll-budget dialect and with no workloads, so
-an unchanged ``tpuminter`` coordinator sends it JSON ``Setup``, ``Assign``
-and ``Cancel`` messages and nothing else. A chunk its miner cannot
-serve (a rolled or SCRYPT job, a workload) is answered with a
-``Refuse``, which makes the coordinator requeue it.
+for a worker that joins with the JSON codec and no workloads, so an
+unchanged ``tpuminter`` coordinator sends it JSON ``Setup``, ``Assign``
+and ``Cancel`` messages, and, since it advertises the roll-budget
+dialect unless told not to, ``RollAssign`` chunks of whole extranonces,
+on which it reports progress with ``Beacon`` messages. A chunk its miner
+cannot serve (a SCRYPT job, a workload) is answered with a ``Refuse``,
+which makes the coordinator requeue it.
 
 Run it as ``python -m tpuminter_torch.worker HOST:PORT``.
 """
@@ -15,12 +16,15 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from dataclasses import replace as dc_replace
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
+from tpuminter_torch import chain
 from tpuminter_torch.lsp import FAST, LspClient, LspConnectionLost, Params
 from tpuminter_torch.protocol import (
     Assign,
+    Beacon,
     Cancel,
     Join,
     Message,
@@ -28,6 +32,7 @@ from tpuminter_torch.protocol import (
     Refuse,
     Request,
     Result,
+    RollAssign,
     Setup,
     decode_msg,
     encode_msg,
@@ -56,6 +61,10 @@ class Miner:
     lanes = 1
     #: internal pipeline-stage size in nonces (Join.span; 0 = none)
     span = 0
+    #: ``(high_water, best_nonce, best_hash)`` callback the role loop
+    #: installs for each roll-budget chunk; rolled mine paths call it
+    #: between sweeps, on the mining thread. None disables it.
+    progress_cb: Optional[Callable[[int, int, int], None]] = None
 
     def unsupported(self, request: Request) -> Optional[str]:
         """Why this miner cannot serve ``request``, or None if it can."""
@@ -75,6 +84,7 @@ def _safe_decode(raw) -> Optional[Message]:
 
 async def run_miner(
     host: str, port: int, miner: Miner, *, params: Optional[Params] = None,
+    roll: bool = True, beacon_interval: float = 2.0,
 ) -> None:
     """Worker role main loop; returns when the coordinator is lost.
 
@@ -83,9 +93,16 @@ async def run_miner(
     LSP heartbeats keep flowing. While a chunk is mined one read stays in
     flight, so a ``Cancel`` for the active job abandons it at the next
     step; any other message read meanwhile is queued and handled after.
+
+    ``roll`` advertises the roll-budget dialect: the coordinator may then
+    send ``RollAssign`` chunks, and for exactly those the loop sends a
+    ``Beacon`` (settled high-water and running minimum, from the miner's
+    ``progress_cb``) at most every ``beacon_interval`` seconds (``<= 0``
+    sends none).
     """
     client = await LspClient.connect(host, port, params or FAST)
-    client.write(encode_msg(Join(backend=miner.backend, lanes=miner.lanes, span=miner.span)))
+    client.write(encode_msg(Join(backend=miner.backend, lanes=miner.lanes, span=miner.span,
+                                 roll=roll)))
     pending: "asyncio.Queue[Message]" = asyncio.Queue()
     read_task: Optional[asyncio.Task] = None
     templates: dict = {}  # job_id -> template Request from a Setup
@@ -110,7 +127,8 @@ async def run_miner(
                 while len(templates) > _TEMPLATE_CAP:
                     templates.pop(next(iter(templates)))
                 continue
-            if isinstance(msg, Assign):
+            roll_chunk = False
+            if isinstance(msg, (Assign, RollAssign)):
                 tmpl = templates.get(msg.job_id)
                 if tmpl is None:
                     # the coordinator requeues the chunk and re-ships the Setup
@@ -118,8 +136,14 @@ async def run_miner(
                                 msg.job_id, msg.chunk_id)
                     client.write(encode_msg(Refuse(msg.job_id, msg.chunk_id)))
                     continue
-                msg = dc_replace(tmpl, lower=msg.lower, upper=msg.upper,
-                                 chunk_id=msg.chunk_id)
+                if isinstance(msg, RollAssign):
+                    # whole extranonces, each over its full nonce space
+                    roll_chunk = True
+                    lower, upper = chain.roll_span(msg.extranonce0, msg.count,
+                                                   tmpl.nonce_bits)
+                else:
+                    lower, upper = msg.lower, msg.upper
+                msg = dc_replace(tmpl, lower=lower, upper=upper, chunk_id=msg.chunk_id)
             if not isinstance(msg, Request):
                 log.warning("worker: unexpected %s, dropping", type(msg).__name__)
                 continue
@@ -130,6 +154,16 @@ async def run_miner(
                 client.write(encode_msg(Refuse(msg.job_id, msg.chunk_id)))
                 continue
 
+            # a latest-value cell the mining thread writes (one tuple
+            # store); installed or cleared per chunk, so no callback
+            # outlives its chunk
+            latest: dict = {}
+            if roll_chunk and beacon_interval > 0:
+                miner.progress_cb = lambda hw, n, h: latest.__setitem__("p", (hw, n, h))
+            else:
+                miner.progress_cb = None
+            last_beacon = time.monotonic()
+            beacon_hw = -1
             gen = miner.mine(msg)
             result: Optional[Result] = None
             cancelled = False
@@ -141,6 +175,15 @@ async def run_miner(
                 if item is not None:
                     result = item
                     break
+                prog = latest.get("p")
+                if prog is not None and time.monotonic() - last_beacon >= beacon_interval:
+                    hw, bn, bh = prog
+                    hw = min(hw, msg.upper)
+                    # hw == upper: the chunk is done and its Result settles it
+                    if msg.lower <= hw < msg.upper and hw > beacon_hw:
+                        client.write(encode_msg(Beacon(msg.job_id, msg.chunk_id, hw, bn, bh)))
+                        last_beacon = time.monotonic()
+                        beacon_hw = hw
                 if read_task is None:
                     read_task = asyncio.ensure_future(client.read())
                 if read_task.done():
@@ -195,6 +238,20 @@ def main(argv: Optional[list] = None) -> None:
         help="torch device to mine on (default cuda; cpu runs the kernels' "
         "plain versions)",
     )
+    parser.add_argument(
+        "--roll-batch", type=int, default=None,
+        help="extranonce rows per rolled kernel launch (default 8); 1 mines "
+        "one extranonce segment at a time",
+    )
+    parser.add_argument(
+        "--beacon-interval", type=float, default=2.0, metavar="SECS",
+        help="minimum seconds between progress beacons on a roll-budget chunk "
+        "(default 2.0; <= 0 sends none)",
+    )
+    parser.add_argument(
+        "--no-roll", action="store_true",
+        help="do not advertise the roll-budget dialect: only classic Assigns arrive",
+    )
     args = parser.parse_args(argv)
     try:
         host, port = _parse_hostport(args.hostport)
@@ -208,7 +265,10 @@ def main(argv: Optional[list] = None) -> None:
         kwargs["slab"] = args.slab
     if args.depth is not None:
         kwargs["depth"] = args.depth
-    asyncio.run(run_miner(host, port, CudaMiner(**kwargs)))
+    if args.roll_batch is not None:
+        kwargs["roll_batch"] = args.roll_batch
+    asyncio.run(run_miner(host, port, CudaMiner(**kwargs), roll=not args.no_roll,
+                          beacon_interval=args.beacon_interval))
 
 
 if __name__ == "__main__":
