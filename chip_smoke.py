@@ -10,7 +10,8 @@ Phases, in order; a failure in any of them exits non-zero (none is
 caught), and without a CUDA device the script exits non-zero at once:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: nvcc builds ``tpuminter_torch/kernels/csrc/sha256.cu``;
+2. build: one nvcc per source under ``tpuminter_torch/kernels/csrc/``
+   (``sha256.cu``, ``splitmix.cu``), all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs on the card (exact integer equality) and against hashlib, the
    rolled search kernels also at the main path's shape (width 2^27, 10
@@ -18,8 +19,10 @@ caught), and without a CUDA device the script exits non-zero at once:
    rows), then each timed at the main path's shapes (2^27 nonces a
    launch, 8 rows of 2^27 for the batched rolled kernel) beside its plain
    version and its bound (``op_count``: the instructions the function
-   needs on the timed inputs);
-4. main path, in two parts, each with every launch count set to 0 just
+   needs on the timed inputs); K7 (splitmix64) on 2^24 random indices
+   under random seeds and on the edge words, against numpy u64 lanes
+   too, and timed at the hashcore path's window (2^24 indices);
+4. main path, in three parts, each with every launch count set to 0 just
    before it and read just after: (a) fixed headers: ``CudaMiner()``
    with its defaults mines the genesis header over a 2^30-nonce window,
    a regtest-difficulty window and an exhausted exact-min window, and a
@@ -29,12 +32,22 @@ caught), and without a CUDA device the script exits non-zero at once:
    extranonces, three times (batched with and without the shared
    schedule, and one segment at a time), and a rolled regtest job on
    the tracking path. Every result is checked with hashlib, and every
-   kernel of each part must have been launched in it;
+   kernel of each part must have been launched in it; (c) hashcore
+   workload chunks: ``workloads.compute`` on the card for fmin, top-k
+   (k = 8), first-match (a planted first hit 2^31 in) and sum over 2^32
+   indices that cross a 2^32 boundary, each equal to the same path on
+   K7's plain version and its witnesses recomputed with the scalar
+   objective; the four at 2^24 ragged indices against numpy u64 lanes;
+   before them, a window sweep and a profiled breakdown of a window's
+   device time (which also make the runs after them steady-state);
 5. end to end: the unchanged ``python -m tpuminter.coordinator`` (with a
    roll budget), the port's ``python -m tpuminter_torch.worker`` and the
    unchanged ``python -m tpuminter.client`` as separate processes: a
    genesis TARGET job, a MIN job and a rolled job (the genesis coinbase,
-   extranonces 0-4), each Result checked with hashlib.
+   extranonces 0-4), each Result checked with hashlib; hashcore jobs
+   (fmin and top-k over 2^32 indices, equal to phase 4c's; sum and a
+   planted first-match over 2^20, checked with numpy), and the
+   coordinator's log must show the worker advertising hashcore.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
@@ -45,6 +58,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import shutil
 import socket
 import struct
@@ -333,7 +347,7 @@ def sass_summary(so_path: str):
     for line in sass.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            name = next((k for k in ("sha256_batch", "search_target",
+            name = next((k for k in ("splitmix_batch", "sha256_batch", "search_target",
                                      "search_candidates_hdr_batch", "search_candidates_hdr",
                                      "search_candidates", "min_toy", "extranonce_roll",
                                      "reduce", "fill_rows", "fill") if k in mangled), mangled)
@@ -374,8 +388,9 @@ def drain(gen):
 
 
 class KernelStats:
-    def __init__(self, name: str, replaces: str):
-        self.name, self.replaces = name, replaces
+    def __init__(self, name: str, replaces: str,
+                 source: str = "tpuminter_torch/kernels/csrc/sha256.cu"):
+        self.name, self.replaces, self.source = name, replaces, source
         self.max_abs_err = 0
         self.checks = 0
         self.timing = None
@@ -412,6 +427,9 @@ def phase_kernels(dev, rng):
         "min_toy": KernelStats("min_toy", "tpuminter/kernels/sha256.py:733"),
         "extranonce_roll": KernelStats(
             "extranonce_roll", "tpuminter/ops/merkle.py:84 (jnp program, no pallas_call)"),
+        "splitmix_batch": KernelStats(
+            "splitmix_batch", "tpuminter/kernels/splitmix.py:65",
+            "tpuminter_torch/kernels/csrc/splitmix.cu"),
     }
     genesis = chain.GENESIS_HEADER
     hdr = ops.header_template(genesis.pack())
@@ -536,6 +554,8 @@ def phase_kernels(dev, rng):
     del big_hi, big_lo
     torch.cuda.empty_cache()
     time_rolled_kernels(dev, rng, stats, rolled, int_rate, tw[1])
+    torch.cuda.empty_cache()
+    splitmix_kernel_checks(dev, rng, stats["splitmix_batch"], int_rate)
     return stats
 
 
@@ -551,7 +571,8 @@ def record(st, n, plain_n, ms, plain_ms, nbytes, per_unit, ops_total, int_rate,
         bound_by="bytes" if bytes_ms > ops_ms else "operations", ops_per_nonce=per_unit,
         int32_pipe_ms=ops_ms * ISSUE_LANES_PER_SM / INT32_LANES_PER_SM,
     )
-    rate = f"{n / ms / 1e6:.3f} GH/s" if unit == "nonce" else f"{n} {unit}s"
+    rate = {"nonce": f"{n / ms / 1e6:.3f} GH/s",
+            "index": f"{n / ms / 1e6:.3f} G indices/s"}.get(unit, f"{n} {unit}s")
     say(f"  {st.name}: {ms:.4f} ms/launch at n={n} ({rate}), plain "
         f"{plain_ms:.1f} ms at n={plain_n}, bound {max(bytes_ms, ops_ms):.4f} ms, INT32 "
         f"pipe alone {ops_ms * ISSUE_LANES_PER_SM / INT32_LANES_PER_SM:.4f} ms "
@@ -918,13 +939,346 @@ def phase_rolled_path(card: str, rng):
     return read_launches(kernels, ROLLED_PATH_KERNELS, "rolled"), rates
 
 
+
+# ---- hashcore (K7) ----------------------------------------------------------
+
+M64 = (1 << 64) - 1
+GOLDEN, MIX1, MIX2 = 0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
+#: integer instructions one splitmix64 index needs at the fewest Hopper
+#: instructions: index + 1 and + seed, two 64-bit adds (IADD3 with its
+#: carry, 2 each); three 64-bit products by constants (IMAD.WIDE.U32 of
+#: the low words and two IMADs of the cross terms, 3 each); three 64-bit
+#: xor-shifts (two SHF for the shifted words, two LOP3 for the xors, 4
+#: each)
+SPLITMIX_OPS = 2 * 2 + 3 * 3 + 3 * 4
+#: 2^32 hashcore indices from here cross the 5 · 2^32 word boundary
+HC_BASE = (5 << 32) - (1 << 31)
+HC_N = 1 << 32
+#: a first-match run's planted first hit: 2^31 + 12345 indices in, with a
+#: value so small that an earlier hit has odds of about 2^-13
+HC_PLANT_AT, HC_PLANT_VALUE = (1 << 31) + 12345, 1 << 20
+HC_K = 8
+#: the ragged numpy-checked runs: 2^24 + 777 indices from just below 3 · 2^40
+NP_LO, NP_N = (3 << 40) - 12345, (1 << 24) + 777
+#: the window sweep: lanes per row (8 rows a window), indices per run
+HC_SWEEP_WIDTHS = tuple(1 << b for b in range(14, 22))
+HC_SWEEP_N = 1 << 28
+
+
+def objective(seed: int, index: int) -> int:
+    """The hashcore objective, scalar: splitmix64 of seed + (index + 1) · golden."""
+    z = (seed + (index + 1) * GOLDEN) & M64
+    z = ((z ^ (z >> 30)) * MIX1) & M64
+    z = ((z ^ (z >> 27)) * MIX2) & M64
+    return z ^ (z >> 31)
+
+
+def np_objective(seed: int, idx: np.ndarray) -> np.ndarray:
+    """The objective on numpy u64 lanes (mod-2^64 arithmetic)."""
+    with np.errstate(over="ignore"):
+        z = np.uint64(seed) + (idx + np.uint64(1)) * np.uint64(GOLDEN)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(MIX1)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(MIX2)
+        return z ^ (z >> np.uint64(31))
+
+
+def np_values(seed: int, lo: int, n: int) -> np.ndarray:
+    """The objective over ``[lo, lo + n)`` on numpy u64 lanes."""
+    return np_objective(seed, np.arange(n, dtype=np.uint64) + np.uint64(lo))
+
+
+def planted_seed(index: int, value: int) -> int:
+    """The seed under which ``objective(seed, index) == value``: the
+    mixing after the seed's add is a bijection of u64, so undo it."""
+    def unxorshift(x, s):
+        y = x
+        for _ in range(64 // s + 1):
+            y = x ^ (y >> s)
+        return y
+
+    z = unxorshift(value, 31) * pow(MIX2, -1, 1 << 64) & M64
+    z = unxorshift(z, 27) * pow(MIX1, -1, 1 << 64) & M64
+    z = unxorshift(z, 30)
+    seed = (z - (index + 1) * GOLDEN) & M64
+    if objective(seed, index) != value:
+        fail("planted_seed: the inverse mix is wrong")
+    return seed
+
+
+def np_fold(variant: str, seed: int, lo: int, n: int, threshold: int = 0, k: int = HC_K):
+    """``(searched, acc)`` of a hashcore chunk from numpy u64 lanes: an
+    independent reference for ``workloads.compute``."""
+    v = np_values(seed, lo, n)
+    if variant == "fmin":
+        i = int(np.argmin(v))
+        return n, [int(v[i]), lo + i]
+    if variant == "topk":
+        return n, [[int(v[j]), lo + int(j)] for j in np.argsort(v, kind="stable")[:k]]
+    if variant == "fmatch":
+        hits = np.flatnonzero(v <= np.uint64(threshold))
+        if not len(hits):
+            return n, [None, None, n]
+        j = int(hits[0])
+        return min((j // 2048 + 1) * 2048, n), [lo + j, int(v[j]), j + 1]
+    total = (int((v >> np.uint64(32)).sum()) << 32) + int((v & np.uint64(M32)).sum())
+    return n, [total, n]
+
+
+def hc_request(variant, seed, lo, n, threshold=0, k=HC_K, job_id=21):
+    from tpuminter_torch.protocol import PowMode, Request
+    from tpuminter_torch.workloads import hashcore
+
+    return Request(job_id, PowMode.MIN, lo, lo + n - 1, workload="hashcore",
+                   data=hashcore.pack_params(variant, seed, threshold, k))
+
+
+def hc_decode(req, result):
+    """``(searched, acc)`` of a hashcore WorkResult for ``req``."""
+    from tpuminter_torch.workloads import hashcore
+
+    return result.searched, hashcore.HashCore().fold_for(req).decode(result.payload)
+
+
+def check_witnesses(req, searched, acc, what):
+    """A claim's witnesses recompute with the scalar objective, lie in
+    the chunk and have the claimed shape."""
+    from tpuminter_torch.workloads import hashcore
+
+    p = hashcore.parse_params(req.data)
+    lo, hi = req.lower, req.upper
+    if p.variant == "fmin":
+        pairs = [acc]
+    elif p.variant == "topk":
+        pairs = acc
+        if len(pairs) != min(p.k, hi - lo + 1) or pairs != sorted(pairs) or \
+                len({i for _, i in pairs}) != len(pairs):
+            fail(f"{what}: top-k claim is not {p.k} distinct sorted pairs")
+    elif p.variant == "fmatch":
+        index, value, probes = acc
+        if value > p.threshold or probes != index - lo + 1:
+            fail(f"{what}: first-match claim {acc} is inconsistent")
+        pairs = [[value, index]]
+    else:
+        return
+    for value, index in pairs:
+        if not lo <= index <= hi or objective(p.seed, index) != value:
+            fail(f"{what}: witness {value} at {index} does not recompute")
+
+
+def splitmix_kernel_checks(dev, rng, st, int_rate):
+    """K7 against its plain version on the card, exact: 2^24 random u64
+    indices under 8 random seeds, and the edge words (index 2^64 - 1,
+    high-word carries) under seeds 0, 2^64 - 1 and one more, against the
+    scalar objective too; a sample against numpy u64 lanes; then timed at
+    the hashcore path's window beside its plain version and its bound."""
+    from tpuminter_torch.kernels import splitmix as K7
+    from tpuminter_torch.ops import splitmix as sm
+
+    n = 1 << 21
+    for _ in range(8):
+        seed = int(rng.integers(0, 1 << 63)) * 2 + int(rng.integers(0, 2))
+        hi = torch.tensor(rng.integers(0, 1 << 32, n, dtype=np.int64), device=dev)
+        lo = torch.tensor(rng.integers(0, 1 << 32, n, dtype=np.int64), device=dev)
+        got = K7.splitmix_batch(seed, hi, lo)
+        for g, w, what in zip(got, K7.splitmix_batch_plain(seed, hi, lo), ("high", "low")):
+            st.agree(g, w, f"seed {seed:#x}, 2^21 random indices, {what} words")
+        def u64(words):
+            return (words[0][:4096].cpu().numpy().astype(np.uint64) << np.uint64(32)) | \
+                words[1][:4096].cpu().numpy().astype(np.uint64)
+
+        if not np.array_equal(u64(got), np_objective(seed, u64((hi, lo)))):
+            fail("splitmix_batch disagrees with numpy u64 lanes")
+    edges = [0, 1, M32 - 1, M32, 1 << 32, (1 << 32) + 1, (1 << 33) - 1, (7 << 32) - 1, 1 << 63,
+             M64 - 1, M64]
+    ehi, elo = i64([e >> 32 for e in edges], dev), i64([e & M32 for e in edges], dev)
+    for seed in (0, M64, GOLDEN):
+        got = K7.splitmix_batch(seed, ehi, elo)
+        for g, w in zip(got, K7.splitmix_batch_plain(seed, ehi, elo)):
+            st.agree(g, w, f"edge words, seed {seed:#x}")
+        if [(h << 32) | low for h, low in zip(*(t.tolist() for t in got))] != \
+                [objective(seed, e) for e in edges]:
+            fail(f"splitmix_batch edge words under seed {seed:#x} disagree with the objective")
+    say(f"  splitmix_batch: 2^24 random indices under 8 seeds and {len(edges)} edge words "
+        "under 3 seeds equal to plain; samples equal to numpy u64 lanes and the objective")
+
+    w = sm.ROWS * sm.DEFAULT_WIDTH
+    ih, il = sm.index_words(HC_BASE, torch.arange(w, dtype=torch.int64, device=dev))
+    seed = int(rng.integers(0, 1 << 63))
+    ms, got = event_ms(lambda: K7.splitmix_batch(seed, ih, il), 20)
+    plain_ms, want = event_ms(lambda: K7.splitmix_batch_plain(seed, ih, il), 1, warmup=False)
+    for g, v in zip(got, want):
+        st.agree(g, v, f"one window of {w} indices")
+    record(st, w, w, ms, plain_ms, 32 * w, SPLITMIX_OPS, SPLITMIX_OPS * w, int_rate,
+           unit="index")
+    return ms
+
+
+def hashcore_window_sweep(dev, rng, k7_ms):
+    """Each variant at each window (8 rows of 2^14 .. 2^21 lanes) over
+    2^28 indices: G indices/s through the window loop of
+    ``HashCore.compute`` (two windows in flight, one read each); and at
+    the default window, the device time of a window's dispatch (CUDA
+    events over back-to-back dispatches) against the host's time to
+    issue it, K7's part of it, and a profiler trace's device-busy share
+    of a 2^28-index ``workloads.compute`` run."""
+    from tpuminter_torch.ops import splitmix as sm
+    from tpuminter_torch.search import pipeline_spans
+    from tpuminter_torch.workloads import hashcore
+
+    seed, n = int(rng.integers(0, 1 << 63)), HC_SWEEP_N
+    sweep_rates = {}
+    for variant in sm.VARIANTS:
+        fold = hashcore.HashCore().fold_for(hc_request(variant, seed, HC_BASE, 1))
+        row = {}
+        for width in HC_SWEEP_WIDTHS:
+            sw = sm.lane_sweep(variant, k=HC_K, width=width, device=dev)
+            spans = [(g, min(g + sw.window - 1, HC_BASE + n - 1))
+                     for g in range(HC_BASE, HC_BASE + n, sw.window)]
+            sw.resolve(sw.dispatch(seed, *spans[0]), *spans[0])  # first use: build, allocate
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acc = fold.initial()
+            for (g, e), h in pipeline_spans(spans, lambda s: sw.dispatch(seed, s[0], s[1], 0)):
+                acc = fold.combine(acc, sw.resolve(h, g, e))
+            row[sw.window] = n / (time.perf_counter() - t0) / 1e9
+        sweep_rates[variant] = row
+        say(f"  window sweep, {variant}: " + ", ".join(
+            f"2^{w.bit_length() - 1} {r:.3f}" for w, r in row.items()) + " G indices/s")
+    breakdown = {}
+    for variant in sm.VARIANTS:
+        sw = sm.lane_sweep(variant, k=HC_K, device=dev)
+        lo, hi = HC_BASE, HC_BASE + sw.window - 1
+        dev_ms, _ = event_ms(lambda: sw.dispatch(seed, lo, hi, 0), 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            sw.dispatch(seed, lo, hi, 0)
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        req = hc_request(variant, seed, HC_BASE, n)
+        busy_ms, k7_busy_ms, wall_ms = profile_compute(req, dev)
+        breakdown[variant] = dict(window=sw.window, device_ms=dev_ms, host_issue_ms=host_ms,
+                                  k7_ms=k7_ms, fold_ms=dev_ms - k7_ms, busy_ms=busy_ms,
+                                  k7_busy_ms=k7_busy_ms, wall_ms=wall_ms)
+        busy = ("not measured (no device time in the trace)" if busy_ms is None else
+                f"device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall "
+                f"({busy_ms / wall_ms:.1%}; idle {1 - busy_ms / wall_ms:.1%}), K7 "
+                f"{k7_busy_ms:.3f} ms of it")
+        say(f"  window of {sw.window}, {variant}: device {dev_ms:.4f} ms/window (K7 "
+            f"{k7_ms:.4f}, index words + fold {dev_ms - k7_ms:.4f}), host issue "
+            f"{host_ms:.4f} ms/window; 2^28 through workloads.compute under the profiler "
+            f"(its own host cost included): {busy}")
+    return sweep_rates, breakdown
+
+
+def profile_compute(req, dev):
+    """Device-busy time (the sum of the trace's device kernel times), K7's
+    part of it and the wall time of one ``workloads.compute`` run under
+    ``torch.profiler``; busy is None where the trace has no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuminter_torch import workloads
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drain(workloads.compute(req, device=dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = k7 = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            busy += ms
+            if "splitmix_batch_kernel" in ev.name:
+                k7 += ms
+    return (busy or None), k7, wall_ms
+
+
+def phase_hashcore_path(dev, card: str, rng, k7_ms, breakdown):
+    """Each variant through ``workloads.compute`` on the card over 2^32
+    indices from HC_BASE (first-match: to its planted first hit), and
+    fmin and top-k over [0, 2^32 - 1] for phase 5, with every launch
+    count 0 before and read after; then each held against the same path
+    on K7's plain version, its witnesses recomputed with the scalar
+    objective; the four variants at 2^24 ragged indices against numpy.
+    A run's device share is its windows times a window's device time
+    (``breakdown``, measured untraced) over its wall time."""
+    from tpuminter_torch import kernels, workloads
+    from tpuminter_torch.kernels import splitmix as K7
+    from tpuminter_torch.workloads import hashcore
+
+    seed = int(rng.integers(0, 1 << 63)) * 2 + 1
+    fm_seed = planted_seed(HC_BASE + HC_PLANT_AT, HC_PLANT_VALUE)
+    runs = [hc_request("fmin", seed, HC_BASE, HC_N), hc_request("topk", seed, HC_BASE, HC_N),
+            hc_request("fmatch", fm_seed, HC_BASE, HC_N, threshold=HC_PLANT_VALUE),
+            hc_request("fsum", seed, HC_BASE, HC_N)]
+    e2e_seed = int(rng.integers(0, 1 << 63))
+    e2e_runs = {v: hc_request(v, e2e_seed, 0, HC_N) for v in ("fmin", "topk")}
+
+    def run(req, engine="kernel"):
+        torch.cuda.synchronize()
+        before = K7.splitmix_batch.launches
+        t0 = time.perf_counter()
+        res = drain(workloads.compute(req, device=dev, engine=engine))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, K7.splitmix_batch.launches - before
+
+    reset_launches(kernels)
+    done, rates = [], {}
+    for req in runs:
+        res, dt, launched = run(req)
+        done.append((req, res, dt, launched))
+    e2e = {v: hc_decode(req, run(req)[0]) for v, req in e2e_runs.items()}
+    e2e["seed"] = e2e_seed
+    launches = read_launches(kernels, ("splitmix_batch",), "hashcore")
+    for req, res, dt, launched in done:
+        variant = hashcore.parse_params(req.data).variant
+        plain, plain_dt, _ = run(req, engine="plain")
+        if plain != res:
+            fail(f"hashcore {variant}: the kernel path {res} differs from the plain path {plain}")
+        searched, acc = hc_decode(req, res)
+        check_witnesses(req, searched, acc, f"hashcore {variant}")
+        if variant == "fmatch" and (acc[0] != HC_BASE + HC_PLANT_AT or
+                                    searched != min((HC_PLANT_AT // 2048 + 1) * 2048, HC_N)):
+            fail(f"hashcore fmatch: {searched} {acc} is not the planted first hit")
+        if variant != "fmatch" and searched != HC_N:
+            fail(f"hashcore {variant}: searched {searched}, want {HC_N}")
+        device_share = launched * breakdown[variant]["device_ms"] / (dt * 1e3)
+        rates[variant] = dict(g_per_s=searched / dt / 1e9, seconds=dt, k7_launches=launched,
+                              k7_share=launched * k7_ms / (dt * 1e3),
+                              device_share=device_share, plain_seconds=plain_dt)
+        say(f"  hashcore {variant}: {searched} indices in {dt:.3f} s = "
+            f"{searched / dt / 1e9:.3f} G indices/s on {card}; K7 {launched} launches, "
+            f"{rates[variant]['k7_share']:.1%} of the wall time; windows x device time "
+            f"{device_share:.1%} of it; equal to the plain path ({plain_dt:.1f} s); "
+            "witnesses recomputed")
+    for variant in ("fmin", "topk"):
+        check_witnesses(e2e_runs[variant], *e2e[variant], f"hashcore {variant} [0, 2^32)")
+    np_seed = int(rng.integers(0, 1 << 63))
+    np_plant = planted_seed(NP_LO + 9_000_001, 1 << 30)
+    for variant in ("fmin", "topk", "fmatch", "fsum"):
+        s, thr = (np_plant, 1 << 30) if variant == "fmatch" else (np_seed, 0)
+        req = hc_request(variant, s, NP_LO, NP_N, threshold=thr)
+        got = hc_decode(req, run(req)[0])
+        want = np_fold(variant, s, NP_LO, NP_N, thr)
+        if got != want:
+            fail(f"hashcore {variant} at 2^24 + 777 indices: {got} != numpy {want}")
+    say(f"  hashcore, all four variants over {NP_N} indices from {NP_LO}: equal to numpy "
+        "u64 lanes (searched included)")
+    return launches, rates, e2e
+
+
 def free_udp_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def phase_end_to_end() -> None:
+def phase_end_to_end(hc_expect) -> dict:
+    """The process-level phase; ``hc_expect`` holds phase 4c's
+    ``(searched, acc)`` of fmin and top-k over [0, 2^32) under its
+    ``"seed"``. Returns each hashcore job's seconds through the client."""
     from tpuminter_torch import chain
 
     log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
@@ -989,8 +1343,15 @@ def phase_end_to_end() -> None:
                  "hashlib check")
         say(f"  e2e rolled: Result {hash_hex} extranonce={en} nonce={nonce} "
             f"(re-rolled and hashlib-checked; {dt:.1f} s through the client)")
+        hc_seconds = phase_end_to_end_hashcore(addr, env, hc_expect)
+        coord_log = open(os.path.join(log_dir, "e2e_coordinator.log")).read()
+        joins = [ln for ln in coord_log.splitlines() if "joined (backend=cuda" in ln]
+        if not joins or "workloads=hashcore" not in joins[0]:
+            fail(f"the coordinator's log shows no cuda worker advertising hashcore: {joins}")
+        say(f"  coordinator log: {joins[0].split('INFO')[-1].strip()}")
         if procs[1].poll() is not None:
             fail("the worker exited early")
+        return hc_seconds
     except BaseException:
         for name, log in logs:
             log.flush()
@@ -1008,6 +1369,57 @@ def phase_end_to_end() -> None:
                 p.wait()
         for _, log in logs:
             log.close()
+
+
+def phase_end_to_end_hashcore(addr, env, hc_expect) -> dict:
+    """Hashcore jobs through the unchanged client: fmin and top-k (k = 8)
+    over [0, 2^32), which must equal phase 4c's; sum over 2^20 indices
+    and a first-match over 2^20 with a planted first hit (its index and
+    value), both checked with numpy (the coordinator recomputes these claims on its host, so
+    they stay small)."""
+    def client(args):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "tpuminter.client", addr, "--workload",
+                              "hashcore", *args, "--timeout", "300"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=400)
+        if out.returncode != 0 or "Result [hashcore]" not in out.stdout:
+            fail(f"client {args[:2]} failed (rc {out.returncode}): {out.stdout}{out.stderr}")
+        searched = int(re.search(r"searched=(\d+)", out.stdout).group(1))
+        return out.stdout, searched, time.perf_counter() - t0
+
+    seconds = {}
+    seed = hc_expect["seed"]
+    for variant in ("fmin", "topk"):
+        text, searched, seconds[variant] = client(
+            ["--variant", variant, "--seed", str(seed), "--k", str(HC_K),
+             "--max-nonce", str(HC_N - 1)])
+        pairs = [[int(v), int(i)] for v, i in re.findall(r"value=(\d+) index=(\d+)", text)]
+        want_searched, want = hc_expect[variant]
+        if (searched, pairs) != (want_searched, [want] if variant == "fmin" else want):
+            fail(f"e2e hashcore {variant}: {searched} {pairs} != phase 4c's {hc_expect[variant]}")
+        say(f"  e2e hashcore {variant} over 2^32: {pairs[0]}{' ...' if len(pairs) > 1 else ''} "
+            f"searched={searched}, equal to phase 4c ({seconds[variant]:.1f} s through the client)")
+    n = 1 << 20
+    sum_seed = seed ^ 0x5A5A
+    text, searched, seconds["fsum"] = client(
+        ["--variant", "fsum", "--seed", str(sum_seed), "--max-nonce", str(n - 1)])
+    total, count = map(int, re.search(r"total=(\d+) count=(\d+)", text).groups())
+    if [searched, [total, count]] != list(np_fold("fsum", sum_seed, 0, n)):
+        fail(f"e2e hashcore fsum: total={total} count={count} searched={searched} != numpy")
+    say(f"  e2e hashcore fsum over 2^20: total={total} count={count}, equal to numpy "
+        f"({seconds['fsum']:.1f} s)")
+    fm_seed, thr = planted_seed(700_001, 1 << 30), 1 << 30
+    text, searched, seconds["fmatch"] = client(
+        ["--variant", "fmatch", "--seed", str(fm_seed), "--threshold", str(thr),
+         "--max-nonce", str(n - 1)])
+    got = [int(x) for x in re.search(r"index=(\d+) value=(\d+) probes=(\d+)", text).groups()]
+    want = np_fold("fmatch", fm_seed, 0, n, thr)[1]
+    # probes count from the matching chunk's start, which the coordinator carves
+    if got[:2] != want[:2]:
+        fail(f"e2e hashcore fmatch: index and value {got[:2]} != numpy {want[:2]}")
+    say(f"  e2e hashcore fmatch over 2^20: index={got[0]} value={got[1]} probes={got[2]}, "
+        f"equal to numpy ({seconds['fmatch']:.1f} s)")
+    return seconds
 
 
 def main() -> int:
@@ -1032,16 +1444,19 @@ def main() -> int:
     card_tag = f"{card}, {smi.split(',')[-1].strip()} limit"
 
     phase("2. build")
-    info = build.build()
-    say(f"  nvcc built {os.path.relpath(info.path, ROOT)} in {info.seconds:.1f} s")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say(f"  {line.strip()}")
-    build.library()
-    for kernel, ops_count in (sass_summary(str(info.path)) or {}).items():
-        top = sorted(ops_count.items(), key=lambda kv: -kv[1])[:9]
-        say(f"  SASS {kernel}: {sum(ops_count.values())} instructions; "
-            + ", ".join(f"{op} {c}" for op, c in top))
+    t0 = time.perf_counter()
+    infos = build.build()
+    say(f"  nvcc, one per source, all started together: {time.perf_counter() - t0:.1f} s")
+    for name, info in infos.items():
+        say(f"  built {os.path.relpath(info.path, ROOT)} in {info.seconds:.1f} s")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                say(f"  {line.strip()}")
+        build.library(name)
+        for kernel, ops_count in (sass_summary(str(info.path)) or {}).items():
+            top = sorted(ops_count.items(), key=lambda kv: -kv[1])[:9]
+            say(f"  SASS {kernel}: {sum(ops_count.values())} instructions; "
+                + ", ".join(f"{op} {c}" for op, c in top))
 
     phase("3. kernels against their plain versions")
     stats = phase_kernels(dev, np.random.default_rng(SEED))
@@ -1051,24 +1466,35 @@ def main() -> int:
     phase("4b. main path, rolled jobs")
     rolled, rates = phase_rolled_path(card_tag, np.random.default_rng(SEED + 1))
 
-    phase("5. end to end: coordinator + port worker + client processes")
-    phase_end_to_end()
+    phase("4c. main path, hashcore workload chunks")
+    hc_rng = np.random.default_rng(SEED + 2)
+    k7_ms = stats["splitmix_batch"].timing["ms"]
+    sweep_rates, breakdown = hashcore_window_sweep(dev, hc_rng, k7_ms)
+    hashcore, hc_rates, hc_expect = phase_hashcore_path(dev, card_tag, hc_rng, k7_ms,
+                                                        breakdown)
 
+    phase("5. end to end: coordinator + port worker + client processes")
+    hc_e2e_seconds = phase_end_to_end(hc_expect)
+
+    paths = {"fixed": fixed, "rolled": rolled, "hashcore": hashcore}
     rows = []
     for name, st in stats.items():
         t = st.timing
-        path = fixed if name in FIXED_PATH_KERNELS else rolled
+        path = ("fixed" if name in FIXED_PATH_KERNELS else
+                "hashcore" if name == "splitmix_batch" else "rolled")
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "tpuminter_torch/kernels/csrc/sha256.cu",
-            "replaces": st.replaces, "launches": path[name],
-            "launches_by_path": {"fixed": fixed[name], "rolled": rolled[name]},
+            "name": name, "route": "cuda", "source": st.source,
+            "replaces": st.replaces, "launches": paths[path][name],
+            "launches_by_path": {p: counts[name] for p, counts in paths.items()},
             "max_abs_err": st.max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "n": t["n"], "plain_n": t.get("plain_n", t["n"]),
             "ops_per_nonce": t["ops_per_nonce"],
             "int32_pipe_ms": t["int32_pipe_ms"], "checks": st.checks,
         })
+    say(json.dumps({"hashcore": {"rates": hc_rates, "window_sweep_g_per_s": sweep_rates,
+                                 "window_breakdown": breakdown,
+                                 "e2e_seconds": hc_e2e_seconds}}))
     say(json.dumps({"rolled_ghs": rates}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(smi)

@@ -7,10 +7,12 @@ unchanged). It imports ``torch`` and numpy, never ``jax`` and nothing of
 only contact with the JAX package is the wire protocol.
 
 The port so far is the worker role: ``python -m tpuminter_torch.worker
-HOST:PORT`` joins an unchanged ``python -m tpuminter.coordinator`` and
+HOST:PORT`` joins an unchanged ``python -m tpuminter.coordinator``,
 mines TARGET (fixed-header and rolled, extranonce included) and MIN
-chunks on hand-written CUDA kernels (``kernels/csrc/sha256.cu``),
-returning the Results the reference miners return. Entry points run on ``cuda`` unless the caller passes
+chunks on hand-written CUDA kernels (``kernels/csrc/sha256.cu``) and
+computes hashcore workload chunks on another (``kernels/csrc/
+splitmix.cu``), returning the Results and WorkResults the reference
+workers return. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
 Module counterparts (each module's docstring names its own):
@@ -21,7 +23,10 @@ Module counterparts (each module's docstring names its own):
 - ``ops.sha256`` ← ``tpuminter.ops.sha256`` + the integer half of
   ``tpuminter.ops.symbolic``
 - ``ops.merkle`` ← ``tpuminter.ops.merkle``
-- ``kernels`` ← ``tpuminter.kernels.sha256``
+- ``ops.splitmix`` ← ``tpuminter.ops.splitmix``
+- ``kernels`` ← ``tpuminter.kernels.sha256`` and ``tpuminter.kernels.splitmix``
+- ``workloads`` ← ``tpuminter.workloads`` (the worker's half: registry,
+  folds, hashcore)
 - ``search`` ← ``tpuminter.search``
 - ``rolled`` ← ``tpuminter.rolled``
 - ``cuda_worker`` ← ``tpuminter.tpu_worker``

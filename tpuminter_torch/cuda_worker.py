@@ -26,10 +26,11 @@ word loses to every candidate); otherwise it reports
 ``protocol.MIN_UNTRACKED`` with ``found=False``. Construct with
 ``exact_min=True`` to match the CPU miner's exhausted-min output.
 
-SCRYPT jobs and workloads are not served yet (``unsupported`` says why,
-and the worker loop refuses them). ``device="cpu"`` runs the same miner
-on the kernels' plain versions; a CUDA device that torch cannot see
-raises.
+SCRYPT jobs are not served yet (``unsupported`` says why, and the
+worker loop refuses them). Workload chunks are computed by
+``tpuminter_torch.workloads`` on the miner's ``device``, not mined here.
+``device="cpu"`` runs the same miner on the kernels' plain versions; a
+CUDA device that torch cannot see raises.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from tpuminter_torch import chain, kernels, rolled
+from tpuminter_torch import chain, kernels, rolled, workloads
 from tpuminter_torch.ops import sha256 as ops
 from tpuminter_torch.protocol import MIN_UNTRACKED, PowMode, Request, Result
 from tpuminter_torch.search import CandidateSearch, pipeline_spans, resolve_handle
@@ -127,7 +128,9 @@ class CudaMiner(Miner):
 
     def unsupported(self, request: Request) -> Optional[str]:
         if request.workload:
-            return f"workload {request.workload!r} is not served by this worker"
+            if workloads.maybe(request.workload) is None:
+                return f"workload {request.workload!r} is not served by this worker"
+            return None
         if request.mode == PowMode.SCRYPT:
             return "the SCRYPT dialect is not ported yet"
         return None
@@ -136,6 +139,8 @@ class CudaMiner(Miner):
         reason = self.unsupported(request)
         if reason is not None:
             raise NotImplementedError(reason)
+        if request.workload:
+            raise NotImplementedError("workload chunks are computed by workloads.compute")
         self._self_check()
         if request.mode == PowMode.MIN:
             yield from self._mine_min(request)

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions
 (counterpart of ``tpuminter.kernels``)."""
 
+from tpuminter_torch.kernels import sha256 as _sha256
 from tpuminter_torch.kernels.sha256 import (
-    KERNELS,
     extranonce_roll,
     min_toy,
     search_candidates,
@@ -12,9 +12,14 @@ from tpuminter_torch.kernels.sha256 import (
     search_target,
     sha256_batch,
 )
+from tpuminter_torch.kernels.splitmix import splitmix_batch
+
+#: every kernel wrapper, in table order (K1-K6 and the roll, then K7)
+KERNELS = _sha256.KERNELS + (splitmix_batch,)
 
 __all__ = [
     "KERNELS", "extranonce_roll", "min_toy", "search_candidates",
     "search_candidates_hdr", "search_candidates_hdr_batch",
     "search_candidates_hdr_batch_sched", "search_target", "sha256_batch",
+    "splitmix_batch",
 ]

@@ -1,14 +1,15 @@
-"""Build and load the CUDA kernels: ``nvcc`` into a shared library with a
+"""Build and load the CUDA kernels: ``nvcc`` into shared libraries with a
 plain C interface, bound with ``ctypes``.
 
 Counterpart of what XLA's compile cache did for the JAX package
 (``tpuminter.xla_cache``), with one difference that matters: the
 kernels take the job's message template as a runtime argument, so a
-machine builds them once, not once per job. The library goes into
-``build/tpuminter_torch/`` at the repository root, named by a hash of
-the source and the flags, and is built at first use: importing this
-module builds nothing. No CUDA toolkit means a clear ``RuntimeError``;
-there is no fallback.
+machine builds them once, not once per job. Each source under
+``csrc/`` becomes its own library in ``build/tpuminter_torch/`` at the
+repository root, named by a hash of that source and the flags; the
+first use builds every library not built yet, one ``nvcc`` per source,
+all started together. Importing this module builds nothing. No CUDA
+toolkit means a clear ``RuntimeError``; there is no fallback.
 """
 
 from __future__ import annotations
@@ -19,13 +20,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Dict
 
-__all__ = ["BuildInfo", "build", "library", "TmTemplate", "TmTarget"]
+__all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sha256.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: library name -> its source
+SOURCES = {"sha256": _CSRC / "sha256.cu", "splitmix": _CSRC / "splitmix.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuminter_torch"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -71,49 +76,77 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> BuildInfo:
-    """Compile ``csrc/sha256.cu`` unless this source and these flags are
-    already built. The output is written under a temporary name and
-    renamed, so processes building at once never load a partial file."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"tm_sha256_{tag}.so"
-    if path.exists():
-        return BuildInfo(path, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    start = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return BuildInfo(path, time.perf_counter() - start, proc.stdout + proc.stderr)
+def _path(name: str) -> Path:
+    tag = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"tm_{name}_{tag}.so"
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every entry point declared."""
-    lib = ctypes.CDLL(str(build().path))
+def build() -> Dict[str, BuildInfo]:
+    """Compile every source whose library (for this source and these
+    flags) is not built yet, one ``nvcc`` each, all at once. Each output
+    is written under a temporary name and renamed, so processes building
+    at once never load a partial file."""
+    infos, running = {}, {}
+    for name in SOURCES:
+        path = _path(name)
+        if path.exists():
+            infos[name] = BuildInfo(path, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        log = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen([_nvcc(), *FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                                stdout=log, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, log, tmp, path, time.perf_counter())
+    failed = []
+    while running:
+        for name, (proc, log, tmp, path, start) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds = time.perf_counter() - start
+            del running[name]
+            with log:
+                log.seek(0)
+                text = log.read()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{text}")
+                continue
+            os.replace(tmp, path)
+            infos[name] = BuildInfo(path, seconds, text)
+        time.sleep(0.05)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return infos
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``SOURCES[name]``, with every entry
+    point declared."""
+    lib = ctypes.CDLL(str(build()[name].path))
     ptr, u32, i32, i64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, ctypes.c_int64
     tmpl = ctypes.POINTER(TmTemplate)
     signatures = {
-        "tm_sha256_batch": [tmpl, ptr, ptr, ptr, i64, i32, ptr],
-        "tm_search_candidates": [tmpl, u32, u32, u32, ptr, i32, i32, ptr],
-        "tm_search_target": [
-            tmpl, ctypes.POINTER(TmTarget), u32, u32, ptr, ptr, i32, i32, ptr,
-        ],
-        "tm_min_toy": [tmpl, u32, u32, u32, ptr, ptr, i32, i32, ptr],
-        "tm_search_candidates_hdr": [ptr, ptr, u32, u32, u32, ptr, i32, i32, ptr],
-        "tm_search_candidates_hdr_batch": [
-            ptr, ptr, ptr, ptr, i32, u32, u32, i32, ptr, i32, i32, ptr,
-        ],
-        "tm_extranonce_roll": [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr],
+        "sha256": {
+            "tm_sha256_batch": [tmpl, ptr, ptr, ptr, i64, i32, ptr],
+            "tm_search_candidates": [tmpl, u32, u32, u32, ptr, i32, i32, ptr],
+            "tm_search_target": [
+                tmpl, ctypes.POINTER(TmTarget), u32, u32, ptr, ptr, i32, i32, ptr,
+            ],
+            "tm_min_toy": [tmpl, u32, u32, u32, ptr, ptr, i32, i32, ptr],
+            "tm_search_candidates_hdr": [ptr, ptr, u32, u32, u32, ptr, i32, i32, ptr],
+            "tm_search_candidates_hdr_batch": [
+                ptr, ptr, ptr, ptr, i32, u32, u32, i32, ptr, i32, i32, ptr,
+            ],
+            "tm_extranonce_roll": [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr],
+        },
+        "splitmix": {
+            "tm_splitmix_batch": [ctypes.c_uint64, ptr, ptr, ptr, ptr, i64, i32, i32, ptr],
+        },
     }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in signatures[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

@@ -120,7 +120,7 @@ def _grid(n: int, device_index: int) -> int:
 
 
 def _launch(name: str, *args) -> None:
-    err = getattr(build.library(), name)(*args)
+    err = getattr(build.library("sha256"), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 

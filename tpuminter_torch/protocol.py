@@ -1,18 +1,18 @@
 """The wire messages a JSON worker speaks.
 
 Counterpart of ``tpuminter.protocol``, reduced to the JSON codec of the
-kinds a worker without workloads sends and receives: ``Join``,
-``Request``, ``Result``, ``Setup``, ``Assign``, ``Refuse``, ``Cancel``
-and the roll-budget dialect's ``RollAssign`` and ``Beacon``. The JSON
-shapes are the reference's exactly, so this module and
-``tpuminter.protocol`` decode each other's payloads; that wire is the
-port's only contact with the JAX package.
+kinds a JSON worker sends and receives: ``Join``, ``Request``,
+``Result``, ``Setup``, ``Assign``, ``Refuse``, ``Cancel``, the
+roll-budget dialect's ``RollAssign`` and ``Beacon``, and the workload
+answer ``WorkResult``. The JSON shapes are the reference's exactly, so
+this module and ``tpuminter.protocol`` decode each other's payloads;
+that wire is the port's only contact with the JAX package.
 
-A worker that joins with ``codec="json"`` and no workloads is sent only
-JSON ``Setup``/``Assign``/``Cancel``, plus ``RollAssign`` when it
-advertises ``roll`` (the reference protocol's "No flag day"
-negotiation), so the binary codec and the coordinator-internal kinds
-are not copied. Any other payload raises :class:`ProtocolError`, which
+A worker that joins with ``codec="json"`` is sent only JSON
+``Setup``/``Assign``/``Cancel``, plus ``RollAssign`` when it advertises
+``roll`` and workload jobs' ``Setup``/``Assign`` for the workloads it
+advertises (the reference protocol's "No flag day" negotiation), so the
+binary codec and the coordinator-internal kinds are not copied. Any other payload raises :class:`ProtocolError`, which
 the worker logs and drops.
 """
 
@@ -34,6 +34,7 @@ __all__ = [
     "Cancel",
     "RollAssign",
     "Beacon",
+    "WorkResult",
     "Message",
     "ProtocolError",
     "MIN_UNTRACKED",
@@ -69,7 +70,7 @@ class Join:
     throughput hint, ``span`` the worker's pipeline-stage size in nonces;
     ``codec``/``roll``/``workloads``/``agg`` are capability
     advertisements (this port's worker sends JSON, ``roll`` unless told
-    not to, and no workloads)."""
+    not to, and the workloads it computes)."""
 
     backend: str = "cpu"
     lanes: int = 1
@@ -86,7 +87,7 @@ class Request:
     targeted modes use an 80-byte ``header`` and a 256-bit ``target``.
     A rolled job (``coinbase_prefix`` set) ranges over global indices
     ``extranonce << nonce_bits | nonce``; ``workload`` names a pluggable
-    workload (decoded so the worker can refuse it)."""
+    workload, whose params frame rides ``data``."""
 
     job_id: int
     mode: PowMode
@@ -214,7 +215,22 @@ class Beacon:
     lease_epoch: int = 0
 
 
-Message = Union[Join, Request, Result, Setup, Assign, Refuse, Cancel, RollAssign, Beacon]
+@dataclass(frozen=True)
+class WorkResult:
+    """Worker → coordinator: a workload chunk's answer. ``payload`` is
+    the fold discipline's own tagged, CRC-trailed chunk-partial frame
+    (``workloads.folds``), opaque here; ``wid`` is the workload's
+    numeric id and ``searched`` counts the indices evaluated."""
+
+    job_id: int
+    chunk_id: int
+    wid: int
+    searched: int
+    payload: bytes = b""
+
+
+Message = Union[Join, Request, Result, Setup, Assign, Refuse, Cancel, RollAssign, Beacon,
+                WorkResult]
 
 _JSON_OPEN = 0x7B  # ord("{")
 
@@ -312,6 +328,15 @@ def encode_msg(msg: Message) -> bytes:
             "searched": msg.searched,
             "chunk_id": msg.chunk_id,
         }
+    elif isinstance(msg, WorkResult):
+        obj = {
+            "kind": "wresult",
+            "job_id": msg.job_id,
+            "chunk_id": msg.chunk_id,
+            "wid": msg.wid,
+            "searched": msg.searched,
+            "wp": bytes(msg.payload).hex(),
+        }
     elif isinstance(msg, Cancel):
         obj = {"kind": "cancel", "job_id": msg.job_id}
     elif isinstance(msg, RollAssign):
@@ -393,6 +418,14 @@ def decode_msg(raw) -> Message:
                 found=bool(obj["found"]),
                 searched=int(obj.get("searched", 0)),
                 chunk_id=int(obj.get("chunk_id", 0)),
+            )
+        if kind == "wresult":
+            return WorkResult(
+                job_id=int(obj["job_id"]),
+                chunk_id=int(obj["chunk_id"]),
+                wid=int(obj["wid"]),
+                searched=int(obj.get("searched", 0)),
+                payload=bytes.fromhex(obj.get("wp", "")),
             )
         if kind == "cancel":
             return Cancel(job_id=int(obj["job_id"]))

@@ -1,13 +1,16 @@
 """Worker role: the Miner interface, the LSP role loop and the CLI.
 
 Counterpart of ``tpuminter.worker`` (``Miner``, ``run_miner``, ``main``)
-for a worker that joins with the JSON codec and no workloads, so an
-unchanged ``tpuminter`` coordinator sends it JSON ``Setup``, ``Assign``
-and ``Cancel`` messages, and, since it advertises the roll-budget
-dialect unless told not to, ``RollAssign`` chunks of whole extranonces,
-on which it reports progress with ``Beacon`` messages. A chunk its miner
-cannot serve (a SCRYPT job, a workload) is answered with a ``Refuse``,
-which makes the coordinator requeue it.
+for a worker that joins with the JSON codec, so an unchanged
+``tpuminter`` coordinator sends it JSON ``Setup``, ``Assign`` and
+``Cancel`` messages, and, since it advertises the roll-budget dialect
+unless told not to, ``RollAssign`` chunks of whole extranonces, on which
+it reports progress with ``Beacon`` messages. It advertises the
+registered workloads (``tpuminter_torch.workloads``: hashcore), whose
+chunks it computes on the miner's device and answers with
+``WorkResult``s. A chunk it cannot serve (a SCRYPT job, an unregistered
+workload) is answered with a ``Refuse``, which makes the coordinator
+requeue it.
 
 Run it as ``python -m tpuminter_torch.worker HOST:PORT``.
 """
@@ -18,9 +21,9 @@ import asyncio
 import logging
 import time
 from dataclasses import replace as dc_replace
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Union
 
-from tpuminter_torch import chain
+from tpuminter_torch import chain, workloads
 from tpuminter_torch.lsp import FAST, LspClient, LspConnectionLost, Params
 from tpuminter_torch.protocol import (
     Assign,
@@ -34,6 +37,7 @@ from tpuminter_torch.protocol import (
     Result,
     RollAssign,
     Setup,
+    WorkResult,
     decode_msg,
     encode_msg,
 )
@@ -61,6 +65,8 @@ class Miner:
     lanes = 1
     #: internal pipeline-stage size in nonces (Join.span; 0 = none)
     span = 0
+    #: torch device the worker computes workload chunks on
+    device = "cuda"
     #: ``(high_water, best_nonce, best_hash)`` callback the role loop
     #: installs for each roll-budget chunk; rolled mine paths call it
     #: between sweeps, on the mining thread. None disables it.
@@ -102,7 +108,7 @@ async def run_miner(
     """
     client = await LspClient.connect(host, port, params or FAST)
     client.write(encode_msg(Join(backend=miner.backend, lanes=miner.lanes, span=miner.span,
-                                 roll=roll)))
+                                 roll=roll, workloads=workloads.names())))
     pending: "asyncio.Queue[Message]" = asyncio.Queue()
     read_task: Optional[asyncio.Task] = None
     templates: dict = {}  # job_id -> template Request from a Setup
@@ -147,6 +153,13 @@ async def run_miner(
             if not isinstance(msg, Request):
                 log.warning("worker: unexpected %s, dropping", type(msg).__name__)
                 continue
+            if msg.workload and workloads.maybe(msg.workload) is None:
+                # never advertised: Refuse so the chunk requeues onto a
+                # worker that computes it
+                log.warning("worker: unregistered workload %r for job %d; refusing chunk %d",
+                            msg.workload, msg.job_id, msg.chunk_id)
+                client.write(encode_msg(Refuse(msg.job_id, msg.chunk_id)))
+                continue
             reason = miner.unsupported(msg)
             if reason is not None:
                 log.warning("worker: refusing chunk %d of job %d: %s",
@@ -164,8 +177,13 @@ async def run_miner(
                 miner.progress_cb = None
             last_beacon = time.monotonic()
             beacon_hw = -1
-            gen = miner.mine(msg)
-            result: Optional[Result] = None
+            if msg.workload:
+                # the workload's compute generator, in the same executor
+                # loop with the same Cancel window
+                gen = workloads.compute(msg, device=miner.device)
+            else:
+                gen = miner.mine(msg)
+            result: Optional[Union[Result, WorkResult]] = None
             cancelled = False
             done = object()
             while True:

@@ -1,0 +1,214 @@
+"""Fold disciplines: how a workload chunk's partial answer combines with
+others, and how it is framed on the wire.
+
+Counterpart of ``tpuminter.workloads.folds``, reduced to what a worker
+needs: the four disciplines' ``initial``/``combine``/``is_final`` and
+their chunk-partial codec. Each partial travels inside a ``WorkResult``
+as a tagged, CRC-trailed frame (tags 0xC1–0xC4) that the reference
+coordinator decodes, so the layouts are the reference's byte for byte.
+
+- **fmin**: the single smallest ``[value, index]``, ties to the lowest
+  index;
+- **top-k**: the ``k`` smallest ``[value, index]`` pairs in ``(value,
+  index)`` order, at most :data:`TOPK_SLOTS`;
+- **first-match**: ``[index, value, probes]`` of the earliest index whose
+  value is ``<= threshold``, or ``[None, None, probes]`` for a dry scan;
+- **sum**: ``[total, count]``, exact.
+
+Accumulators are plain lists and ints, as in the reference.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Any
+
+__all__ = ["Fold", "FMin", "TopK", "FirstMatch", "FSum", "seal_payload", "TOPK_SLOTS"]
+
+_U64 = 1 << 64
+_U128 = 1 << 128
+
+_TAG_WMIN = 0xC1
+_TAG_WTOPK = 0xC2
+_TAG_WMATCH = 0xC3
+_TAG_WSUM = 0xC4
+
+#: top-k payloads carry a fixed slot table; unused slots are zero
+TOPK_SLOTS = 8
+
+_BIN_WMIN = struct.Struct("<BBQQ")  # tag, has, value, index
+_BIN_WTOPK = struct.Struct("<BB" + "QQ" * TOPK_SLOTS)  # tag, count, (value, index) slots
+_BIN_WMATCH = struct.Struct("<BBQQQ")  # tag, has, index, value, probes
+_BIN_WSUM = struct.Struct("<B16sQ")  # tag, total (u128 LE), count
+_CRC = struct.Struct("<I")
+
+
+def seal_payload(body: bytes) -> bytes:
+    """``body ‖ crc32(body)``: the chunk-partial frame trailer."""
+    return body + _CRC.pack(zlib.crc32(body))
+
+
+def _open_payload(data: bytes, layout: struct.Struct, tag: int) -> tuple:
+    """Check length, CRC and tag, then unpack; ValueError on a mismatch."""
+    if len(data) != layout.size + _CRC.size:
+        raise ValueError(
+            f"fold payload: want {layout.size + _CRC.size} bytes, got {len(data)}"
+        )
+    body, (crc,) = data[:-_CRC.size], _CRC.unpack(data[-_CRC.size:])
+    if zlib.crc32(body) != crc:
+        raise ValueError("fold payload: CRC mismatch")
+    fields = layout.unpack(body)
+    if fields[0] != tag:
+        raise ValueError(f"fold payload: tag 0x{fields[0]:02X}, want 0x{tag:02X}")
+    return fields
+
+
+class Fold:
+    """One reduction discipline; ``combine`` is associative with
+    deterministic ties, so partials of any granularity combine to the
+    same answer."""
+
+    name = "fold"
+
+    def initial(self) -> Any:
+        return None
+
+    def combine(self, a: Any, b: Any) -> Any:
+        raise NotImplementedError
+
+    def is_final(self, acc: Any) -> bool:
+        """True when this accumulator already decides the job."""
+        return False
+
+    def encode(self, acc: Any) -> bytes:
+        raise NotImplementedError
+
+    def decode(self, data: bytes) -> Any:
+        raise NotImplementedError
+
+
+class FMin(Fold):
+    name = "fmin"
+
+    def combine(self, a, b):
+        if a is None:
+            return None if b is None else list(b)
+        if b is None:
+            return list(a)
+        return list(min((tuple(a), tuple(b))))
+
+    def encode(self, acc):
+        if acc is None:
+            return seal_payload(_BIN_WMIN.pack(_TAG_WMIN, 0, 0, 0))
+        value, index = acc
+        if not (0 <= value < _U64 and 0 <= index < _U64):
+            raise ValueError("fmin acc out of u64 range")
+        return seal_payload(_BIN_WMIN.pack(_TAG_WMIN, 1, value, index))
+
+    def decode(self, data):
+        _tag, has, value, index = _open_payload(data, _BIN_WMIN, _TAG_WMIN)
+        return [value, index] if has else None
+
+
+class TopK(Fold):
+    name = "topk"
+
+    def __init__(self, k: int):
+        if not 1 <= k <= TOPK_SLOTS:
+            raise ValueError(f"topk: k must be in [1, {TOPK_SLOTS}]")
+        self.k = k
+
+    def initial(self):
+        return []
+
+    def combine(self, a, b):
+        merged = {int(i): int(v) for v, i in (a or [])}
+        # one index can only carry one value; keep the smaller defensively
+        for v, i in (b or []):
+            v, i = int(v), int(i)
+            merged[i] = min(merged.get(i, v), v)
+        return sorted([v, i] for i, v in merged.items())[: self.k]
+
+    def encode(self, acc):
+        acc = acc or []
+        if len(acc) > TOPK_SLOTS:
+            raise ValueError("topk acc exceeds the slot table")
+        flat = []
+        for value, index in acc:
+            if not (0 <= value < _U64 and 0 <= index < _U64):
+                raise ValueError("topk acc out of u64 range")
+            flat.extend((value, index))
+        flat.extend([0] * (2 * TOPK_SLOTS - len(flat)))
+        return seal_payload(_BIN_WTOPK.pack(_TAG_WTOPK, len(acc), *flat))
+
+    def decode(self, data):
+        fields = _open_payload(data, _BIN_WTOPK, _TAG_WTOPK)
+        count = fields[1]
+        if count > TOPK_SLOTS:
+            raise ValueError("topk payload: count exceeds the slot table")
+        return [[fields[2 + 2 * s], fields[3 + 2 * s]] for s in range(count)]
+
+
+class FirstMatch(Fold):
+    name = "fmatch"
+
+    def __init__(self, threshold: int):
+        if not 0 <= threshold < _U64:
+            raise ValueError("fmatch: threshold out of u64 range")
+        self.threshold = threshold
+
+    def combine(self, a, b):
+        if a is None:
+            return None if b is None else list(b)
+        if b is None:
+            return list(a)
+        if a[0] is None:
+            keep = b
+        elif b[0] is None:
+            keep = a
+        else:
+            keep = a if a[0] <= b[0] else b
+        return [keep[0], keep[1], a[2] + b[2]]
+
+    def is_final(self, acc):
+        return acc is not None and acc[0] is not None
+
+    def encode(self, acc):
+        if acc is None:
+            acc = [None, None, 0]
+        index, value, probes = acc
+        if not 0 <= probes < _U64:
+            raise ValueError("fmatch probes out of u64 range")
+        if index is None:
+            return seal_payload(_BIN_WMATCH.pack(_TAG_WMATCH, 0, 0, 0, probes))
+        if not (0 <= index < _U64 and 0 <= value < _U64):
+            raise ValueError("fmatch acc out of u64 range")
+        return seal_payload(_BIN_WMATCH.pack(_TAG_WMATCH, 1, index, value, probes))
+
+    def decode(self, data):
+        _tag, has, index, value, probes = _open_payload(data, _BIN_WMATCH, _TAG_WMATCH)
+        if has:
+            return [index, value, probes]
+        return [None, None, probes] if probes else None
+
+
+class FSum(Fold):
+    name = "fsum"
+
+    def initial(self):
+        return [0, 0]
+
+    def combine(self, a, b):
+        a, b = a or [0, 0], b or [0, 0]
+        return [a[0] + b[0], a[1] + b[1]]
+
+    def encode(self, acc):
+        total, count = acc or [0, 0]
+        if not (0 <= count < _U64 and 0 <= total < _U128):
+            raise ValueError("fsum acc out of range (u128 total, u64 count)")
+        return seal_payload(_BIN_WSUM.pack(_TAG_WSUM, total.to_bytes(16, "little"), count))
+
+    def decode(self, data):
+        _tag, total, count = _open_payload(data, _BIN_WSUM, _TAG_WSUM)
+        return [int.from_bytes(total, "little"), count]
