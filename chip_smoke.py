@@ -11,7 +11,7 @@ caught), and without a CUDA device the script exits non-zero at once:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: one nvcc per source under ``tpuminter_torch/kernels/csrc/``
-   (``sha256.cu``, ``splitmix.cu``), all started together;
+   (``sha256.cu``, ``splitmix.cu``, ``scrypt.cu``), all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs on the card (exact integer equality) and against hashlib, the
    rolled search kernels also at the main path's shape (width 2^27, 10
@@ -21,8 +21,16 @@ caught), and without a CUDA device the script exits non-zero at once:
    version and its bound (``op_count``: the instructions the function
    needs on the timed inputs); K7 (splitmix64) on 2^24 random indices
    under random seeds and on the edge words, against numpy u64 lanes
-   too, and timed at the hashcore path's window (2^24 indices);
-4. main path, in three parts, each with every launch count set to 0 just
+   too, and timed at the hashcore path's window (2^24 indices); the
+   scrypt kernels S1 (PBKDF2-in and the ROMix fill), 19 (the walk) and
+   S2 (PBKDF2-out and the batch fold) on 2^12 seeded nonces at N = 1024
+   (X and all of V too) and at N = 16 and on a ragged count, against
+   hashlib.scrypt on a sample, the fold at a planted target; probe 19's
+   stage 1 at its shapes and probe 11 (the row gather) against its
+   plain version; then S1, 19 and S2 timed at the SCRYPT path's batch,
+   19 per step as probe 19's stage 2, 11 per row as probe 11 measured
+   it, beside ``torch.index_select``;
+4. main path, in four parts, each with every launch count set to 0 just
    before it and read just after: (a) fixed headers: ``CudaMiner()``
    with its defaults mines the genesis header over a 2^30-nonce window,
    a regtest-difficulty window and an exhausted exact-min window, and a
@@ -40,14 +48,21 @@ caught), and without a CUDA device the script exits non-zero at once:
    objective; the four at 2^24 ragged indices against numpy u64 lanes;
    before them, a window sweep and a profiled breakdown of a window's
    device time (which also make the runs after them steady-state);
+   (d) SCRYPT chunks through ``CudaMiner()``: a batch sweep (2^14 to
+   2^18 nonces), a chunk of the coordinator's size, an exhausted 2^20
+   range and the same range at a planted target, the Litecoin genesis
+   block, and a rolled SCRYPT job, every Result checked with
+   hashlib.scrypt;
 5. end to end: the unchanged ``python -m tpuminter.coordinator`` (with a
    roll budget), the port's ``python -m tpuminter_torch.worker`` and the
    unchanged ``python -m tpuminter.client`` as separate processes: a
    genesis TARGET job, a MIN job and a rolled job (the genesis coinbase,
-   extranonces 0-4), each Result checked with hashlib; hashcore jobs
-   (fmin and top-k over 2^32 indices, equal to phase 4c's; sum and a
-   planted first-match over 2^20, checked with numpy), and the
-   coordinator's log must show the worker advertising hashcore.
+   extranonces 0-4) and a SCRYPT job (phase 4d's range at its planted
+   bits), each Result checked with hashlib; hashcore jobs (fmin and
+   top-k over 2^32 indices, equal to phase 4c's; sum and a planted
+   first-match over 2^20, checked with numpy); the coordinator's log
+   must show the worker advertising hashcore, and neither log a refused
+   chunk.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
@@ -347,7 +362,9 @@ def sass_summary(so_path: str):
     for line in sass.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            name = next((k for k in ("splitmix_batch", "sha256_batch", "search_target",
+            name = next((k for k in ("scrypt_front", "romix_walk", "scrypt_back", "scrypt_fold",
+                                     "row_gather", "init_handle",
+                                     "splitmix_batch", "sha256_batch", "search_target",
                                      "search_candidates_hdr_batch", "search_candidates_hdr",
                                      "search_candidates", "min_toy", "extranonce_roll",
                                      "reduce", "fill_rows", "fill") if k in mangled), mangled)
@@ -430,6 +447,19 @@ def phase_kernels(dev, rng):
         "splitmix_batch": KernelStats(
             "splitmix_batch", "tpuminter/kernels/splitmix.py:65",
             "tpuminter_torch/kernels/csrc/splitmix.cu"),
+        "scrypt_front": KernelStats(
+            "scrypt_front", "tpuminter/ops/scrypt.py:241-285 (PBKDF2-in) + :190-194 (ROMix "
+            "fill), jnp program, no pallas_call", "tpuminter_torch/kernels/csrc/scrypt.cu"),
+        "romix_walk": KernelStats(
+            "romix_walk", "scripts/walk_pallas_probe.py:106 (fused_step; pallas_call :107)",
+            "tpuminter_torch/kernels/csrc/scrypt.cu"),
+        "scrypt_back": KernelStats(
+            "scrypt_back", "tpuminter/ops/scrypt.py:289-294 (PBKDF2-out) + "
+            "tpuminter/jax_worker.py:64 (_scrypt_step fold), jnp program, no pallas_call",
+            "tpuminter_torch/kernels/csrc/scrypt.cu"),
+        "row_gather": KernelStats(
+            "row_gather", "scripts/romix_pallas_probe.py:35 (build_gather_kernel; "
+            "pallas_call :78)", "tpuminter_torch/kernels/csrc/scrypt.cu"),
     }
     genesis = chain.GENESIS_HEADER
     hdr = ops.header_template(genesis.pack())
@@ -556,7 +586,8 @@ def phase_kernels(dev, rng):
     time_rolled_kernels(dev, rng, stats, rolled, int_rate, tw[1])
     torch.cuda.empty_cache()
     splitmix_kernel_checks(dev, rng, stats["splitmix_batch"], int_rate)
-    return stats
+    torch.cuda.empty_cache()
+    return stats, scrypt_kernel_checks(dev, rng, stats, int_rate)
 
 
 def record(st, n, plain_n, ms, plain_ms, nbytes, per_unit, ops_total, int_rate,
@@ -572,7 +603,9 @@ def record(st, n, plain_n, ms, plain_ms, nbytes, per_unit, ops_total, int_rate,
         int32_pipe_ms=ops_ms * ISSUE_LANES_PER_SM / INT32_LANES_PER_SM,
     )
     rate = {"nonce": f"{n / ms / 1e6:.3f} GH/s",
-            "index": f"{n / ms / 1e6:.3f} G indices/s"}.get(unit, f"{n} {unit}s")
+            "index": f"{n / ms / 1e6:.3f} G indices/s",
+            "hash": f"{n / ms / 1e3:.4f} MH/s",
+            "row": f"{n / ms / 1e6:.3f} G rows/s"}.get(unit, f"{n} {unit}s")
     say(f"  {st.name}: {ms:.4f} ms/launch at n={n} ({rate}), plain "
         f"{plain_ms:.1f} ms at n={plain_n}, bound {max(bytes_ms, ops_ms):.4f} ms, INT32 "
         f"pipe alone {ops_ms * ISSUE_LANES_PER_SM / INT32_LANES_PER_SM:.4f} ms "
@@ -837,6 +870,8 @@ FIXED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates", "min
 ROLLED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates_hdr",
                        "search_candidates_hdr_batch", "search_candidates_hdr_batch_sched",
                        "extranonce_roll")
+#: row_gather (probe 11) is not on it: the miner never launches it
+SCRYPT_PATH_KERNELS = ("scrypt_front", "romix_walk", "scrypt_back")
 
 
 def reset_launches(kernels) -> None:
@@ -1269,16 +1304,467 @@ def phase_hashcore_path(dev, card: str, rng, k7_ms, breakdown):
     return launches, rates, e2e
 
 
+# ---- scrypt (S1, 19, S2 and the row-gather probe 11) -----------------------
+
+#: integer operations of Salsa20/8: 128 x (add, funnel shift, xor) + 16 adds;
+#: BlockMix (r = 1) is two of them and 32 xors; a walk step xors in V's row
+SALSA_OPS = 128 * 3 + 16
+BLOCKMIX_OPS = 2 * SALSA_OPS + 32
+WALK_STEP_OPS = BLOCKMIX_OPS + 32
+SCRYPT_N_LOG2 = 10
+SCRYPT_N = 1 << SCRYPT_N_LOG2
+#: the Litecoin genesis block: its double SHA and its scrypt value (below
+#: its target), for the known-answer run
+LTC_GENESIS = dict(
+    version=1, prev_hex="00" * 32,
+    merkle_hex="97ddfbbae6be97fd6cdf3e7ca13232a3afff2353e29badfab7f73011edd4ced9",
+    timestamp=1317972665, bits=0x1E0FFFF0, nonce=2084524493,
+)
+LTC_GENESIS_DSHA = "12a765e31ffd4059bada1e25190f6e98c99d9714d334efa41a195a7e7e04bfe2"
+LTC_GENESIS_SCRYPT = 0x0000050C34A64B415B6B15B37F2216634B5B1669CB9A2E38D76F7213B0671E00
+#: lanes of the kernels' plain check at N = 16 (at N = 1024 it runs at
+#: the path's batch: an int64 plain V of 8 GiB at 2^15), and the lanes a
+#: ragged count leaves out of its V
+SCRYPT_CHECK_N = 1 << 12
+SCRYPT_RAGGED = 333
+#: the batch sweep of phase 4d, and the batches each of its runs mines
+SCRYPT_SWEEP = tuple(1 << b for b in range(14, 19))
+SCRYPT_SWEEP_BATCHES = 4
+#: the exhausted range of phase 4d (also phase 5's job), the Litecoin
+#: genesis window's nonces past the genesis nonce, and the rolled job's
+#: indices on each side of its extranonce boundary
+SCRYPT_RANGE, SCRYPT_WINDOW_TAIL, SCRYPT_ROLLED_HALF = 1 << 20, 4095, 1 << 15
+#: the coordinator's SCRYPT chunk for the port worker: 16384 nonces a lane
+#: hint over SCRYPT_CHUNK_DIVISOR (8192), at the worker's 32768 lanes
+SCRYPT_COORD_CHUNK = 16_384 * 32_768 // 8_192
+#: the batches the coordinator-size chunk is mined at (4, 2 and 1 batches
+#: a chunk), and the timed runs at each
+SCRYPT_CHUNK_SWEEP, SCRYPT_CHUNK_REPS = (1 << 14, 1 << 15, 1 << 16), 5
+#: probe 19's shapes (scripts/walk_pallas_probe.py) and probe 11's
+#: (scripts/romix_pallas_probe.py): its rows, batch and rep counts
+WALK_B = 16_384
+GATHER_ROWS, GATHER_B, GATHER_REPS = 256 * 8192, 8192, (32, 256)
+
+
+def sha_ops() -> int:
+    """Integer instructions of one SHA-256 compression with every input
+    word varying (``op_count``'s rules)."""
+    return _count(_compress([leaf(NONCE) for _ in range(8)], [leaf(NONCE) for _ in range(16)]))[0]
+
+
+def to_i32(words: torch.Tensor) -> torch.Tensor:
+    """u32 values in int64 lanes → the same bits as int32."""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def handle_from_values(values, target: int):
+    """The packed batch result (``ops.scrypt.batch_fold``) computed on
+    the host from each lane's hash value."""
+    def words(v):
+        return [(v >> (32 * (7 - j))) & M32 for j in range(8)]
+
+    wins = [i for i, v in enumerate(values) if v <= target]
+    lane_min = min(range(len(values)), key=lambda i: (values[i], i))
+    first = wins[0] if wins else 0x7FFFFFFF
+    return ([int(bool(wins)), first] + words(values[lane_min]) + [lane_min]
+            + (words(values[first]) if wins else [0] * 8))
+
+
+def compact_at_least(target: int) -> int:
+    """The compact bits of the smallest encodable target >= ``target``."""
+    for exponent in range(3, 35):
+        mantissa = -(-target // (1 << (8 * (exponent - 3))))
+        if mantissa <= 0x7FFFFF:
+            return (exponent << 24) | mantissa
+    fail(f"target {target:#x} has no compact encoding")
+
+
+def probe_v(rows: int, dev, chunk: int = 1 << 20) -> torch.Tensor:
+    """Probe 19's V, made on the card: row i word j is a murmur-style mix
+    of ``i · 2654435761 + j · 0x9E3779B9`` (scripts/walk_pallas_probe.py)."""
+    v = torch.empty((rows, 32), dtype=torch.int32, device=dev)
+    j = torch.arange(32, dtype=torch.int64, device=dev)[None]
+    for r0 in range(0, rows, chunk):
+        i = torch.arange(r0, min(rows, r0 + chunk), dtype=torch.int64, device=dev)[:, None]
+        h = (i * 2654435761 + j * 0x9E3779B9) & M32
+        h ^= h >> 16
+        h = (h * 0x85EBCA6B) & M32
+        h ^= h >> 13
+        v[r0:r0 + chunk] = to_i32(h)
+    return v
+
+
+def scrypt_values(digest: torch.Tensor) -> list:
+    """``(B, 8)`` BE digest words → each lane's 256-bit hash value
+    (little-endian bytes)."""
+    raw = digest.cpu().numpy().astype(">u4").tobytes()
+    return [int.from_bytes(raw[i:i + 32], "little") for i in range(0, len(raw), 32)]
+
+
+def check_fold(st, hw, nonces, x, xp, what) -> float:
+    """``scrypt_back`` on ``x`` against its plain version on ``xp`` and
+    against the host's fold of its digests, at no target, the batch's
+    5th-smallest hash and every hash; returns the plain version's ms."""
+    from tpuminter_torch.kernels import scrypt as KS
+    from tpuminter_torch.ops import sha256 as ops
+
+    digest, _ = KS.scrypt_back(hw, nonces, x, [0] * 8)
+    values = scrypt_values(digest)
+    for target in (0, sorted(values)[4], (1 << 256) - 1):
+        tw = [int(w) for w in ops.target_to_words(target)]
+        digest, handle = KS.scrypt_back(hw, nonces, x, tw)
+        ms, (dp, hp) = event_ms(lambda: KS.scrypt_back_plain(hw, nonces, xp, tw), 1,
+                                warmup=False)
+        st.agree(digest, dp, f"digests, {what}")
+        st.agree(handle, hp, f"fold, {what}, target {target:#x}")
+        if handle.tolist() != handle_from_values(values, target):
+            fail(f"scrypt_back fold, {what}, target {target:#x}: {handle.tolist()} "
+                 "disagrees with the host's fold of the digests")
+    return ms
+
+
+def scrypt_kernel_checks(dev, rng, stats, int_rate):
+    """S1 → 19 → S2 against their plain versions on the card, exact: the
+    path's batch of seeded nonces at N = 1024, whole and ragged in its V
+    (X and all of V, the digests, and the fold against no target, the
+    batch's 5th-smallest hash and every hash), the same at N = 16 on 2^12
+    and 1000 lanes of a 2^12-lane V, S2's fold at the sweep's largest
+    batch; 88 digests against hashlib.scrypt. Probe 19's stage 1 (B = 16384, N = 1024, its V made
+    on the card, a 4-step chain) and 11 against its plain version. Then
+    each timed: S1, 19 and S2 at the path's batch, 19 per step over a
+    1024-step walk at probe 19's B and the path's, 11 as the slope
+    between 32 and 256 passes at probe 11's batch beside
+    ``torch.index_select``."""
+    from tpuminter_torch.cuda_worker import DEFAULT_SCRYPT_BATCH
+    from tpuminter_torch.kernels import scrypt as KS
+    from tpuminter_torch.ops import scrypt as S
+    from tpuminter_torch.ops import sha256 as ops
+
+    s1, s19, s2, s11 = (stats[k] for k in ("scrypt_front", "romix_walk", "scrypt_back",
+                                           "row_gather"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ = KS.occupancy(dev)
+    wave = {k: b * KS.THREADS * sms for k, b in occ.items()}
+    say(f"  scrypt occupancy: blocks of {KS.THREADS} per SM {occ}; hashes in flight a wave "
+        f"{wave}")
+    hdr76 = rng.bytes(76)
+    hw = S.header_to_words(hdr76)
+    b = DEFAULT_SCRYPT_BATCH["cuda"]
+    nonces = torch.tensor(rng.integers(0, 1 << 32, b, dtype=np.int64), device=dev)
+    plain = {}
+    # (n_log2, V's lane stride, lanes): the path's batch at N = 1024, whole
+    # and ragged (S2's fold then takes several grid-stride iterations over
+    # its block partials, as every batch of the path does), then N = 16
+    cases = ((SCRYPT_N_LOG2, b, b), (SCRYPT_N_LOG2, b, b - SCRYPT_RAGGED),
+             (4, SCRYPT_CHECK_N, SCRYPT_CHECK_N), (4, SCRYPT_CHECK_N, 1000))
+    for n_log2, stride, count in cases:
+        what = f"N=2^{n_log2}, {count} lanes of a {stride}-lane V"
+        nz = nonces[:count]
+        v = KS.romix_scratch(n_log2, stride, dev)
+        v.fill_(-1)  # lanes the kernel does not write stay all ones
+        vp = torch.zeros((1 << n_log2, stride, 32), dtype=torch.int64, device=dev)
+        x = KS.scrypt_front(hw, nz, n_log2, v)
+        ms_f, xp = event_ms(lambda: KS.scrypt_front_plain(hw, nz, n_log2, vp), 1, warmup=False)
+        s1.agree(x, xp, f"X, {what}")
+        s1.agree(v[:, :count].to(torch.int64) & M32, vp[:, :count], f"V, {what}")
+        if not bool((v[:, count:] == -1).all()):
+            fail(f"scrypt_front wrote V lanes past its count, {what}")
+        x = KS.romix_walk(x, v, n_log2, 1 << n_log2)
+        ms_w, xp = event_ms(lambda: KS.romix_walk_plain(xp, vp, n_log2, 1 << n_log2), 1,
+                            warmup=False)
+        s19.agree(x, xp, f"{1 << n_log2}-step walk, {what}")
+        del v, vp
+        torch.cuda.empty_cache()
+        ms_b = check_fold(s2, hw, nz, x, xp, what)
+        digest, _ = KS.scrypt_back(hw, nz, x, [0] * 8)
+        for i in range(64 if n_log2 == SCRYPT_N_LOG2 and count == stride else 8):
+            hdr = hdr76 + struct.pack("<I", int(nz[i]))
+            want = hashlib.scrypt(hdr, salt=hdr, n=1 << n_log2, r=1, p=1, dklen=32)
+            if tuple(digest[i].tolist()) != struct.unpack(">8I", want):
+                fail(f"scrypt digest of nonce {int(nz[i])}, {what}, disagrees with hashlib")
+        if n_log2 == SCRYPT_N_LOG2 and count == stride:
+            plain = {"front": ms_f, "walk": ms_w, "back": ms_b}
+        del x, xp
+        torch.cuda.empty_cache()
+    # S2's fold at the sweep's largest batch, on random X: the most block
+    # partials any batch of the path folds
+    big = SCRYPT_SWEEP[-1]
+    xb = torch.tensor(rng.integers(0, 1 << 32, (big, 32), dtype=np.int64), device=dev)
+    nb = torch.tensor(rng.integers(0, 1 << 32, big, dtype=np.int64), device=dev)
+    for count in (big, big - SCRYPT_RAGGED):
+        check_fold(s2, hw, nb[:count], xb[:count], xb[:count], f"{count} lanes of random X")
+    del xb, nb
+    say(f"  scrypt_front, romix_walk, scrypt_back: {b} nonces (the path's batch) and "
+        f"{b - SCRYPT_RAGGED} in a {b}-lane V at N = 1024, {SCRYPT_CHECK_N} and 1000 in a "
+        f"{SCRYPT_CHECK_N}-lane V at N = 16, equal to plain (X, all of V and no lane past the "
+        "count, digests, the fold at three targets incl. the batch's 5th-smallest hash) and "
+        f"to the host's fold; scrypt_back's fold also on {big} and {big - SCRYPT_RAGGED} lanes "
+        "of random X; 88 digests equal to hashlib.scrypt")
+
+    # probe 19, stage 1: its shapes and its V, a 4-step chain
+    v = probe_v(SCRYPT_N * WALK_B, dev).view(SCRYPT_N, WALK_B, 32)
+    x0 = torch.tensor(rng.integers(0, 1 << 32, (WALK_B, 32), dtype=np.int64), device=dev)
+    s19.agree(KS.romix_walk(x0, v, SCRYPT_N_LOG2, 4),
+              KS.romix_walk_plain(x0, v, SCRYPT_N_LOG2, 4), "probe 19 stage 1, 4-step chain")
+    ms, _ = event_ms(lambda: KS.romix_walk(x0, v, SCRYPT_N_LOG2, SCRYPT_N), 3)
+    walk_us = {"probe_b": ms * 1e3 / SCRYPT_N}
+    say(f"  romix_walk, probe 19 stage 1 (B = {WALK_B}, N = 1024, its V): 4-step chain equal "
+        f"to plain; stage 2: {walk_us['probe_b']:.3f} us/step over a 1024-step walk "
+        f"({WALK_B / walk_us['probe_b']:.1f} M rows/s)")
+    del v
+    torch.cuda.empty_cache()
+
+    # S1, 19 and S2 at the path's batch
+    v = KS.romix_scratch(SCRYPT_N_LOG2, b, dev)
+    nz = torch.tensor(rng.integers(0, 1 << 32, b, dtype=np.int64), device=dev)
+    ms1, x = event_ms(lambda: KS.scrypt_front(hw, nz, SCRYPT_N_LOG2, v), 3)
+    ms19, x = event_ms(lambda: KS.romix_walk(x, v, SCRYPT_N_LOG2, SCRYPT_N), 3)
+    ms2, _ = event_ms(lambda: KS.scrypt_back(hw, nz, x, [0] * 8), 5)
+    walk_us["path_b"] = ms19 * 1e3 / SCRYPT_N
+    del v, x
+    torch.cuda.empty_cache()
+    sha = sha_ops()
+    row = SCRYPT_N * 128
+    record(s1, b, b, ms1, plain["front"], b * (8 + row + 256),
+           SCRYPT_N * BLOCKMIX_OPS + 13 * sha, b * (SCRYPT_N * BLOCKMIX_OPS + 13 * sha),
+           int_rate, unit="hash")
+    record(s19, b, b, ms19, plain["walk"], b * (256 + row + 256), SCRYPT_N * WALK_STEP_OPS,
+           b * SCRYPT_N * WALK_STEP_OPS, int_rate, unit="hash")
+    # the bound counts the function's work: PBKDF2-out's 4 compressions and
+    # the 8-word compare (the kernel also recomputes the key and HMAC states)
+    record(s2, b, b, ms2, plain["back"], b * (8 + 256 + 64) + 8 * 19, 4 * sha + 16,
+           b * (4 * sha + 16), int_rate, unit="hash")
+    kernel_mhs = b / (ms1 + ms19 + ms2) / 1e3
+    say(f"  romix_walk at the path's batch ({b}): {walk_us['path_b']:.3f} us/step; S1 + 19 + "
+        f"S2 together {ms1 + ms19 + ms2:.3f} ms a batch = {kernel_mhs:.4f} MH/s "
+        f"({sha} instructions a SHA-256 compression)")
+
+    # 11: the row-gather probe at its rows and batch
+    i = torch.arange(GATHER_ROWS, dtype=torch.int64, device=dev)[:, None]
+    vg = to_i32((i * 2654435761 + torch.arange(32, dtype=torch.int64, device=dev)[None]) & M32)
+    del i
+    idx = torch.tensor(rng.integers(0, GATHER_ROWS, GATHER_B, dtype=np.int64), device=dev)
+    lo, hi = GATHER_REPS
+    got = KS.row_gather(vg, idx, lo)
+    plain_ms, want = event_ms(lambda: KS.row_gather_plain(vg, idx, lo), 1, warmup=False)
+    s11.agree(got, want, f"{lo} passes of {GATHER_B} rows of {GATHER_ROWS}")
+    s11.agree(KS.row_gather(vg, idx, 3), KS.row_gather_plain(vg, idx, 3), "3 passes")
+    ms_lo, _ = event_ms(lambda: KS.row_gather(vg, idx, lo), 5)
+    ms_hi, _ = event_ms(lambda: KS.row_gather(vg, idx, hi), 5)
+    lib_ms, _ = event_ms(lambda: torch.index_select(vg, 0, idx), 20)
+    per_pass = (ms_hi - ms_lo) / (hi - lo)
+    # a pass reads one 128-byte row a lane; idx is read and out written
+    # once a launch, outside the slope between the two rep counts
+    record(s11, GATHER_B, GATHER_B, per_pass, plain_ms / lo, GATHER_B * 128, 32,
+           32 * GATHER_B, int_rate, unit="row")
+    s11.timing.update(library_ms=lib_ms, ms_at_reps={lo: ms_lo, hi: ms_hi},
+                      ns_per_row=per_pass * 1e6 / GATHER_B)
+    say(f"  row_gather (probe 11): {lo} passes equal to plain; {ms_lo:.4f} ms at {lo} passes, "
+        f"{ms_hi:.4f} at {hi}: {per_pass * 1e6 / GATHER_B:.3f} ns per 128-byte row "
+        f"({128 * GATHER_B / per_pass / 1e6:.1f} GB/s); index_select of one pass "
+        f"{lib_ms:.4f} ms ({lib_ms * 1e6 / GATHER_B:.3f} ns per row)")
+    del vg
+    torch.cuda.empty_cache()
+    return {"kernel_mhs": kernel_mhs, "batch": b, "walk_us_per_step": walk_us,
+            "batch_ms": ms1 + ms19 + ms2, "occupancy": occ, "wave": wave}
+
+
+def ltc_genesis():
+    from tpuminter_torch import chain
+
+    g = LTC_GENESIS
+    header = chain.BlockHeader(g["version"], bytes.fromhex(g["prev_hex"])[::-1],
+                               bytes.fromhex(g["merkle_hex"])[::-1], g["timestamp"],
+                               g["bits"], g["nonce"])
+    if chain.hash_to_hex(header.block_hash()) != LTC_GENESIS_DSHA:
+        fail("the Litecoin genesis header does not double-SHA to its block hash")
+    if chain.hash_to_int(chain.scrypt_hash(header.pack())) != LTC_GENESIS_SCRYPT:
+        fail("the Litecoin genesis header does not scrypt to its known value")
+    return header
+
+
+def phase_scrypt_path(dev, card: str, rng, kernels_info):
+    """The SCRYPT path through ``CudaMiner()``, every launch count 0
+    before and read after: a batch sweep (2^14 to 2^18 lanes, four
+    batches each, at target 1: every lane mined), one chunk of the
+    coordinator's size at batches 2^14, 2^15 and 2^16 (equal Results),
+    an exhausted 2^20 range (the Litecoin genesis
+    header, nonces [0, 2^20)) at target 1, the same range at a planted
+    target (for phase 5), the Litecoin genesis block as a known answer,
+    and a rolled SCRYPT job (the Bitcoin genesis coinbase split at byte
+    48) that must give scrypt's answer, not double SHA's. Every Result is
+    checked with hashlib."""
+    from tpuminter_torch import chain, kernels
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.protocol import PowMode, Request
+
+    ltc = ltc_genesis()
+
+    def mine(miner, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = drain(miner.mine(req))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def check(req, res, what):
+        """Re-hash the Result's index with hashlib (a rolled job's header
+        re-rolled on the host)."""
+        header = req.header
+        nonce = res.nonce
+        if req.rolled:
+            en, nonce = chain.split_global(res.nonce, req.nonce_bits)
+            tmpl = chain.CoinbaseTemplate(req.coinbase_prefix, req.coinbase_suffix,
+                                          req.extranonce_size)
+            header = chain.rolled_header(header, tmpl, req.branch, en).pack()
+        hdr = chain.BlockHeader.unpack(header).with_nonce(nonce).pack()
+        value = chain.hash_to_int(chain.scrypt_hash(hdr))
+        if value != res.hash_value or res.found != (value <= req.target):
+            fail(f"{what}: the Result {res} fails the hashlib.scrypt check")
+        return hdr
+
+    # a batch's device time at each batch of the sweep (CUDA events over
+    # back-to-back S1 + 19 + S2), before the counted run
+    batch_ms = {}
+    for b in SCRYPT_SWEEP:
+        batch_ms[b] = event_ms(lambda: scrypt_dispatch(ltc.pack(), b, dev), 2)[0]
+        torch.cuda.empty_cache()
+    reset_launches(kernels)
+    rates = {"kernel_mhs": kernels_info["kernel_mhs"], "sweep": {}}
+    # (a) the batch sweep
+    for b in SCRYPT_SWEEP:
+        miner = CudaMiner(scrypt_batch=b)
+        lower = int(rng.integers(0, 1 << 31))
+        req = Request(31, PowMode.SCRYPT, lower, lower + SCRYPT_SWEEP_BATCHES * b - 1,
+                      header=ltc.pack(), target=1)
+        mine(miner, dataclasses.replace(req, upper=lower + b - 1))  # first use: scratch
+        res, dt = mine(miner, req)
+        check(req, res, f"sweep at batch {b}")
+        if res.found or res.searched != SCRYPT_SWEEP_BATCHES * b:
+            fail(f"sweep at batch {b}: unexpected Result {res}")
+        rates["sweep"][b] = dict(mhs=res.searched / dt / 1e6, v_bytes=b * SCRYPT_N * 128,
+                                 batch_ms=batch_ms[b], wall_ms=dt * 1e3,
+                                 device_share=SCRYPT_SWEEP_BATCHES * batch_ms[b] / (dt * 1e3))
+        say(f"  batch {b}: {res.searched / dt / 1e6:.4f} MH/s, V {b * SCRYPT_N * 128 / 2**30:.0f}"
+            f" GiB; {SCRYPT_SWEEP_BATCHES} batches x {batch_ms[b]:.3f} ms of device time = "
+            f"{rates['sweep'][b]['device_share']:.1%} of {dt * 1e3:.3f} ms wall on {card}")
+        del miner
+        torch.cuda.empty_cache()
+    # (b) one chunk at the coordinator's size, at each batch that splits it
+    # into whole batches; the median of SCRYPT_CHUNK_REPS timed runs each
+    req = Request(32, PowMode.SCRYPT, 1 << 24, (1 << 24) + SCRYPT_COORD_CHUNK - 1,
+                  header=ltc.pack(), target=1)
+    rates["coord_chunk_sweep"] = {}
+    chunk_results = set()
+    for b in SCRYPT_CHUNK_SWEEP:
+        miner = CudaMiner(scrypt_batch=b)
+        mine(miner, req)  # first use: scratch
+        runs = [mine(miner, req) for _ in range(SCRYPT_CHUNK_REPS)]
+        dt = sorted(t for _, t in runs)[SCRYPT_CHUNK_REPS // 2]
+        for res, _ in runs:
+            check(req, res, f"coordinator-size chunk at batch {b}")
+            chunk_results.add(res)
+        rates["coord_chunk_sweep"][b] = dict(mhs=SCRYPT_COORD_CHUNK / dt / 1e6, seconds=dt,
+                                             batches=-(-SCRYPT_COORD_CHUNK // b))
+        say(f"  one coordinator-size chunk ({SCRYPT_COORD_CHUNK} nonces) at batch {b} "
+            f"({-(-SCRYPT_COORD_CHUNK // b)} batches): median {dt * 1e3:.3f} ms of "
+            f"{SCRYPT_CHUNK_REPS} = {SCRYPT_COORD_CHUNK / dt / 1e6:.4f} MH/s on {card}")
+        del miner
+        torch.cuda.empty_cache()
+    if len(chunk_results) != 1:
+        fail(f"the coordinator-size chunk's Result differs by batch: {chunk_results}")
+    miner = CudaMiner()
+    mine(miner, req)  # first use: scratch
+    rates["coord_chunk"] = dict(nonces=SCRYPT_COORD_CHUNK,
+                                **rates["coord_chunk_sweep"][miner.scrypt_batch])
+    best = max(SCRYPT_CHUNK_SWEEP, key=lambda b: rates["coord_chunk_sweep"][b]["mhs"])
+    say(f"  the chunk is fastest at batch {best}; the default batch is {miner.scrypt_batch}")
+    # (c) an exhausted 2^20 range, the exact minimum; the same at another batch
+    req = Request(33, PowMode.SCRYPT, 0, SCRYPT_RANGE - 1, header=ltc.pack(), target=1)
+    res, dt = mine(miner, req)
+    check(req, res, "exhausted 2^20 range")
+    if res.found or res.searched != SCRYPT_RANGE:
+        fail(f"exhausted 2^20 range: unexpected Result {res}")
+    other = drain(CudaMiner(scrypt_batch=3 << 14).mine(req))
+    if other != res:
+        fail(f"the exhausted 2^20 range's minimum differs by batch: {res} vs {other}")
+    rates["range_2_20"] = dict(mhs=res.searched / dt / 1e6, seconds=dt,
+                               share_of_kernels=res.searched / dt / 1e6 / kernels_info["kernel_mhs"])
+    say(f"  exhausted 2^20 range at target 1: min at nonce {res.nonce}, hashlib-checked, equal "
+        f"at batch {3 << 14}; {dt:.3f} s = {res.searched / dt / 1e6:.4f} MH/s on {card}, "
+        f"{rates['range_2_20']['share_of_kernels']:.1%} of S1 + 19 + S2's own rate")
+    # the same range at a planted target: phase 5's job
+    bits = compact_at_least(res.hash_value)
+    planted = dataclasses.replace(req, job_id=34, target=chain.bits_to_target(bits))
+    first = drain(miner.mine(planted))
+    check(planted, first, "planted 2^20 range")
+    if not first.found or first.nonce > res.nonce:
+        fail(f"planted 2^20 range: {first} is not at or below the minimum's nonce {res.nonce}")
+    e2e = {"bits": bits, "header": ltc.pack(), "max_nonce": SCRYPT_RANGE - 1, "first": first}
+    say(f"  the same range at bits {bits:#010x}: first winner {first.nonce}, searched "
+        f"{first.searched}, hashlib-checked")
+    # (d) the Litecoin genesis block
+    g = LTC_GENESIS["nonce"]
+    req = Request(35, PowMode.SCRYPT, g - SCRYPT_RANGE + 1, g + SCRYPT_WINDOW_TAIL, header=ltc.pack(),
+                  target=chain.bits_to_target(ltc.bits))
+    res, dt = mine(miner, req)
+    check(req, res, "Litecoin genesis")
+    if not res.found or res.nonce > g:
+        fail(f"Litecoin genesis: {res} is not a winner at or below {g}")
+    if res.nonce == g and res.hash_value != LTC_GENESIS_SCRYPT:
+        fail("Litecoin genesis: the winner's value is not the genesis block's")
+    note = "" if res.nonce == g else f" (an earlier winner than {g}, hashlib-checked)"
+    say(f"  Litecoin genesis: nonce {res.nonce} value {res.hash_value:#066x}{note}; "
+        f"searched {res.searched} in {dt:.3f} s on {card}")
+    # (e) a rolled SCRYPT job across an extranonce boundary
+    cb = bytes.fromhex(GENESIS_COINBASE_HEX)
+    genesis = chain.GENESIS_HEADER.pack()
+    req = Request(36, PowMode.SCRYPT, (4 << 32) - SCRYPT_ROLLED_HALF,
+                  (4 << 32) + SCRYPT_ROLLED_HALF - 1,
+                  header=genesis, target=1, coinbase_prefix=cb[:48], coinbase_suffix=cb[49:],
+                  extranonce_size=1, nonce_bits=32)
+    low = drain(miner.mine(req))
+    check(req, low, "rolled SCRYPT job, exhausted")
+    req = dataclasses.replace(req, target=low.hash_value)
+    res = drain(miner.mine(req))
+    hdr = check(req, res, "rolled SCRYPT job, planted")
+    if (res.nonce, res.found, res.searched) != (low.nonce, True, low.nonce - req.lower + 1):
+        fail(f"rolled SCRYPT job: {res} is not the planted minimum at {low.nonce}")
+    if chain.hash_to_int(chain.dsha256(hdr)) == res.hash_value:
+        fail("rolled SCRYPT job: the Result is the double-SHA answer")
+    en, nonce = chain.split_global(res.nonce, 32)
+    say(f"  rolled SCRYPT job (extranonces 3-4, 2^16 indices): the planted minimum at "
+        f"extranonce {en} nonce {nonce}, found, searched {res.searched}; hashlib.scrypt-checked "
+        "on the re-rolled header, and not the double-SHA value")
+    launches = read_launches(kernels, SCRYPT_PATH_KERNELS, "SCRYPT")
+    return launches, rates, e2e
+
+
+def scrypt_dispatch(header80, b, dev):
+    """One batch of the SCRYPT path's dispatch (S1, 19, S2 at N = 1024)
+    on ``b`` nonces, queued, with a scratch of its own."""
+    from tpuminter_torch import kernels
+    from tpuminter_torch.ops import scrypt as S
+
+    v = kernels.romix_scratch(SCRYPT_N_LOG2, b, dev)
+    words = S.header_to_words(header80[:76])
+    nonces = torch.arange(b, dtype=torch.int64, device=dev)
+    x = kernels.scrypt_front(words, nonces, SCRYPT_N_LOG2, v)
+    x = kernels.romix_walk(x, v, SCRYPT_N_LOG2, SCRYPT_N)
+    return kernels.scrypt_back(words, nonces, x, [0] * 8)[1]
+
+
 def free_udp_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def phase_end_to_end(hc_expect) -> dict:
+def phase_end_to_end(hc_expect, scrypt_job):
     """The process-level phase; ``hc_expect`` holds phase 4c's
     ``(searched, acc)`` of fmin and top-k over [0, 2^32) under its
-    ``"seed"``. Returns each hashcore job's seconds through the client."""
+    ``"seed"``, ``scrypt_job`` phase 4d's planted SCRYPT job. Returns each
+    hashcore job's seconds through the client, and the SCRYPT job's."""
     from tpuminter_torch import chain
 
     log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
@@ -1343,15 +1829,36 @@ def phase_end_to_end(hc_expect) -> dict:
                  "hashlib check")
         say(f"  e2e rolled: Result {hash_hex} extranonce={en} nonce={nonce} "
             f"(re-rolled and hashlib-checked; {dt:.1f} s through the client)")
+        # SCRYPT: phase 4d's range at its planted bits
+        t0 = time.perf_counter()
+        _, hash_hex, nonce = client([
+            "--header", scrypt_job["header"].hex(), "--bits", hex(scrypt_job["bits"]),
+            "--scrypt", "--max-nonce", str(scrypt_job["max_nonce"])])
+        scrypt_seconds = time.perf_counter() - t0
+        hdr = chain.BlockHeader.unpack(scrypt_job["header"]).with_nonce(int(nonce)).pack()
+        digest = chain.scrypt_hash(hdr)
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(scrypt_job["bits"]):
+            fail(f"e2e SCRYPT Result {hash_hex} {nonce} fails the hashlib.scrypt check")
+        first = scrypt_job["first"]
+        same = "equal to" if int(nonce) == first.nonce else "not"
+        say(f"  e2e SCRYPT: Result {hash_hex} {nonce} (hashlib.scrypt-checked; {same} phase 4d's "
+            f"first winner {first.nonce}; {scrypt_seconds:.1f} s through the client)")
         hc_seconds = phase_end_to_end_hashcore(addr, env, hc_expect)
         coord_log = open(os.path.join(log_dir, "e2e_coordinator.log")).read()
         joins = [ln for ln in coord_log.splitlines() if "joined (backend=cuda" in ln]
         if not joins or "workloads=hashcore" not in joins[0]:
             fail(f"the coordinator's log shows no cuda worker advertising hashcore: {joins}")
         say(f"  coordinator log: {joins[0].split('INFO')[-1].strip()}")
+        refusals = [ln for ln in coord_log.splitlines() if "refused chunk" in ln]
+        refusals += [ln for ln in open(os.path.join(log_dir, "e2e_worker.log")).read()
+                     .splitlines() if "refusing chunk" in ln]
+        if refusals:
+            fail(f"the port worker refused chunks: {refusals[:4]}")
+        say("  coordinator and worker logs: no refused chunk")
         if procs[1].poll() is not None:
             fail("the worker exited early")
-        return hc_seconds
+        return hc_seconds, scrypt_seconds
     except BaseException:
         for name, log in logs:
             log.flush()
@@ -1459,7 +1966,7 @@ def main() -> int:
                 + ", ".join(f"{op} {c}" for op, c in top))
 
     phase("3. kernels against their plain versions")
-    stats = phase_kernels(dev, np.random.default_rng(SEED))
+    stats, scrypt_info = phase_kernels(dev, np.random.default_rng(SEED))
 
     phase("4a. main path, fixed headers (CudaMiner defaults)")
     fixed = phase_main_path(card_tag)
@@ -1472,30 +1979,41 @@ def main() -> int:
     sweep_rates, breakdown = hashcore_window_sweep(dev, hc_rng, k7_ms)
     hashcore, hc_rates, hc_expect = phase_hashcore_path(dev, card_tag, hc_rng, k7_ms,
                                                         breakdown)
+    torch.cuda.empty_cache()
+
+    phase("4d. main path, SCRYPT chunks")
+    scrypt, scrypt_rates, scrypt_job = phase_scrypt_path(
+        dev, card_tag, np.random.default_rng(SEED + 3), scrypt_info)
+    torch.cuda.empty_cache()
 
     phase("5. end to end: coordinator + port worker + client processes")
-    hc_e2e_seconds = phase_end_to_end(hc_expect)
+    hc_e2e_seconds, scrypt_rates["e2e_seconds"] = phase_end_to_end(hc_expect, scrypt_job)
 
-    paths = {"fixed": fixed, "rolled": rolled, "hashcore": hashcore}
+    paths = {"fixed": fixed, "rolled": rolled, "hashcore": hashcore, "scrypt": scrypt}
     rows = []
     for name, st in stats.items():
         t = st.timing
         path = ("fixed" if name in FIXED_PATH_KERNELS else
-                "hashcore" if name == "splitmix_batch" else "rolled")
+                "hashcore" if name == "splitmix_batch" else
+                "scrypt" if name in SCRYPT_PATH_KERNELS + ("row_gather",) else "rolled")
         rows.append({
             "name": name, "route": "cuda", "source": st.source,
             "replaces": st.replaces, "launches": paths[path][name],
             "launches_by_path": {p: counts[name] for p, counts in paths.items()},
             "max_abs_err": st.max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"),
             "n": t["n"], "plain_n": t.get("plain_n", t["n"]),
             "ops_per_nonce": t["ops_per_nonce"],
             "int32_pipe_ms": t["int32_pipe_ms"], "checks": st.checks,
+            **{k: t[k] for k in ("ms_at_reps", "ns_per_row") if k in t},
         })
     say(json.dumps({"hashcore": {"rates": hc_rates, "window_sweep_g_per_s": sweep_rates,
                                  "window_breakdown": breakdown,
                                  "e2e_seconds": hc_e2e_seconds}}))
     say(json.dumps({"rolled_ghs": rates}))
+    say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
+        k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": rows}))

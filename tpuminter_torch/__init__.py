@@ -9,9 +9,9 @@ only contact with the JAX package is the wire protocol.
 The port so far is the worker role: ``python -m tpuminter_torch.worker
 HOST:PORT`` joins an unchanged ``python -m tpuminter.coordinator``,
 mines TARGET (fixed-header and rolled, extranonce included) and MIN
-chunks on hand-written CUDA kernels (``kernels/csrc/sha256.cu``) and
-computes hashcore workload chunks on another (``kernels/csrc/
-splitmix.cu``), returning the Results and WorkResults the reference
+chunks on hand-written CUDA kernels (``kernels/csrc/sha256.cu``), SCRYPT
+chunks on three more (``kernels/csrc/scrypt.cu``) and computes hashcore
+workload chunks on another (``kernels/csrc/splitmix.cu``), returning the Results and WorkResults the reference
 workers return. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
@@ -24,12 +24,16 @@ Module counterparts (each module's docstring names its own):
   ``tpuminter.ops.symbolic``
 - ``ops.merkle`` ← ``tpuminter.ops.merkle``
 - ``ops.splitmix`` ← ``tpuminter.ops.splitmix``
-- ``kernels`` ← ``tpuminter.kernels.sha256`` and ``tpuminter.kernels.splitmix``
+- ``ops.scrypt`` ← ``tpuminter.ops.scrypt``
+- ``kernels`` ← ``tpuminter.kernels.sha256`` and ``tpuminter.kernels.splitmix``;
+  ``kernels.scrypt`` ← the scrypt walk and row-gather probes
+  (``scripts/walk_pallas_probe.py``, ``scripts/romix_pallas_probe.py``)
 - ``workloads`` ← ``tpuminter.workloads`` (the worker's half: registry,
   folds, hashcore)
 - ``search`` ← ``tpuminter.search``
 - ``rolled`` ← ``tpuminter.rolled``
-- ``cuda_worker`` ← ``tpuminter.tpu_worker``
+- ``cuda_worker`` ← ``tpuminter.tpu_worker`` (its SCRYPT dialect ←
+  ``tpuminter.jax_worker.JaxMiner._mine_scrypt``)
 - ``worker`` ← ``tpuminter.worker``
 """
 

@@ -3,10 +3,11 @@
 Counterpart of ``tpuminter.chain``, reduced to what the worker role
 uses: the SHA-256 constants and pure-Python compression (the midstate
 that templates are built from), double SHA-256, the toy hash of the MIN
-dialect, difficulty decoding, the 80-byte block header with the genesis
-block, and the extranonce roll's host reference (coinbase template,
-Merkle branch fold, rolled headers and the global-index arithmetic of
-rolled jobs). Scrypt waits for the SCRYPT dialect.
+dialect, the scrypt PoW hash (the SCRYPT dialect's host ground truth),
+difficulty decoding, the 80-byte block header with the genesis block,
+and the extranonce roll's host reference (coinbase template, Merkle
+branch fold, rolled headers and the global-index arithmetic of rolled
+jobs).
 
 All functions are pure and host-side (hashlib / pure Python).
 """
@@ -23,6 +24,7 @@ __all__ = [
     "SHA256_H0",
     "sha256_compress",
     "dsha256",
+    "scrypt_hash",
     "toy_hash",
     "bits_to_target",
     "hash_to_int",
@@ -73,6 +75,15 @@ _MASK32 = 0xFFFFFFFF
 def dsha256(data: bytes) -> bytes:
     """Bitcoin's double SHA-256: SHA-256(SHA-256(data))."""
     return hashlib.sha256(hashlib.sha256(data).digest()).digest()
+
+
+def scrypt_hash(data: bytes, n: int = 1024) -> bytes:
+    """Litecoin-style scrypt PoW hash: ``scrypt(P=data, S=data, N=n,
+    r=1, p=1, dkLen=32)`` (RFC 7914, OpenSSL through hashlib). ``data``
+    is the 80-byte header; the 32-byte output is read exactly like a
+    double-SHA digest (``hash_to_int``, little-endian, against the
+    target)."""
+    return hashlib.scrypt(data, salt=data, n=n, r=1, p=1, dklen=32)
 
 
 def _rotr(x: int, n: int) -> int:

@@ -26,11 +26,20 @@ word loses to every candidate); otherwise it reports
 ``protocol.MIN_UNTRACKED`` with ``found=False``. Construct with
 ``exact_min=True`` to match the CPU miner's exhausted-min output.
 
-SCRYPT jobs are not served yet (``unsupported`` says why, and the
-worker loop refuses them). Workload chunks are computed by
-``tpuminter_torch.workloads`` on the miner's ``device``, not mined here.
-``device="cpu"`` runs the same miner on the kernels' plain versions; a
-CUDA device that torch cannot see raises.
+- **SCRYPT** (plain or rolled; counterpart of ``JaxMiner._mine_scrypt``)
+  runs batches of ``scrypt_batch`` nonces through three kernels, S1
+  (PBKDF2-in and the ROMix fill), 19 (the walk) and S2 (PBKDF2-out and
+  the batch fold), ``depth`` batches in flight, on one V scratch the
+  miner keeps; a rolled job's headers are rolled on the host, one per
+  extranonce segment. Its Results equal the reference's: the first
+  winner with ``searched`` up to it, or the exact range minimum of an
+  exhausted chunk. The mode is routed before ``rolled``: a rolled SCRYPT
+  chunk is scrypt, not double SHA.
+
+Workload chunks are computed by ``tpuminter_torch.workloads`` on the
+miner's ``device``, not mined here. ``device="cpu"`` runs the same miner
+on the kernels' plain versions; a CUDA device that torch cannot see
+raises.
 """
 
 from __future__ import annotations
@@ -41,18 +50,31 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from tpuminter_torch import chain, kernels, rolled, workloads
+from tpuminter_torch.ops import scrypt as scrypt_ops
 from tpuminter_torch.ops import sha256 as ops
 from tpuminter_torch.protocol import MIN_UNTRACKED, PowMode, Request, Result
-from tpuminter_torch.search import CandidateSearch, pipeline_spans, resolve_handle
+from tpuminter_torch.search import CandidateSearch, Handle, pipeline_spans, resolve_handle
 from tpuminter_torch.worker import Miner
 
-__all__ = ["CudaMiner", "make_header_search", "DEFAULT_SLAB", "DEFAULT_DEPTH"]
+__all__ = ["CudaMiner", "make_header_search", "DEFAULT_SLAB", "DEFAULT_DEPTH",
+           "DEFAULT_SCRYPT_BATCH", "SCRYPT_N_LOG2"]
 
 #: nonces per kernel launch; a Cancel lands within about two slabs
 DEFAULT_SLAB = 1 << 27
 
 #: kernel launches kept in flight
 DEFAULT_DEPTH = 2
+
+#: nonces per SCRYPT batch, by device type. On the card V takes a batch ×
+#: 128 KiB at N = 1024 (4 GiB at 2^15); chip_smoke.py's sweep over 2^14 to
+#: 2^18, and its coordinator-size chunk (65,536 nonces) at 2^14 to 2^16,
+#: both measured the best rate at 2^15 on an H100: the chunk is then two
+#: batches, so the pipeline overlaps inside it. The CPU's plain versions hold V in int64 lanes, twice
+#: the bytes, and gain nothing from a wide batch.
+DEFAULT_SCRYPT_BATCH = {"cuda": 1 << 15, "cpu": 256}
+
+#: log2 of scrypt's N: Litecoin's N = 1024, the reference's ``n_log2``
+SCRYPT_N_LOG2 = 10
 
 #: nonces of the genesis header hashed by the first-use self-check
 _SELF_CHECK_NONCES = 8
@@ -89,6 +111,9 @@ class CudaMiner(Miner):
     """Kernel-backed miner behind the standard worker interface."""
 
     backend = "cuda"
+    #: scrypt's N as a log2 (the wire carries no N: every SCRYPT job is
+    #: Litecoin's 1024; tests set a smaller one on an instance)
+    scrypt_n_log2 = SCRYPT_N_LOG2
 
     def __init__(
         self,
@@ -98,6 +123,7 @@ class CudaMiner(Miner):
         device="cuda",
         roll_batch: int = 8,
         sched_share: bool = True,
+        scrypt_batch: Optional[int] = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -114,6 +140,10 @@ class CudaMiner(Miner):
             raise ValueError("depth must be >= 1")
         if roll_batch < 1:
             raise ValueError("roll_batch must be >= 1")
+        if scrypt_batch is None:
+            scrypt_batch = DEFAULT_SCRYPT_BATCH[self.device.type]
+        if not 1 <= scrypt_batch <= 1 << 20:
+            raise ValueError("scrypt_batch must be in [1, 2^20]")
         self.slab = slab
         self.depth = depth
         self.exact_min = exact_min
@@ -121,6 +151,11 @@ class CudaMiner(Miner):
         self.roll_batch = roll_batch
         #: K5's shared-schedule arm and one roll per distinct extranonce
         self.sched_share = sched_share
+        #: nonces per SCRYPT batch (the reference's ``JaxMiner(scrypt_batch=)``)
+        self.scrypt_batch = scrypt_batch
+        #: the SCRYPT path's ROMix scratch, allocated at its first batch and
+        #: kept for every batch and chunk after it
+        self._scrypt_v: Optional[torch.Tensor] = None
         # scheduler hints: ask for chunks a few slabs deep
         self.lanes = max(1, (slab * 4) // 16_384)
         self.span = slab
@@ -130,9 +165,6 @@ class CudaMiner(Miner):
         if request.workload:
             if workloads.maybe(request.workload) is None:
                 return f"workload {request.workload!r} is not served by this worker"
-            return None
-        if request.mode == PowMode.SCRYPT:
-            return "the SCRYPT dialect is not ported yet"
         return None
 
     def mine(self, request: Request) -> Iterator[Optional[Result]]:
@@ -144,6 +176,8 @@ class CudaMiner(Miner):
         self._self_check()
         if request.mode == PowMode.MIN:
             yield from self._mine_min(request)
+        elif request.mode == PowMode.SCRYPT:  # before rolled: a rolled SCRYPT job is scrypt
+            yield from self._mine_scrypt(request)
         elif request.rolled:
             if _fast_path_ok(request.target):
                 yield from rolled.mine_rolled_fast(
@@ -235,10 +269,7 @@ class CudaMiner(Miner):
                     searched=searched + first + 1, chunk_id=req.chunk_id,
                 )
                 return
-            value = 0  # msb-first hash words → the 256-bit hash value
-            for w in min_words:
-                value = (value << 32) | w
-            cand = (value, start + min_off)
+            cand = (_words_value(min_words), start + min_off)
             if best is None or cand < best:
                 best = cand
             searched += take
@@ -272,3 +303,84 @@ class CudaMiner(Miner):
             req.job_id, req.mode, best[1], best[0], found=True,
             searched=req.upper - req.lower + 1, chunk_id=req.chunk_id,
         )
+
+    # -- SCRYPT (memory-hard) dialect ---------------------------------------
+
+    def _scrypt_segments(self, req: Request):
+        """``(header76, global_base, lo, hi)`` per constant-header span of
+        the request: the whole range for a plain job, one span per
+        extranonce for a rolled one, its header rolled on the host (at
+        scrypt's rates one roll per segment is noise)."""
+        if not req.rolled:
+            yield req.header[:76], 0, req.lower, req.upper
+            return
+        cb = chain.CoinbaseTemplate(req.coinbase_prefix, req.coinbase_suffix,
+                                    req.extranonce_size)
+        for en, base_g, n_lo, n_hi in chain.rolled_segments(req.lower, req.upper,
+                                                            req.nonce_bits):
+            hdr76 = chain.rolled_header(req.header, cb, req.branch, en).pack()[:76]
+            yield hdr76, base_g, n_lo, n_hi
+
+    def _scrypt_scratch(self) -> torch.Tensor:
+        """V for a full batch at this miner's N."""
+        shape = (1 << self.scrypt_n_log2, self.scrypt_batch)
+        if self._scrypt_v is None or tuple(self._scrypt_v.shape[:2]) != shape:
+            self._scrypt_v = None  # free the old V before allocating the new
+            self._scrypt_v = kernels.romix_scratch(self.scrypt_n_log2, self.scrypt_batch,
+                                                   self.device)
+        return self._scrypt_v
+
+    def _mine_scrypt(self, req: Request) -> Iterator[Optional[Result]]:
+        """Batches of ``scrypt_batch`` nonces, each S1 → 19 → S2 with its
+        header words as run-time values, ``depth`` batches in flight
+        across segment boundaries (the one V is safe to reuse: the
+        stream runs a batch's fill only after the batch before it has
+        walked). Batches resolve in order, so the first winner is the
+        range's; a ragged batch runs only its real lanes."""
+        target_words = [int(w) for w in ops.target_to_words(req.target)]
+        v = self._scrypt_scratch()
+        n_log2 = self.scrypt_n_log2
+
+        def spans():
+            for hdr76, base_g, lo, hi in self._scrypt_segments(req):
+                words = scrypt_ops.header_to_words(hdr76)
+                for start in range(lo, hi + 1, self.scrypt_batch):
+                    yield words, base_g, start, min(self.scrypt_batch, hi - start + 1)
+
+        def dispatch(span):
+            words, _, start, valid = span
+            nonces = torch.arange(start, start + valid, dtype=torch.int64, device=self.device)
+            x = kernels.scrypt_front(words, nonces, n_log2, v)
+            x = kernels.romix_walk(x, v, n_log2, 1 << n_log2)
+            return Handle(kernels.scrypt_back(words, nonces, x, target_words)[1])
+
+        best: Optional[Tuple[int, int]] = None  # (hash, global index)
+        searched = 0
+        for (_, base_g, start, valid), handle in pipeline_spans(
+            spans(), dispatch, depth=self.depth
+        ):
+            row = handle.read()
+            if row[0]:
+                first = row[1]
+                yield Result(
+                    req.job_id, req.mode, base_g | (start + first), _words_value(row[11:19]),
+                    found=True, searched=searched + first + 1, chunk_id=req.chunk_id,
+                )
+                return
+            cand = (_words_value(row[2:10]), base_g | (start + row[10]))
+            if best is None or cand < best:
+                best = cand
+            searched += valid
+            yield None
+        yield Result(
+            req.job_id, req.mode, best[1], best[0], found=best[0] <= req.target,
+            searched=searched, chunk_id=req.chunk_id,
+        )
+
+
+def _words_value(words) -> int:
+    """msb-first u32 hash words → the 256-bit hash value."""
+    value = 0
+    for w in words:
+        value = (value << 32) | w
+    return value

@@ -12,13 +12,23 @@ from tpuminter_torch.kernels.sha256 import (
     search_target,
     sha256_batch,
 )
+from tpuminter_torch.kernels import scrypt as _scrypt
+from tpuminter_torch.kernels.scrypt import (
+    romix_scratch,
+    romix_walk,
+    row_gather,
+    scrypt_back,
+    scrypt_front,
+)
 from tpuminter_torch.kernels.splitmix import splitmix_batch
 
-#: every kernel wrapper, in table order (K1-K6 and the roll, then K7)
-KERNELS = _sha256.KERNELS + (splitmix_batch,)
+#: every kernel wrapper, in table order (K1-K6 and the roll, K7, then the
+#: scrypt kernels S1, 19, S2 and 11)
+KERNELS = _sha256.KERNELS + (splitmix_batch,) + _scrypt.KERNELS
 
 __all__ = [
-    "KERNELS", "extranonce_roll", "min_toy", "search_candidates",
+    "KERNELS", "extranonce_roll", "min_toy", "romix_scratch", "romix_walk", "row_gather",
+    "scrypt_back", "scrypt_front", "search_candidates",
     "search_candidates_hdr", "search_candidates_hdr_batch",
     "search_candidates_hdr_batch_sched", "search_target", "sha256_batch",
     "splitmix_batch",

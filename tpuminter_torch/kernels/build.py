@@ -26,11 +26,13 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget"]
+__all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget",
+           "TmScryptHeader"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its source
-SOURCES = {"sha256": _CSRC / "sha256.cu", "splitmix": _CSRC / "splitmix.cu"}
+SOURCES = {"sha256": _CSRC / "sha256.cu", "splitmix": _CSRC / "splitmix.cu",
+           "scrypt": _CSRC / "scrypt.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuminter_torch"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,9 +56,17 @@ class TmTemplate(ctypes.Structure):
 
 
 class TmTarget(ctypes.Structure):
-    """Mirror of ``struct TmTarget``: msb-first target words."""
+    """Mirror of ``struct TmTarget`` (``csrc/sha256.cu``, ``csrc/scrypt.cu``):
+    msb-first target words."""
 
     _fields_ = [("w", ctypes.c_uint32 * 8)]
+
+
+class TmScryptHeader(ctypes.Structure):
+    """Mirror of ``struct TmScryptHeader`` in ``csrc/scrypt.cu``: the
+    76-byte header prefix as 19 big-endian words."""
+
+    _fields_ = [("w", ctypes.c_uint32 * 19)]
 
 
 @dataclass(frozen=True)
@@ -143,6 +153,15 @@ def library(name: str) -> ctypes.CDLL:
         },
         "splitmix": {
             "tm_splitmix_batch": [ctypes.c_uint64, ptr, ptr, ptr, ptr, i64, i32, i32, ptr],
+        },
+        "scrypt": {
+            "tm_scrypt_front": [ctypes.POINTER(TmScryptHeader), ptr, ptr, ptr, i32, i32, i32,
+                                i32, ptr],
+            "tm_romix_walk": [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+            "tm_scrypt_back": [ctypes.POINTER(TmScryptHeader), ctypes.POINTER(TmTarget), ptr,
+                               ptr, ptr, ptr, ptr, i32, i32, ptr],
+            "tm_row_gather": [ptr, i64, ptr, ptr, i32, i32, i32, ptr],
+            "tm_scrypt_occupancy": [i32, i32, ctypes.POINTER(ctypes.c_int)],
         },
     }
     for fn_name, argtypes in signatures[name].items():

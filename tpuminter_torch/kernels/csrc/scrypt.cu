@@ -1,0 +1,558 @@
+// Scrypt (RFC 7914, N = 2^n_log2, r = 1, p = 1) kernels for Hopper (sm_90a),
+// with a plain C interface loaded through ctypes
+// (tpuminter_torch/kernels/build.py). Self-contained: its own SHA-256.
+//
+//   tm_scrypt_front <- PBKDF2-in and the ROMix fill of scrypt_header_batch
+//                      (tpuminter/ops/scrypt.py:241-285 and :190-194; a jnp
+//                      program there, no pallas_call)
+//   tm_romix_walk   <- fused_step (scripts/walk_pallas_probe.py:106, its
+//                      pallas_call at :107): X <- BlockMix(X ^ V[j]), the
+//                      walk of tpuminter/ops/scrypt.py:196-202
+//   tm_scrypt_back  <- PBKDF2-out (tpuminter/ops/scrypt.py:289-294) and the
+//                      batch fold of tpuminter/jax_worker.py _scrypt_step
+//                      (jnp, no pallas_call)
+//   tm_row_gather   <- build_gather_kernel (scripts/romix_pallas_probe.py:35,
+//                      its pallas_call at :78): ROMix's data-dependent row
+//                      read alone, as a probe (the miner never launches it)
+//
+// What bounds them, per hash at N = 1024 on an H100 SXM: the fill writes
+// and the walk reads 128 KiB of V, 256 KiB in all, 0.078 us at 3.35 TB/s
+// (12.8 MH/s); Salsa20/8 is 128 x (add, funnel shift, xor) + 16 adds =
+// 400 integer operations, BlockMix 832, so the fill is 1024 x 832 and
+// the walk 1024 x 864 operations, 1.74 M in all, 0.052 us at 132 SMs x
+// 128 lanes x 1980 MHz (19 MH/s; 9.6 MH/s on the INT32 pipe alone).
+// Device memory binds, and the integer pipe is close behind. The 17
+// SHA-256 compressions of the two PBKDF2 ends (21 with the key and HMAC
+// states that tm_scrypt_back recomputes) are ~3% of the operations.
+//
+// The design is the simple one that is right first:
+//   * one thread per hash; X lives in 32 registers and Salsa20/8 works on
+//     16 more, fully unrolled with constant indices, so nothing spills to
+//     local memory;
+//   * V is the reference's layout, (N, S, 32) u32 for a lane stride S:
+//     row j of lane b is 128 contiguous bytes at (j * S + b) * 128, so at
+//     a fill step a warp's 32 rows are one 4 KiB span. The fill stores a
+//     row as 8 x 16-byte stores, the walk loads one as 8 x 16-byte loads
+//     through the read-only path; the walk's next row depends on the
+//     BlockMix just computed, so latency is hidden only by the other
+//     warps in flight (ROMix's sequential memory hardness);
+//   * sizes are run-time arguments (n_log2, the ragged count, the stride,
+//     the header words as a by-value struct, the target), so one build
+//     serves every job and every N;
+//   * the batch fold reduces per thread, per block in shared memory, then
+//     in one small block over the per-block partials (the first winning
+//     lane by atomicMin): no scheduling order changes a result.
+//
+// X travels between the kernels as int64 lanes (the port's convention for
+// u32 words on the torch side), (count, 32); V is the caller's scratch.
+// Every tm_* function launches on the given stream, does not synchronise,
+// and returns cudaGetLastError() (0 on success).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// The 76-byte header prefix as 19 big-endian words (ops/scrypt.py
+// header_to_words); the nonce completes the 80 bytes.
+struct TmScryptHeader {
+  uint32_t w[19];
+};
+
+struct TmTarget {
+  uint32_t w[8];  // msb-first hash-value words
+};
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr uint32_t kNotFound = 0x7FFFFFFFu;  // first lane when nothing hit
+constexpr uint32_t kGatherStep = 977u;       // romix_pallas_probe's pass stride
+
+__constant__ uint32_t kK[64] = {
+    0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
+    0x923F82A4u, 0xAB1C5ED5u, 0xD807AA98u, 0x12835B01u, 0x243185BEu, 0x550C7DC3u,
+    0x72BE5D74u, 0x80DEB1FEu, 0x9BDC06A7u, 0xC19BF174u, 0xE49B69C1u, 0xEFBE4786u,
+    0x0FC19DC6u, 0x240CA1CCu, 0x2DE92C6Fu, 0x4A7484AAu, 0x5CB0A9DCu, 0x76F988DAu,
+    0x983E5152u, 0xA831C66Du, 0xB00327C8u, 0xBF597FC7u, 0xC6E00BF3u, 0xD5A79147u,
+    0x06CA6351u, 0x14292967u, 0x27B70A85u, 0x2E1B2138u, 0x4D2C6DFCu, 0x53380D13u,
+    0x650A7354u, 0x766A0ABBu, 0x81C2C92Eu, 0x92722C85u, 0xA2BFE8A1u, 0xA81A664Bu,
+    0xC24B8B70u, 0xC76C51A3u, 0xD192E819u, 0xD6990624u, 0xF40E3585u, 0x106AA070u,
+    0x19A4C116u, 0x1E376C08u, 0x2748774Cu, 0x34B0BCB5u, 0x391C0CB3u, 0x4ED8AA4Au,
+    0x5B9CCA4Fu, 0x682E6FF3u, 0x748F82EEu, 0x78A5636Fu, 0x84C87814u, 0x8CC70208u,
+    0x90BEFFFAu, 0xA4506CEBu, 0xBEF9A3F7u, 0xC67178F2u};
+
+__constant__ uint32_t kH0[8] = {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au,
+                               0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u};
+
+__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int n) { return __funnelshift_l(x, x, n); }
+__device__ __forceinline__ uint32_t bswap32(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
+
+// ---- SHA-256 and PBKDF2-HMAC-SHA256 (c = 1) --------------------------------
+
+// One compression: s <- s + rounds(s, m), m the 16 big-endian block words.
+__device__ __forceinline__ void compress(uint32_t (&s)[8], const uint32_t (&m)[16]) {
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = m[i];
+  uint32_t a = s[0], b = s[1], c = s[2], d = s[3], e = s[4], f = s[5], g = s[6], h = s[7];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (i >= 16) {
+      const uint32_t x15 = w[(i - 15) & 15], x2 = w[(i - 2) & 15];
+      w[i & 15] += (rotr(x15, 7) ^ rotr(x15, 18) ^ (x15 >> 3)) + w[(i - 7) & 15] +
+                   (rotr(x2, 17) ^ rotr(x2, 19) ^ (x2 >> 10));
+    }
+    const uint32_t t1 =
+        h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + (g ^ (e & (f ^ g))) + kK[i] + w[i & 15];
+    const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) | (c & (a | b)));
+    h = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + t2;
+  }
+  s[0] += a;
+  s[1] += b;
+  s[2] += c;
+  s[3] += d;
+  s[4] += e;
+  s[5] += f;
+  s[6] += g;
+  s[7] += h;
+}
+
+// The inner and outer HMAC states keyed by SHA256(header80), nw the
+// nonce's little-endian bytes read as a big-endian word.
+__device__ __forceinline__ void hmac_states(const TmScryptHeader& hd, uint32_t nw,
+                                            uint32_t (&is)[8], uint32_t (&os)[8]) {
+  uint32_t key[8], m[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) key[i] = kH0[i];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) m[i] = hd.w[i];
+  compress(key, m);
+  m[0] = hd.w[16];
+  m[1] = hd.w[17];
+  m[2] = hd.w[18];
+  m[3] = nw;
+  m[4] = 0x80000000u;
+#pragma unroll
+  for (int i = 5; i < 15; ++i) m[i] = 0u;
+  m[15] = 640u;  // an 80-byte message
+  compress(key, m);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = key[i] ^ 0x36363636u;
+    m[8 + i] = 0x36363636u;
+    is[i] = kH0[i];
+  }
+  compress(is, m);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = key[i] ^ 0x5C5C5C5Cu;
+    m[8 + i] = 0x5C5C5C5Cu;
+    os[i] = kH0[i];
+  }
+  compress(os, m);
+}
+
+// Outer hash of an HMAC: the opad state over the 32-byte inner digest.
+__device__ __forceinline__ void hmac_finish(const uint32_t (&os)[8], const uint32_t (&inner)[8],
+                                            uint32_t (&out)[8]) {
+  uint32_t m[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = inner[i];
+    out[i] = os[i];
+  }
+  m[8] = 0x80000000u;
+#pragma unroll
+  for (int i = 9; i < 15; ++i) m[i] = 0u;
+  m[15] = 768u;  // opad (64 bytes) + digest (32 bytes)
+  compress(out, m);
+}
+
+// ---- Salsa20/8 and BlockMix (r = 1) -----------------------------------------
+
+#define QR(t, a, b, n) t ^= rotl((a) + (b), n)
+
+// b[O .. O+16) <- Salsa20/8(b[O .. O+16)) (RFC 7914 section 2).
+template <int O>
+__device__ __forceinline__ void salsa20_8(uint32_t (&b)[32]) {
+  uint32_t x0 = b[O + 0], x1 = b[O + 1], x2 = b[O + 2], x3 = b[O + 3];
+  uint32_t x4 = b[O + 4], x5 = b[O + 5], x6 = b[O + 6], x7 = b[O + 7];
+  uint32_t x8 = b[O + 8], x9 = b[O + 9], x10 = b[O + 10], x11 = b[O + 11];
+  uint32_t x12 = b[O + 12], x13 = b[O + 13], x14 = b[O + 14], x15 = b[O + 15];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // column round
+    QR(x4, x0, x12, 7);
+    QR(x8, x4, x0, 9);
+    QR(x12, x8, x4, 13);
+    QR(x0, x12, x8, 18);
+    QR(x9, x5, x1, 7);
+    QR(x13, x9, x5, 9);
+    QR(x1, x13, x9, 13);
+    QR(x5, x1, x13, 18);
+    QR(x14, x10, x6, 7);
+    QR(x2, x14, x10, 9);
+    QR(x6, x2, x14, 13);
+    QR(x10, x6, x2, 18);
+    QR(x3, x15, x11, 7);
+    QR(x7, x3, x15, 9);
+    QR(x11, x7, x3, 13);
+    QR(x15, x11, x7, 18);
+    // row round
+    QR(x1, x0, x3, 7);
+    QR(x2, x1, x0, 9);
+    QR(x3, x2, x1, 13);
+    QR(x0, x3, x2, 18);
+    QR(x6, x5, x4, 7);
+    QR(x7, x6, x5, 9);
+    QR(x4, x7, x6, 13);
+    QR(x5, x4, x7, 18);
+    QR(x11, x10, x9, 7);
+    QR(x8, x11, x10, 9);
+    QR(x9, x8, x11, 13);
+    QR(x10, x9, x8, 18);
+    QR(x12, x15, x14, 7);
+    QR(x13, x12, x15, 9);
+    QR(x14, x13, x12, 13);
+    QR(x15, x14, x13, 18);
+  }
+  b[O + 0] += x0;
+  b[O + 1] += x1;
+  b[O + 2] += x2;
+  b[O + 3] += x3;
+  b[O + 4] += x4;
+  b[O + 5] += x5;
+  b[O + 6] += x6;
+  b[O + 7] += x7;
+  b[O + 8] += x8;
+  b[O + 9] += x9;
+  b[O + 10] += x10;
+  b[O + 11] += x11;
+  b[O + 12] += x12;
+  b[O + 13] += x13;
+  b[O + 14] += x14;
+  b[O + 15] += x15;
+}
+
+#undef QR
+
+// X <- BlockMix(X) in place: Y0 = salsa(B1 ^ B0) over words 0-15, then
+// Y1 = salsa(Y0 ^ B1) over words 16-31; the output is Y0 || Y1.
+__device__ __forceinline__ void block_mix(uint32_t (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] ^= x[16 + i];
+  salsa20_8<0>(x);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[16 + i] ^= x[i];
+  salsa20_8<16>(x);
+}
+
+// ---- S1: PBKDF2-in and the ROMix fill ----------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+scrypt_front_kernel(const TmScryptHeader hd, const long long* __restrict__ nonces,
+                    long long* __restrict__ xout, uint4* __restrict__ v, int count,
+                    int stride, int n_log2) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= count) return;
+  const uint32_t nw = bswap32((uint32_t)nonces[lane]);
+  uint32_t is[8], os[8], mid[8], m[16];
+  hmac_states(hd, nw, is, os);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mid[i] = is[i];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) m[i] = hd.w[i];
+  compress(mid, m);  // the salt's first block, the same for all four HMAC blocks
+  uint32_t x[32];
+#pragma unroll
+  for (int blk = 0; blk < 4; ++blk) {
+    uint32_t s[8], t[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = mid[i];
+    m[0] = hd.w[16];
+    m[1] = hd.w[17];
+    m[2] = hd.w[18];
+    m[3] = nw;
+    m[4] = (uint32_t)(blk + 1);  // INT_BE(i)
+    m[5] = 0x80000000u;
+#pragma unroll
+    for (int i = 6; i < 15; ++i) m[i] = 0u;
+    m[15] = 1184u;  // ipad (64) + header (80) + 4 bytes
+    compress(s, m);
+    hmac_finish(os, s, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[blk * 8 + i] = bswap32(t[i]);
+  }
+  // fill: V[i, lane] = X, X <- BlockMix(X), for i < N
+  uint4* row = v + (size_t)lane * 8;
+  const size_t step = (size_t)stride * 8;
+  const int n = 1 << n_log2;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      row[k] = make_uint4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+    }
+    row += step;
+    block_mix(x);
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) xout[(size_t)lane * 32 + k] = (long long)x[k];
+}
+
+// ---- 19: the walk --------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+romix_walk_kernel(const long long* __restrict__ xin, long long* __restrict__ xout,
+                  const uint4* __restrict__ v, int count, int stride, int n_log2,
+                  int steps) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= count) return;
+  uint32_t x[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) x[k] = (uint32_t)xin[(size_t)lane * 32 + k];
+  const uint4* base = v + (size_t)lane * 8;
+  const size_t step = (size_t)stride * 8;
+  const uint32_t mask = (1u << n_log2) - 1u;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    const uint4* row = base + (size_t)(x[16] & mask) * step;  // Integerify: word 16
+    uint4 r[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = __ldg(row + k);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      x[4 * k] ^= r[k].x;
+      x[4 * k + 1] ^= r[k].y;
+      x[4 * k + 2] ^= r[k].z;
+      x[4 * k + 3] ^= r[k].w;
+    }
+    block_mix(x);
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) xout[(size_t)lane * 32 + k] = (long long)x[k];
+}
+
+// ---- S2: PBKDF2-out and the batch fold ---------------------------------------
+
+template <int K>
+__device__ __forceinline__ bool lex_less(const uint32_t (&a)[K], const uint32_t (&b)[K]) {
+  bool lt = false, eq = true;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    lt = lt || (eq && a[k] < b[k]);
+    eq = eq && a[k] == b[k];
+  }
+  return lt;
+}
+
+// Block-wide lexicographic min of (hash words, lane) over all threads,
+// left in thread 0's v; the lane is the last key, so ties go to the
+// lowest lane.
+__device__ __forceinline__ void block_min(uint32_t (&v)[9]) {
+  __shared__ uint32_t sh[9][kThreads];
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) sh[k][tid] = v[k];
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+      uint32_t other[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) other[k] = sh[k][tid + stride];
+      if (lex_less<9>(other, v)) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+          v[k] = other[k];
+          sh[k][tid] = other[k];
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// h[0] = found = 0, h[1] = first lane = none.
+__global__ void init_handle_kernel(long long* h) {
+  if (threadIdx.x == 0) {
+    h[0] = 0;
+    h[1] = kNotFound;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+scrypt_back_kernel(const TmScryptHeader hd, const TmTarget tg,
+                   const long long* __restrict__ nonces, const long long* __restrict__ x,
+                   long long* __restrict__ digest, long long* h, uint32_t* __restrict__ partial,
+                   int count) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t best[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) best[k] = 0xFFFFFFFFu;
+  if (lane < count) {
+    uint32_t is[8], os[8], m[16], inner[8], dg[8];
+    hmac_states(hd, bswap32((uint32_t)nonces[lane]), is, os);
+    // PBKDF2(P = hdr, S = X, c = 1, dkLen = 32): inner message X || INT_BE(1)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) m[i] = bswap32((uint32_t)x[(size_t)lane * 32 + i]);
+    compress(is, m);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) m[i] = bswap32((uint32_t)x[(size_t)lane * 32 + 16 + i]);
+    compress(is, m);
+    m[0] = 1u;
+    m[1] = 0x80000000u;
+#pragma unroll
+    for (int i = 2; i < 15; ++i) m[i] = 0u;
+    m[15] = 1568u;  // ipad (64) + X (128) + 4 bytes
+    compress(is, m);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) inner[i] = is[i];
+    hmac_finish(os, inner, dg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) digest[(size_t)lane * 8 + i] = (long long)dg[i];
+    // the hash value's words, msb first: word j = bswap(digest word 7 - j)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) best[j] = bswap32(dg[7 - j]);
+    best[8] = (uint32_t)lane;
+    bool lt = false, eq = true;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      lt = lt || (eq && best[j] < tg.w[j]);
+      eq = eq && best[j] == tg.w[j];
+    }
+    if (lt || eq) {
+      atomicMin((unsigned long long*)&h[1], (unsigned long long)lane);
+      h[0] = 1;
+    }
+  }
+  block_min(best);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) partial[blockIdx.x * 9 + k] = best[k];
+  }
+}
+
+// One block folds `blocks` partials into h[2 .. 11) (min words, min lane),
+// then copies the first winner's hash words into h[11 .. 19) (zeros if
+// none won).
+__global__ void __launch_bounds__(kThreads)
+scrypt_fold_kernel(const uint32_t* __restrict__ partial, int blocks,
+                   const long long* __restrict__ digest, long long* h) {
+  uint32_t best[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) best[k] = 0xFFFFFFFFu;
+  for (int i = threadIdx.x; i < blocks; i += kThreads) {
+    uint32_t cand[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) cand[k] = partial[i * 9 + k];
+    if (lex_less<9>(cand, best)) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) best[k] = cand[k];
+    }
+  }
+  block_min(best);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) h[2 + k] = best[k];
+    const bool found = h[0] != 0;
+    const long long first = h[1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      h[11 + j] = found ? (long long)bswap32((uint32_t)digest[first * 8 + 7 - j]) : 0;
+    }
+  }
+}
+
+// ---- 11: the row-gather probe -------------------------------------------------
+
+// `reps` passes of one 128-byte row read per lane, row (idx + r * 977) mod
+// rows, every word xor-folded into the lane's output so no load is dead.
+__global__ void __launch_bounds__(kThreads)
+row_gather_kernel(const uint4* __restrict__ v, const long long* __restrict__ idx,
+                  long long* __restrict__ out, int count, long long rows, int reps) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= count) return;
+  const unsigned long long start = (unsigned long long)idx[lane];
+  uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 4
+  for (int r = 0; r < reps; ++r) {
+    const unsigned long long row =
+        (start + (unsigned long long)r * kGatherStep) % (unsigned long long)rows;
+    const uint4* p = v + row * 8;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint4 q = __ldg(p + k);
+      acc.x ^= q.x;
+      acc.y ^= q.y;
+      acc.z ^= q.z;
+      acc.w ^= q.w;
+    }
+  }
+  out[lane] = (long long)(acc.x ^ acc.y ^ acc.z ^ acc.w);
+}
+
+int blocks_for(int count) { return (count + kThreads - 1) / kThreads; }
+
+int finish() { return (int)cudaGetLastError(); }
+
+}  // namespace
+
+static_assert(sizeof(TmScryptHeader) == 19 * 4, "TmScryptHeader layout is mirrored in build.py");
+static_assert(sizeof(TmTarget) == 8 * 4, "TmTarget layout is mirrored in build.py");
+
+extern "C" {
+
+int tm_scrypt_front(const TmScryptHeader* hd, const long long* nonces, long long* x,
+                    void* v, int count, int stride, int n_log2, int device, void* stream) {
+  cudaSetDevice(device);
+  scrypt_front_kernel<<<blocks_for(count), kThreads, 0, (cudaStream_t)stream>>>(
+      *hd, nonces, x, (uint4*)v, count, stride, n_log2);
+  return finish();
+}
+
+int tm_romix_walk(const long long* xin, long long* xout, const void* v, int count,
+                  int stride, int n_log2, int steps, int device, void* stream) {
+  cudaSetDevice(device);
+  romix_walk_kernel<<<blocks_for(count), kThreads, 0, (cudaStream_t)stream>>>(
+      xin, xout, (const uint4*)v, count, stride, n_log2, steps);
+  return finish();
+}
+
+int tm_scrypt_back(const TmScryptHeader* hd, const TmTarget* tg, const long long* nonces,
+                   const long long* x, long long* digest, long long* handle, uint32_t* partial,
+                   int count, int device, void* stream) {
+  cudaSetDevice(device);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = blocks_for(count);
+  init_handle_kernel<<<1, 32, 0, s>>>(handle);
+  scrypt_back_kernel<<<blocks, kThreads, 0, s>>>(*hd, *tg, nonces, x, digest, handle, partial,
+                                                 count);
+  scrypt_fold_kernel<<<1, kThreads, 0, s>>>(partial, blocks, digest, handle);
+  return finish();
+}
+
+int tm_row_gather(const void* v, long long rows, const long long* idx, long long* out,
+                  int count, int reps, int device, void* stream) {
+  cudaSetDevice(device);
+  row_gather_kernel<<<blocks_for(count), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)v, idx, out, count, rows, reps);
+  return finish();
+}
+
+// Resident blocks per SM of the fill (which = 0) or the walk (1) at
+// kThreads threads a block: with the SM count, the hashes in flight a wave.
+int tm_scrypt_occupancy(int which, int device, int* blocks_per_sm) {
+  cudaSetDevice(device);
+  const void* fn = which == 0 ? (const void*)scrypt_front_kernel : (const void*)romix_walk_kernel;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, 0);
+  return finish();
+}
+
+}  // extern "C"

@@ -14,7 +14,7 @@ Counterpart of ``tpuminter.ops.splitmix``. Three layers:
   word's carry), its values from K7, and the fold of one of the four
   disciplines as torch ops on the lanes' device, packed into one int64
   tensor that is copied to the host behind the window's work
-  (:class:`Handle`), with no host sync;
+  (``search.Handle``), with no host sync;
 - **the decode** (:meth:`LaneSweep.resolve`): one wait, for that
   window's copy alone, and the decode into the discipline's
   chunk-partial accumulator, the value ``workloads.folds`` combines.
@@ -37,8 +37,10 @@ from typing import Optional
 
 import torch
 
+from tpuminter_torch.search import Handle
+
 __all__ = [
-    "splitmix64_pair", "index_words", "LaneSweep", "Handle", "lane_sweep", "ROWS",
+    "splitmix64_pair", "index_words", "LaneSweep", "lane_sweep", "ROWS",
     "DEFAULT_WIDTH",
     "MAX_WINDOW", "VARIANTS", "ENGINES",
 ]
@@ -212,29 +214,6 @@ class LaneSweep:
                 return [None, None, n]
             return [lo + first, key + _BIAS, first + 1]
         return [(out[0] << 32) + out[1], n]
-
-
-class Handle:
-    """A window's packed int64 result on its way to the host. On the
-    card it is copied into pinned memory behind the window's work and an
-    event marks the copy's end, so :meth:`read` waits for this window
-    alone: reading the device tensor itself would wait for everything
-    queued on the stream, the next window in flight included, and leave
-    the card idle while the host issues the window after it."""
-
-    def __init__(self, packed: torch.Tensor):
-        if packed.device.type == "cpu":
-            self._host, self._done = packed, None
-            return
-        self._host = torch.empty(packed.shape, dtype=_I64, pin_memory=True)
-        self._host.copy_(packed, non_blocking=True)
-        self._done = torch.cuda.Event()
-        self._done.record(torch.cuda.current_stream(packed.device))
-
-    def read(self) -> list:
-        if self._done is not None:
-            self._done.synchronize()
-        return self._host.tolist()
 
 
 @functools.lru_cache(maxsize=64)

@@ -28,7 +28,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
-__all__ = ["CandidateSearch", "SearchOutcome", "pipeline_spans", "resolve_handle"]
+__all__ = ["CandidateSearch", "Handle", "SearchOutcome", "pipeline_spans", "resolve_handle"]
 
 #: sweep(base, n) -> handle (asynchronous launch)
 SweepFn = Callable[[int, int], torch.Tensor]
@@ -42,6 +42,30 @@ def resolve_handle(handle: torch.Tensor) -> Tuple[int, int]:
     """Read a sweep handle ``[found, first_off]`` (one device sync)."""
     found, off = handle[:2].cpu().tolist()
     return found, off
+
+
+class Handle:
+    """A dispatch's packed int64 result on its way to the host (a
+    hashcore window's, a SCRYPT batch's). On the card it is copied into
+    pinned memory behind the dispatch's work and an event marks the
+    copy's end, so :meth:`read` waits for this dispatch alone: reading
+    the device tensor itself would wait for everything queued on the
+    stream, the next dispatch in flight included, and leave the card
+    idle while the host issues the one after it."""
+
+    def __init__(self, packed: torch.Tensor):
+        if packed.device.type == "cpu":
+            self._host, self._done = packed, None
+            return
+        self._host = torch.empty(packed.shape, dtype=torch.int64, pin_memory=True)
+        self._host.copy_(packed, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record(torch.cuda.current_stream(packed.device))
+
+    def read(self) -> list:
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host.tolist()
 
 
 def pipeline_spans(

@@ -8,9 +8,9 @@ unless told not to, ``RollAssign`` chunks of whole extranonces, on which
 it reports progress with ``Beacon`` messages. It advertises the
 registered workloads (``tpuminter_torch.workloads``: hashcore), whose
 chunks it computes on the miner's device and answers with
-``WorkResult``s. A chunk it cannot serve (a SCRYPT job, an unregistered
-workload) is answered with a ``Refuse``, which makes the coordinator
-requeue it.
+``WorkResult``s. It mines every dialect: TARGET, rolled TARGET, MIN and
+SCRYPT (plain or rolled). A chunk of a workload it did not register is
+answered with a ``Refuse``, which makes the coordinator requeue it.
 
 Run it as ``python -m tpuminter_torch.worker HOST:PORT``.
 """
