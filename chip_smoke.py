@@ -11,7 +11,8 @@ caught), and without a CUDA device the script exits non-zero at once:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: one nvcc per source under ``tpuminter_torch/kernels/csrc/``
-   (``sha256.cu``, ``splitmix.cu``, ``scrypt.cu``), all started together;
+   (``sha256.cu``, ``splitmix.cu``, ``scrypt.cu``, ``probes.cu``), all
+   started together;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs on the card (exact integer equality) and against hashlib, the
    rolled search kernels also at the main path's shape (width 2^27, 10
@@ -30,6 +31,14 @@ caught), and without a CUDA device the script exits non-zero at once:
    plain version; then S1, 19 and S2 timed at the SCRYPT path's batch,
    19 per step as probe 19's stage 2, 11 per row as probe 11 measured
    it, beside ``torch.index_select``;
+3b. the layout probes (``tpuminter_torch.probes``, the TPU rounds'
+   fifteen remaining ``pallas_call`` sites on the kernels P1-P3 of
+   ``csrc/probes.cu``): each kernel against its plain version off the
+   probes' shapes (ragged, misaligned, off the tile, one block), then
+   every probe module's ``run()`` on one V at the scripts' sizes (B =
+   16384, N = 1024), which holds its kernels against their plain
+   versions and each per-step walk chain against ``romix_walk``, and
+   times them beside the fused walk; none of them is on the main path;
 4. main path, in four parts, each with every launch count set to 0 just
    before it and read just after: (a) fixed headers: ``CudaMiner()``
    with its defaults mines the genesis header over a 2^30-nonce window,
@@ -74,7 +83,6 @@ import hashlib
 import json
 import os
 import re
-import shutil
 import socket
 import struct
 import subprocess
@@ -350,35 +358,12 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def sass_summary(so_path: str):
-    """Per kernel of the built library: SASS instruction count and the
-    most frequent opcodes (from cuobjdump), or None without cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
-                          check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            name = next((k for k in ("scrypt_front", "romix_walk", "scrypt_back", "scrypt_fold",
-                                     "row_gather", "init_handle",
-                                     "splitmix_batch", "sha256_batch", "search_target",
-                                     "search_candidates_hdr_batch", "search_candidates_hdr",
-                                     "search_candidates", "min_toy", "extranonce_roll",
-                                     "reduce", "fill_rows", "fill") if k in mangled), mangled)
-            name += ("<9>" if "ILi9E" in mangled else "<3>" if "ILi3E" in mangled
-                     else "<sched>" if "ILb1E" in mangled else "")
-            counts[name] = {}
-        elif name and line.strip().startswith("/*") and "*/" in line:
-            text = line.split("*/", 1)[1].strip()
-            if text.startswith("@"):
-                text = text.split(None, 1)[1] if " " in text else ""
-            op = text.split(" ")[0].split(".")[0].rstrip(";")
-            if op:
-                counts[name][op] = counts[name].get(op, 0) + 1
-    return counts
+def issue_rate(dev):
+    """(SMs, max SM clock in MHz, integer instructions the card can issue
+    a second): the operations side of every bound."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return sms, clock_mhz, sms * ISSUE_LANES_PER_SM * clock_mhz * 1e6
 
 
 def event_ms(fn, reps: int, warmup: bool = True):
@@ -406,8 +391,9 @@ def drain(gen):
 
 class KernelStats:
     def __init__(self, name: str, replaces: str,
-                 source: str = "tpuminter_torch/kernels/csrc/sha256.cu"):
+                 source: str = "tpuminter_torch/kernels/csrc/sha256.cu", kernel: str = ""):
         self.name, self.replaces, self.source = name, replaces, source
+        self.kernel = kernel or name  # the wrapper whose launches the row reports
         self.max_abs_err = 0
         self.checks = 0
         self.timing = None
@@ -569,9 +555,7 @@ def phase_kernels(dev, rng):
             toy_short, lambda: K.min_toy(toy_short, 0, base, n, device=dev),
             lambda: K.min_toy_plain(toy_short, 0, base, n, device=dev), 24),
     }
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    int_rate = sms * ISSUE_LANES_PER_SM * clock_mhz * 1e6
+    sms, clock_mhz, int_rate = issue_rate(dev)
     say(f"  bound: {sms} SMs x {ISSUE_LANES_PER_SM} integer lanes x {clock_mhz} MHz = "
         f"{int_rate:.4e} op/s (INT32 pipe alone: half); memory {MEM_BYTES_PER_S:.3e} B/s")
     for name, (tmpl, kernel, plain, nbytes) in runs.items():
@@ -1352,11 +1336,6 @@ def sha_ops() -> int:
     return _count(_compress([leaf(NONCE) for _ in range(8)], [leaf(NONCE) for _ in range(16)]))[0]
 
 
-def to_i32(words: torch.Tensor) -> torch.Tensor:
-    """u32 values in int64 lanes → the same bits as int32."""
-    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
-
-
 def handle_from_values(values, target: int):
     """The packed batch result (``ops.scrypt.batch_fold``) computed on
     the host from each lane's hash value."""
@@ -1377,21 +1356,6 @@ def compact_at_least(target: int) -> int:
         if mantissa <= 0x7FFFFF:
             return (exponent << 24) | mantissa
     fail(f"target {target:#x} has no compact encoding")
-
-
-def probe_v(rows: int, dev, chunk: int = 1 << 20) -> torch.Tensor:
-    """Probe 19's V, made on the card: row i word j is a murmur-style mix
-    of ``i · 2654435761 + j · 0x9E3779B9`` (scripts/walk_pallas_probe.py)."""
-    v = torch.empty((rows, 32), dtype=torch.int32, device=dev)
-    j = torch.arange(32, dtype=torch.int64, device=dev)[None]
-    for r0 in range(0, rows, chunk):
-        i = torch.arange(r0, min(rows, r0 + chunk), dtype=torch.int64, device=dev)[:, None]
-        h = (i * 2654435761 + j * 0x9E3779B9) & M32
-        h ^= h >> 16
-        h = (h * 0x85EBCA6B) & M32
-        h ^= h >> 13
-        v[r0:r0 + chunk] = to_i32(h)
-    return v
 
 
 def scrypt_values(digest: torch.Tensor) -> list:
@@ -1439,6 +1403,8 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     from tpuminter_torch.kernels import scrypt as KS
     from tpuminter_torch.ops import scrypt as S
     from tpuminter_torch.ops import sha256 as ops
+    from tpuminter_torch.ops.walk_layouts import to_bits
+    from tpuminter_torch.probes._common import probe_v
 
     s1, s19, s2, s11 = (stats[k] for k in ("scrypt_front", "romix_walk", "scrypt_back",
                                            "row_gather"))
@@ -1541,7 +1507,7 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
 
     # 11: the row-gather probe at its rows and batch
     i = torch.arange(GATHER_ROWS, dtype=torch.int64, device=dev)[:, None]
-    vg = to_i32((i * 2654435761 + torch.arange(32, dtype=torch.int64, device=dev)[None]) & M32)
+    vg = to_bits((i * 2654435761 + torch.arange(32, dtype=torch.int64, device=dev)[None]) & M32)
     del i
     idx = torch.tensor(rng.integers(0, GATHER_ROWS, GATHER_B, dtype=np.int64), device=dev)
     lo, hi = GATHER_REPS
@@ -1567,6 +1533,159 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     torch.cuda.empty_cache()
     return {"kernel_mhs": kernel_mhs, "batch": b, "walk_us_per_step": walk_us,
             "batch_ms": ms1 + ms19 + ms2, "occupancy": occ, "wave": wave}
+
+
+# ---- the layout probes (P1-P3: sites 8-10, 12-18 and 20-24) -------------------
+
+#: site → (row name, the TPU kernel it replaces (def; pallas_call))
+PROBE_SITES = {
+    "8": ("probe8_kernel_body", "scripts/kernel_body_probe.py:84 (make_call; pallas_call :91)"),
+    "9": ("probe9_copy_grid", "scripts/pallas_launch_overhead_probe.py:74 (copy_grid; "
+          "pallas_call :78)"),
+    "10": ("probe10_tiny_step", "scripts/pallas_launch_overhead_probe.py:93 (tiny_step; "
+           "pallas_call :94)"),
+    "12": ("probe12_copy_padded", "scripts/transpose_micro_probe.py:83 (copy_padded; "
+           "pallas_call :84)"),
+    "13": ("probe13_copy_dense", "scripts/transpose_micro_probe.py:97 (copy_dense; "
+           "pallas_call :99)"),
+    "14": ("probe14_transpose_pad", "scripts/transpose_micro_probe.py:118 (transpose_pad; "
+           "pallas_call :119)"),
+    "15": ("probe15_transpose_dense", "scripts/transpose_micro_probe.py:138 (transpose_dense; "
+           "pallas_call :140)"),
+    "16": ("probe16_walk_isolate", "scripts/walk_isolate_probe.py:70 (fused_xor_salsa; "
+           "pallas_call :73)"),
+    "17": ("probe17_walk_native_tile", "scripts/walk_native_tile_probe.py:73 (fused_xor_salsa; "
+           "pallas_call :78)"),
+    "18": ("probe18_to_wm", "scripts/walk_pallas_probe.py:84 (to_wm; pallas_call :86)"),
+    "20": ("probe20_wm_call", "scripts/walk_variants_probe.py:62 (wm_call; pallas_call :74)"),
+    "21": ("probe21_tr_dense", "scripts/walk_variants_probe.py:144 (tr_dense_call; "
+           "pallas_call :145)"),
+    "22": ("probe22_walk_wm2", "scripts/walk_wm2_probe.py:68 (fused_xor_salsa; pallas_call :71)"),
+    "23": ("probe23_walk_wm", "scripts/walk_wm_probe.py:73 (fused_xor_salsa; pallas_call :76)"),
+    "24": ("probe24_hlo_layout_check", "scripts/hlo_layout_check.py:36 (call; pallas_call :37)"),
+}
+#: the sites each P3 instantiation serves (the edge checks record on them)
+P3_SITES = {("grouped", "null"): ("8",), ("grouped", "one_extract"): ("8",),
+            ("grouped", "xor_only"): ("8",), ("grouped", "full"): ("8", "17"),
+            ("word", "full"): ("16", "22", "23"), ("row", "full"): ("20",),
+            ("bitcast", "xor_only"): ("20",), ("bitcast", "full"): ("20",)}
+P1_SITES, P2_SITES = ("9", "10", "12", "13"), ("14", "15", "18", "20", "21", "24")
+
+
+def probe_stats() -> dict:
+    p3 = {site for sites in P3_SITES.values() for site in sites}
+    return {site: KernelStats(
+        name, replaces, "tpuminter_torch/kernels/csrc/probes.cu",
+        "walk_step" if site in p3 else "xor_const" if site in P1_SITES else "transpose")
+        for site, (name, replaces) in PROBE_SITES.items()}
+
+
+def probe_edge_checks(dev, rng, stats) -> int:
+    """P1-P3 against their plain versions where the probes' shapes do not
+    reach: P1 on a ragged count, misaligned (its scalar path) and in
+    place; P2 on shapes that are no multiple of its 32 x 32 tile, with
+    and without a carry; every P3 instantiation on random words at the
+    probes' B, in one thread block, and the bitcast layout over several
+    of its blocks. Each check is recorded on the sites that use it."""
+    from tpuminter_torch.kernels import probes as KP
+    from tpuminter_torch.ops import walk_layouts as W
+
+    def words(*shape):
+        return torch.tensor(rng.integers(0, 1 << 32, shape, dtype=np.int64), device=dev)
+
+    def agree(sites, got, want, what):
+        for site in sites:
+            stats[site].agree(W.to_lanes(got), want, what)
+
+    checks = 0
+    x = words((1 << 21) + 5)
+    xb = W.to_bits(x)
+    agree(P1_SITES, KP.xor_const(xb, 0xDEADBEEF), x ^ 0xDEADBEEF, "2^21 + 5 words")
+    agree(P1_SITES, KP.xor_const(xb[1:], 7), x[1:] ^ 7, "misaligned by one word")
+    inplace = xb.clone()
+    KP.xor_const(inplace, 1, out=inplace)
+    agree(P1_SITES, inplace, x ^ 1, "in place")
+    checks += 3
+    for r, c in ((1000, 37), (37, 1000), (33, 1)):
+        a, carry = words(r, c), words(c, r)
+        agree(P2_SITES, KP.transpose(W.to_bits(a)), KP.transpose_plain(a), f"({r}, {c})")
+        agree(P2_SITES, KP.transpose(W.to_bits(a), W.to_bits(carry)),
+              KP.transpose_plain(a, carry), f"({r}, {c}) into a carry")
+        checks += 2
+    for (layout, body), sites in P3_SITES.items():
+        for b, blocks in ((16_384, None), (2048, 1), (6144, None)):
+            xw = words(32, b // 128, 128)
+            vj = words(*W.operand_shape(layout, b))
+            agree(sites, KP.walk_step(W.to_bits(xw), W.to_bits(vj), layout, body, blocks),
+                  KP.walk_step_plain(xw, vj, layout, body),
+                  f"{layout} x {body}, B = {b}, blocks {blocks or 'one a lane'}")
+            checks += 1
+    return checks
+
+
+def record_site(st, site: dict, int_rate: float) -> None:
+    """A probe site's row: the probe's measurements beside the bound of
+    the work its function needs (each input read once, each output
+    written once; the operations counted in ``probes._common``); its
+    ``n`` is the words the function moves."""
+    def bound(s):
+        ops_ms = s["ops"] / int_rate * 1e3
+        bytes_ms = s["bytes"] / MEM_BYTES_PER_S * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    bound_ms, bound_by = bound(site)
+    st.max_abs_err = max(st.max_abs_err, site["max_abs_err"])
+    st.checks += site["checks"]
+    detail = {k: site[k] for k in ("layout", "body", "blocks", "gather_ms", "chain_us",
+                                   "graph_us", "bytes", "ops") if site.get(k) is not None}
+    detail["variants"] = {
+        name: dict(ms=v["ms"], plain_ms=v["plain_ms"], library_ms=v.get("library_ms"),
+                   bound_ms=bound(v)[0], **{k: v[k] for k in ("chain_us", "graph_us",
+                                                              "gather_ms", "slopes") if k in v})
+        for name, v in site.get("variants", {}).items()}
+    if "slopes" in site:
+        detail["slopes"] = site["slopes"]
+    st.timing = dict(n=site["bytes"] // 4, plain_n=site["bytes"] // 4, ms=site["ms"],
+                     plain_ms=site["plain_ms"], library_ms=site.get("library_ms"),
+                     bound_ms=bound_ms, bound_by=bound_by, ops_per_nonce=0,
+                     int32_pipe_ms=site["ops"] / int_rate * 1e3 * ISSUE_LANES_PER_SM
+                     / INT32_LANES_PER_SM, probe=detail)
+    lib = f", torch {site['library_ms'] * 1e3:.3f} us" if site.get("library_ms") else ""
+    say(f"  {st.name}: {site['ms'] * 1e3:.3f} us/launch, bound {bound_ms * 1e3:.3f} us by "
+        f"{bound_by} ({bound_ms / site['ms']:.1%}), plain {site['plain_ms']:.3f} ms{lib}")
+
+
+def phase_probes(dev, rng, int_rate) -> dict:
+    """The layout probes: P1-P3 against their plain versions at other
+    shapes (:func:`probe_edge_checks`), then every module of
+    ``tpuminter_torch.probes`` on one V at the scripts' sizes (B =
+    16384, N = 1024): each holds its kernels against their plain
+    versions at its shapes and its per-step chains against
+    ``romix_walk``, raising on a difference, and times them. Returns
+    the sites' stats."""
+    import importlib
+
+    from tpuminter_torch.probes import PROBES
+    from tpuminter_torch.probes._common import B, N, make_walk
+
+    stats = probe_stats()
+    checks = probe_edge_checks(dev, rng, stats)
+    say(f"  P1-P3: {checks} edge checks equal to their plain versions (P1 ragged, misaligned, "
+        "in place; P2 off its tile; every P3 instantiation at B = 16384, 2048 in one block, "
+        "6144 over three bitcast blocks)")
+    torch.cuda.empty_cache()
+    walk = make_walk(dev, B, N)
+    for name in PROBES:
+        t0 = time.perf_counter()
+        result = importlib.import_module(f"tpuminter_torch.probes.{name}").run(dev, walk=walk)
+        say(f"  -- {name} ({time.perf_counter() - t0:.1f} s)")
+        for line in result["lines"]:
+            say(f"     {line}")
+        for site, measured in result["sites"].items():
+            record_site(stats[site], measured, int_rate)
+    del walk
+    torch.cuda.empty_cache()
+    return stats
 
 
 def ltc_genesis():
@@ -1934,7 +2053,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; nothing to test", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from tpuminter_torch.kernels import build
+    from tpuminter_torch.kernels import build, sass
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1960,13 +2079,16 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say(f"  {line.strip()}")
         build.library(name)
-        for kernel, ops_count in (sass_summary(str(info.path)) or {}).items():
+        for kernel, ops_count in (sass.sass_summary(str(info.path)) or {}).items():
             top = sorted(ops_count.items(), key=lambda kv: -kv[1])[:9]
             say(f"  SASS {kernel}: {sum(ops_count.values())} instructions; "
                 + ", ".join(f"{op} {c}" for op, c in top))
 
     phase("3. kernels against their plain versions")
     stats, scrypt_info = phase_kernels(dev, np.random.default_rng(SEED))
+
+    phase("3b. layout probes (P1-P3) against their plain versions and the fused walk")
+    stats.update(phase_probes(dev, np.random.default_rng(SEED + 4), issue_rate(dev)[2]))
 
     phase("4a. main path, fixed headers (CudaMiner defaults)")
     fixed = phase_main_path(card_tag)
@@ -1995,18 +2117,19 @@ def main() -> int:
         t = st.timing
         path = ("fixed" if name in FIXED_PATH_KERNELS else
                 "hashcore" if name == "splitmix_batch" else
-                "scrypt" if name in SCRYPT_PATH_KERNELS + ("row_gather",) else "rolled")
+                "scrypt" if name in SCRYPT_PATH_KERNELS + ("row_gather",) or name in PROBE_SITES
+                else "rolled")
         rows.append({
-            "name": name, "route": "cuda", "source": st.source,
-            "replaces": st.replaces, "launches": paths[path][name],
-            "launches_by_path": {p: counts[name] for p, counts in paths.items()},
+            "name": st.name, "route": "cuda", "source": st.source,
+            "replaces": st.replaces, "launches": paths[path][st.kernel],
+            "launches_by_path": {p: counts[st.kernel] for p, counts in paths.items()},
             "max_abs_err": st.max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"),
             "n": t["n"], "plain_n": t.get("plain_n", t["n"]),
             "ops_per_nonce": t["ops_per_nonce"],
             "int32_pipe_ms": t["int32_pipe_ms"], "checks": st.checks,
-            **{k: t[k] for k in ("ms_at_reps", "ns_per_row") if k in t},
+            **{k: t[k] for k in ("ms_at_reps", "ns_per_row", "probe") if k in t},
         })
     say(json.dumps({"hashcore": {"rates": hc_rates, "window_sweep_g_per_s": sweep_rates,
                                  "window_breakdown": breakdown,

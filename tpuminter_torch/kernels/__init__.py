@@ -21,10 +21,11 @@ from tpuminter_torch.kernels.scrypt import (
     scrypt_front,
 )
 from tpuminter_torch.kernels.splitmix import splitmix_batch
+from tpuminter_torch.kernels import probes as _probes
 
-#: every kernel wrapper, in table order (K1-K6 and the roll, K7, then the
-#: scrypt kernels S1, 19, S2 and 11)
-KERNELS = _sha256.KERNELS + (splitmix_batch,) + _scrypt.KERNELS
+#: every kernel wrapper, in table order (K1-K6 and the roll, K7, the
+#: scrypt kernels S1, 19, S2 and 11, then the layout probes' P1-P3)
+KERNELS = _sha256.KERNELS + (splitmix_batch,) + _scrypt.KERNELS + _probes.KERNELS
 
 __all__ = [
     "KERNELS", "extranonce_roll", "min_toy", "romix_scratch", "romix_walk", "row_gather",

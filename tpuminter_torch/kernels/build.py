@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,7 +33,7 @@ __all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its source
 SOURCES = {"sha256": _CSRC / "sha256.cu", "splitmix": _CSRC / "splitmix.cu",
-           "scrypt": _CSRC / "scrypt.cu"}
+           "scrypt": _CSRC / "scrypt.cu", "probes": _CSRC / "probes.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuminter_torch"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -87,7 +88,11 @@ def _nvcc() -> str:
 
 
 def _path(name: str) -> Path:
-    tag = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    # the headers of csrc/ that the source includes are hashed with it
+    source = SOURCES[name].read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', source, re.M)
+    text = b"".join([source, *((_CSRC / h.decode()).read_bytes() for h in headers)])
+    tag = hashlib.sha256(text + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"tm_{name}_{tag}.so"
 
 
@@ -162,6 +167,11 @@ def library(name: str) -> ctypes.CDLL:
                                ptr, ptr, ptr, ptr, i32, i32, ptr],
             "tm_row_gather": [ptr, i64, ptr, ptr, i32, i32, i32, ptr],
             "tm_scrypt_occupancy": [i32, i32, ctypes.POINTER(ctypes.c_int)],
+        },
+        "probes": {
+            "tm_xor_const": [ptr, ptr, i64, u32, i32, ptr],
+            "tm_transpose_u32": [ptr, ptr, ptr, i32, i32, i32, ptr],
+            "tm_walk_step": [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
         },
     }
     for fn_name, argtypes in signatures[name].items():
