@@ -12,7 +12,8 @@ caught), and without a CUDA device the script exits non-zero at once:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: one nvcc per source under ``tpuminter_torch/kernels/csrc/``
    (``sha256.cu``, ``splitmix.cu``, ``scrypt.cu``, ``probes.cu``), all
-   started together;
+   started together; each kernel's SASS by opcode, and K1-K6's, S1's and
+   19's instructions a nonce or a hash on each issue pipe (ALU, FMA);
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs on the card (exact integer equality) and against hashlib, the
    rolled search kernels also at the main path's shape (width 2^27, 10
@@ -69,9 +70,10 @@ caught), and without a CUDA device the script exits non-zero at once:
    extranonces 0-4) and a SCRYPT job (phase 4d's range at its planted
    bits), each Result checked with hashlib; hashcore jobs (fmin and
    top-k over 2^32 indices, equal to phase 4c's; sum and a planted
-   first-match over 2^20, checked with numpy); the coordinator's log
-   must show the worker advertising hashcore, and neither log a refused
-   chunk.
+   first-match over 2^20, checked with numpy); a dict job (top-k over
+   6000 candidates, the catalog past the coordinator's window budget,
+   checked with hashlib); the coordinator's log must show the worker
+   advertising dict and hashcore, and neither log a refused chunk.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
@@ -849,6 +851,52 @@ def phase_main_path(card: str):
     return read_launches(kernels, FIXED_PATH_KERNELS, "fixed-header")
 
 
+#: the SASS kernel behind each row of K1-K6, S1 and 19, for its pipe mix
+PIPE_KERNELS = {
+    "sha256_batch": "sha256_batch_kernel", "search_target": "search_target_kernel",
+    "search_candidates": "search_candidates_kernel",
+    "search_candidates_hdr": "search_candidates_hdr_kernel",
+    "search_candidates_hdr_batch": "search_candidates_hdr_batch_kernel",
+    "search_candidates_hdr_batch_sched": "search_candidates_hdr_batch_kernel<sched>",
+    "min_toy": "min_toy_kernel", "scrypt_front": "scrypt_front_kernel",
+    "romix_walk": "romix_walk_kernel",
+}
+
+
+def pipe_mixes(infos) -> dict:
+    """Per row of K1-K6, S1 and 19, its static SASS instructions on
+    each issue pipe (``sass.pipe_mix``) for one nonce or one hash: a SHA
+    kernel's hot loop runs one nonce a trip (K1 has no loop: its whole
+    kernel is one nonce); S1 runs 2^10 fill steps a hash on four threads,
+    19 2^10 walk steps on one, each beside the instructions outside its
+    loop. Static counts: every branch inside a loop is counted."""
+    from tpuminter_torch.kernels import scrypt as KS
+    from tpuminter_torch.kernels import sass
+
+    found = {}
+    for lib in ("sha256", "scrypt"):
+        text = sass.sass_text(str(infos[lib].path))
+        if text is None:
+            fail("cuobjdump not found: no pipe mix")
+        found.update(sass.pipe_mix(text))
+    out = {}
+    for row, kernel in PIPE_KERNELS.items():
+        mix = found[kernel]
+        loop = mix["loop"] or mix["total"]
+        if row in SCRYPT_PATH_KERNELS:
+            threads = KS.FRONT_THREADS_PER_HASH if row == "scrypt_front" else 1
+            per = {p: threads * (loop[p] * SCRYPT_N + mix["total"][p] - loop[p])
+                   for p in sass.PIPES}
+            unit = "hash"
+        else:
+            per, unit = dict(loop), "nonce"
+        out[row] = dict(per, unit=unit)
+        say(f"  pipes {kernel}: a {unit} {per['alu']} ALU, {per['fma']} FMA (IMAD), "
+            f"{per['other']} other; ALU {per['alu'] / max(1, per['alu'] + per['fma']):.1%} of "
+            "the integer issue")
+    return out
+
+
 #: the kernels each part of the main path must launch
 FIXED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates", "min_toy")
 ROLLED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates_hdr",
@@ -1391,9 +1439,10 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     """S1 → 19 → S2 against their plain versions on the card, exact: the
     path's batch of seeded nonces at N = 1024, whole and ragged in its V
     (X and all of V, the digests, and the fold against no target, the
-    batch's 5th-smallest hash and every hash), the same at N = 16 on 2^12
-    and 1000 lanes of a 2^12-lane V, S2's fold at the sweep's largest
-    batch; 88 digests against hashlib.scrypt. Probe 19's stage 1 (B = 16384, N = 1024, its V made
+    batch's 5th-smallest hash and every hash), the same at N = 16 on 2^12,
+    1000 and 2^12 - 3 lanes of a 2^12-lane V, S2's fold at the sweep's
+    largest batch; 96 digests against hashlib.scrypt. Probe 19's stage 1
+    (B = 16384, N = 1024, its V made
     on the card, a 4-step chain) and 11 against its plain version. Then
     each timed: S1, 19 and S2 at the path's batch, 19 per step over a
     1024-step walk at probe 19's B and the path's, 11 as the slope
@@ -1410,7 +1459,8 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
                                            "row_gather"))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     occ = KS.occupancy(dev)
-    wave = {k: b * KS.THREADS * sms for k, b in occ.items()}
+    per_hash = {"scrypt_front": KS.FRONT_THREADS_PER_HASH, "romix_walk": 1}
+    wave = {k: b * KS.THREADS * sms // per_hash[k] for k, b in occ.items()}
     say(f"  scrypt occupancy: blocks of {KS.THREADS} per SM {occ}; hashes in flight a wave "
         f"{wave}")
     hdr76 = rng.bytes(76)
@@ -1420,9 +1470,12 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     plain = {}
     # (n_log2, V's lane stride, lanes): the path's batch at N = 1024, whole
     # and ragged (S2's fold then takes several grid-stride iterations over
-    # its block partials, as every batch of the path does), then N = 16
+    # its block partials, as every batch of the path does), then N = 16;
+    # the ragged counts leave S1's last warp (eight hashes of four
+    # threads) part full
     cases = ((SCRYPT_N_LOG2, b, b), (SCRYPT_N_LOG2, b, b - SCRYPT_RAGGED),
-             (4, SCRYPT_CHECK_N, SCRYPT_CHECK_N), (4, SCRYPT_CHECK_N, 1000))
+             (4, SCRYPT_CHECK_N, SCRYPT_CHECK_N), (4, SCRYPT_CHECK_N, 1000),
+             (4, SCRYPT_CHECK_N, SCRYPT_CHECK_N - 3))
     for n_log2, stride, count in cases:
         what = f"N=2^{n_log2}, {count} lanes of a {stride}-lane V"
         nz = nonces[:count]
@@ -1461,11 +1514,12 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
         check_fold(s2, hw, nb[:count], xb[:count], xb[:count], f"{count} lanes of random X")
     del xb, nb
     say(f"  scrypt_front, romix_walk, scrypt_back: {b} nonces (the path's batch) and "
-        f"{b - SCRYPT_RAGGED} in a {b}-lane V at N = 1024, {SCRYPT_CHECK_N} and 1000 in a "
-        f"{SCRYPT_CHECK_N}-lane V at N = 16, equal to plain (X, all of V and no lane past the "
-        "count, digests, the fold at three targets incl. the batch's 5th-smallest hash) and "
+        f"{b - SCRYPT_RAGGED} in a {b}-lane V at N = 1024, {SCRYPT_CHECK_N}, 1000 and "
+        f"{SCRYPT_CHECK_N - 3} in a {SCRYPT_CHECK_N}-lane V at N = 16, equal to plain (X, all "
+        "of V and no lane past the count, digests, the fold at three targets incl. the "
+        "batch's 5th-smallest hash) and "
         f"to the host's fold; scrypt_back's fold also on {big} and {big - SCRYPT_RAGGED} lanes "
-        "of random X; 88 digests equal to hashlib.scrypt")
+        "of random X; 96 digests equal to hashlib.scrypt")
 
     # probe 19, stage 1: its shapes and its V, a 4-step chain
     v = probe_v(SCRYPT_N * WALK_B, dev).view(SCRYPT_N, WALK_B, 32)
@@ -1873,6 +1927,11 @@ def scrypt_dispatch(header80, b, dev):
     return kernels.scrypt_back(words, nonces, x, [0] * 8)[1]
 
 
+#: phase 5's dict job: candidates (past the coordinator's 32 KiB window
+#: budget), top-k slots and seed
+DICT_N, DICT_K, DICT_SEED = 6000, 8, 42
+
+
 def free_udp_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -1883,7 +1942,8 @@ def phase_end_to_end(hc_expect, scrypt_job):
     """The process-level phase; ``hc_expect`` holds phase 4c's
     ``(searched, acc)`` of fmin and top-k over [0, 2^32) under its
     ``"seed"``, ``scrypt_job`` phase 4d's planted SCRYPT job. Returns each
-    hashcore job's seconds through the client, and the SCRYPT job's."""
+    hashcore job's seconds through the client, the SCRYPT job's and the
+    dict job's."""
     from tpuminter_torch import chain
 
     log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
@@ -1964,10 +2024,11 @@ def phase_end_to_end(hc_expect, scrypt_job):
         say(f"  e2e SCRYPT: Result {hash_hex} {nonce} (hashlib.scrypt-checked; {same} phase 4d's "
             f"first winner {first.nonce}; {scrypt_seconds:.1f} s through the client)")
         hc_seconds = phase_end_to_end_hashcore(addr, env, hc_expect)
+        dict_seconds = phase_end_to_end_dict(addr, env, log_dir)
         coord_log = open(os.path.join(log_dir, "e2e_coordinator.log")).read()
         joins = [ln for ln in coord_log.splitlines() if "joined (backend=cuda" in ln]
-        if not joins or "workloads=hashcore" not in joins[0]:
-            fail(f"the coordinator's log shows no cuda worker advertising hashcore: {joins}")
+        if not joins or "workloads=dict,hashcore" not in joins[0]:
+            fail(f"the coordinator's log shows no cuda worker advertising dict,hashcore: {joins}")
         say(f"  coordinator log: {joins[0].split('INFO')[-1].strip()}")
         refusals = [ln for ln in coord_log.splitlines() if "refused chunk" in ln]
         refusals += [ln for ln in open(os.path.join(log_dir, "e2e_worker.log")).read()
@@ -1977,7 +2038,7 @@ def phase_end_to_end(hc_expect, scrypt_job):
         say("  coordinator and worker logs: no refused chunk")
         if procs[1].poll() is not None:
             fail("the worker exited early")
-        return hc_seconds, scrypt_seconds
+        return hc_seconds, scrypt_seconds, dict_seconds
     except BaseException:
         for name, log in logs:
             log.flush()
@@ -1995,6 +2056,41 @@ def phase_end_to_end(hc_expect, scrypt_job):
                 p.wait()
         for _, log in logs:
             log.close()
+
+
+def dict_score(seed: int, candidate: bytes) -> int:
+    """The dict workload's objective: the low 64 bits, little-endian, of
+    ``SHA-256(seed_le8 ‖ candidate)``."""
+    digest = hashlib.sha256(struct.pack("<Q", seed) + candidate).digest()
+    return int.from_bytes(digest[:8], "little")
+
+
+def phase_end_to_end_dict(addr, env, log_dir) -> float:
+    """A dict job through the unchanged client: top-k (k = 8) over a
+    seeded catalog of DICT_N candidates, past the coordinator's 32 KiB
+    window budget (its chunks ride window Setups), answered by the port
+    worker alone and checked with hashlib. Returns its seconds."""
+    rng = np.random.default_rng(SEED + 5)
+    cands = [b"candidate-%05d-%s" % (i, rng.bytes(6).hex().encode()) for i in range(DICT_N)]
+    path = os.path.join(log_dir, "e2e_dict_candidates.txt")
+    with open(path, "wb") as fh:
+        fh.write(b"\n".join(cands) + b"\n")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tpuminter.client", addr, "--workload", "dict",
+                          "--variant", "topk", "--k", str(DICT_K), "--seed", str(DICT_SEED),
+                          "--candidates", path, "--timeout", "300"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=400)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0 or "Result [dict] topk" not in out.stdout:
+        fail(f"client dict job failed (rc {out.returncode}): {out.stdout}{out.stderr}")
+    searched = int(re.search(r"searched=(\d+)", out.stdout).group(1))
+    pairs = [[int(v), int(i)] for v, i in re.findall(r"value=(\d+) index=(\d+)", out.stdout)]
+    want = sorted([dict_score(DICT_SEED, c), i] for i, c in enumerate(cands))[:DICT_K]
+    if (searched, pairs) != (DICT_N, want):
+        fail(f"e2e dict topk: searched={searched} {pairs} != hashlib's {want}")
+    say(f"  e2e dict topk (k = {DICT_K}) over {DICT_N} candidates: {pairs[0]} ... "
+        f"searched={searched}, equal to hashlib ({seconds:.1f} s through the client)")
+    return seconds
 
 
 def phase_end_to_end_hashcore(addr, env, hc_expect) -> dict:
@@ -2083,6 +2179,7 @@ def main() -> int:
             top = sorted(ops_count.items(), key=lambda kv: -kv[1])[:9]
             say(f"  SASS {kernel}: {sum(ops_count.values())} instructions; "
                 + ", ".join(f"{op} {c}" for op, c in top))
+    pipes = pipe_mixes(infos)
 
     phase("3. kernels against their plain versions")
     stats, scrypt_info = phase_kernels(dev, np.random.default_rng(SEED))
@@ -2109,7 +2206,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("5. end to end: coordinator + port worker + client processes")
-    hc_e2e_seconds, scrypt_rates["e2e_seconds"] = phase_end_to_end(hc_expect, scrypt_job)
+    hc_e2e_seconds, scrypt_rates["e2e_seconds"], dict_seconds = phase_end_to_end(
+        hc_expect, scrypt_job)
 
     paths = {"fixed": fixed, "rolled": rolled, "hashcore": hashcore, "scrypt": scrypt}
     rows = []
@@ -2129,12 +2227,14 @@ def main() -> int:
             "n": t["n"], "plain_n": t.get("plain_n", t["n"]),
             "ops_per_nonce": t["ops_per_nonce"],
             "int32_pipe_ms": t["int32_pipe_ms"], "checks": st.checks,
+            **({"pipes": pipes[name]} if name in pipes else {}),
             **{k: t[k] for k in ("ms_at_reps", "ns_per_row", "probe") if k in t},
         })
     say(json.dumps({"hashcore": {"rates": hc_rates, "window_sweep_g_per_s": sweep_rates,
                                  "window_breakdown": breakdown,
                                  "e2e_seconds": hc_e2e_seconds}}))
     say(json.dumps({"rolled_ghs": rates}))
+    say(json.dumps({"dict": {"e2e_seconds": dict_seconds, "candidates": DICT_N}}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
         k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -173,9 +173,9 @@ async def _stub_coordinator_exchange():
 
     try:
         conn, join = await read()
-        dict_job = ref.Request(2, ref.PowMode.MIN, 0, 99, data=b"\xc5", workload="dict")
+        unknown_job = ref.Request(2, ref.PowMode.MIN, 0, 99, data=b"\xc5", workload="nosuch")
         hc_job = _request("topk", 42, 0, 199_999, k=3, job_id=3)
-        for msg in (ref.Setup(dict_job), ref.Assign(2, 6, 0, 99), ref.Setup(hc_job),
+        for msg in (ref.Setup(unknown_job), ref.Assign(2, 6, 0, 99), ref.Setup(hc_job),
                     ref.Assign(3, 7, 1000, 150_000)):
             server.write(conn, ref.encode_msg(msg))
         replies = [(await read())[1] for _ in range(2)]
@@ -188,7 +188,7 @@ async def _stub_coordinator_exchange():
 
 def test_worker_advertises_hashcore_refuses_unregistered_and_answers_chunks():
     join, (refuse, result) = _run(_stub_coordinator_exchange())
-    assert join.workloads == ("hashcore",)
+    assert join.workloads == ("dict", "hashcore")
     assert refuse == ref.Refuse(job_id=2, chunk_id=6)
     chunk = dataclasses.replace(_request("topk", 42, 1000, 150_000, k=3, job_id=3),
                                 chunk_id=7)

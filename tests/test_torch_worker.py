@@ -84,7 +84,7 @@ def test_cuda_miner_refuses_what_it_does_not_serve():
                           target=TARGET, coinbase_prefix=b"\x01", nonce_bits=4)
     scrypt = port.Request(7, port.PowMode.SCRYPT, 0, 255, header=GENESIS.pack(),
                           target=TARGET)
-    workload = port.Request(8, port.PowMode.MIN, 0, 255, data=b"x", workload="dict")
+    workload = port.Request(8, port.PowMode.MIN, 0, 255, data=b"x", workload="nosuch")
     assert miner.unsupported(workload)
     with pytest.raises(NotImplementedError):
         next(miner.mine(workload))

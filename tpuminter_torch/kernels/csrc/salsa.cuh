@@ -1,7 +1,11 @@
-// Salsa20/8 and scryptBlockMix (r = 1) on 32 words in registers, shared by
-// scrypt.cu (the fill and the walk) and probes.cu (the layout probes' walk
-// step). Fully unrolled with constant indices, so the words stay in
-// registers.
+// Salsa20/8 and scryptBlockMix (r = 1), shared by scrypt.cu and probes.cu.
+// Two forms, both fully unrolled with constant indices, so the words stay
+// in registers:
+//   * one thread a block: all 32 words in one thread (block_mix; the walk
+//     and the layout probes' walk step);
+//   * four threads a block (block_mix_quad; the fill): each of the four
+//     threads of a hash holds one row of each 4 x 4 Salsa matrix, and the
+//     column rounds gather their columns with warp shuffles.
 #pragma once
 
 #include <stdint.h>
@@ -85,6 +89,67 @@ __device__ __forceinline__ void block_mix(uint32_t (&x)[32]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) x[16 + i] ^= x[i];
   salsa20_8<16>(x);
+}
+
+// ---- four threads a block ---------------------------------------------------
+//
+// The four threads of a hash are lanes 4h .. 4h + 3 of a warp; t = lane & 3.
+// Row layout: thread t holds r[j] = B[4t + ((t + j) & 3)] of a 16-word block
+// B, its matrix row t rotated so that r[0] is the diagonal word B[5t]; the
+// row round's quarter-round is then the same four steps in every thread.
+// Column layout, for the column round: c[k] = B[(5t + 4k) & 15], column t
+// of the matrix read down from its diagonal word. Either layout reaches the
+// other with three shuffles (the diagonal word stays), so a double round
+// costs six and Salsa20/8 24, and its output is in row layout again.
+
+// v of lane (t + d) & 3 of this thread's four
+__device__ __forceinline__ uint32_t quad_from(uint32_t v, int t, int d) {
+  return __shfl_sync(0xFFFFFFFFu, v, (t + d) & 3, 4);
+}
+
+// The quarter-round shared by the column and the row round.
+__device__ __forceinline__ void quarter(uint32_t (&y)[4]) {
+  y[1] ^= rotl(y[0] + y[3], 7);
+  y[2] ^= rotl(y[1] + y[0], 9);
+  y[3] ^= rotl(y[2] + y[1], 13);
+  y[0] ^= rotl(y[3] + y[2], 18);
+}
+
+// b <- Salsa20/8(b), b one block in row layout across the four threads.
+__device__ __forceinline__ void salsa20_8_quad(uint32_t (&b)[4], int t) {
+  uint32_t x[4] = {b[0], b[1], b[2], b[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t c[4] = {x[0], quad_from(x[3], t, 1), quad_from(x[2], t, 2),
+                     quad_from(x[1], t, 3)};  // row -> column
+    quarter(c);
+    x[0] = c[0];
+    x[1] = quad_from(c[3], t, 1);  // column -> row
+    x[2] = quad_from(c[2], t, 2);
+    x[3] = quad_from(c[1], t, 3);
+    quarter(x);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] += x[j];
+}
+
+// (B0, B1) <- BlockMix(B0 || B1), both blocks in row layout.
+__device__ __forceinline__ void block_mix_quad(uint32_t (&b0)[4], uint32_t (&b1)[4], int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b0[j] ^= b1[j];
+  salsa20_8_quad(b0, t);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b1[j] ^= b0[j];
+  salsa20_8_quad(b1, t);
+}
+
+// Thread t's row of a block in memory order, words 4t .. 4t + 3: word m is
+// r[(m - t) & 3], a rotation by t in two select stages.
+__device__ __forceinline__ uint4 quad_row_words(const uint32_t (&r)[4], int t) {
+  const bool odd = (t & 1) != 0;
+  const uint32_t a0 = odd ? r[3] : r[0], a1 = odd ? r[0] : r[1];
+  const uint32_t a2 = odd ? r[1] : r[2], a3 = odd ? r[2] : r[3];
+  return (t & 2) ? make_uint4(a2, a3, a0, a1) : make_uint4(a0, a1, a2, a3);
 }
 
 }  // namespace

@@ -25,17 +25,24 @@
 // SHA-256 compressions of the two PBKDF2 ends (21 with the key and HMAC
 // states that tm_scrypt_back recomputes) are ~3% of the operations.
 //
-// The design is the simple one that is right first:
-//   * one thread per hash; X lives in 32 registers and Salsa20/8 works on
-//     16 more, fully unrolled with constant indices, so nothing spills to
-//     local memory;
+// The design:
+//   * the walk (and S2) run one thread per hash: X lives in 32 registers
+//     and Salsa20/8 works on 16 more, fully unrolled with constant
+//     indices, so nothing spills to local memory;
+//   * the fill (S1) runs four threads per hash (salsa.cuh's quad form):
+//     8 words of X a thread, the Salsa columns gathered by warp shuffles,
+//     at most 64 registers, so 2^15 hashes fill 31 warps an SM. One
+//     thread a hash stored a row as 8 x 16-byte stores whose warp
+//     instruction touched 32 rows 128 bytes apart (and, at 96 registers,
+//     ran 8 warps an SM at 2^15): 20% of the bytes bound. A quad's thread
+//     stores its two 16-byte quarters, so a warp's store instruction
+//     writes whole 32-byte sectors, 8 rows' halves in one 1 KiB span;
 //   * V is the reference's layout, (N, S, 32) u32 for a lane stride S:
 //     row j of lane b is 128 contiguous bytes at (j * S + b) * 128, so at
-//     a fill step a warp's 32 rows are one 4 KiB span. The fill stores a
-//     row as 8 x 16-byte stores, the walk loads one as 8 x 16-byte loads
-//     through the read-only path; the walk's next row depends on the
-//     BlockMix just computed, so latency is hidden only by the other
-//     warps in flight (ROMix's sequential memory hardness);
+//     a fill step a warp's rows are one contiguous span. The walk loads a
+//     row as 8 x 16-byte loads through the read-only path; its next row
+//     depends on the BlockMix just computed, so latency is hidden only by
+//     the other warps in flight (ROMix's sequential memory hardness);
 //   * sizes are run-time arguments (n_log2, the ragged count, the stride,
 //     the header words as a by-value struct, the target), so one build
 //     serves every job and every N;
@@ -66,6 +73,9 @@ struct TmTarget {
 namespace {
 
 constexpr int kThreads = 128;
+// resident blocks a SM the fill is built for: 8 x 128 threads at <= 64
+// registers, so the path's 2^15 hashes (2^17 threads) are one wave
+constexpr int kFrontBlocksPerSm = 8;
 constexpr uint32_t kNotFound = 0x7FFFFFFFu;  // first lane when nothing hit
 constexpr uint32_t kGatherStep = 977u;       // romix_pallas_probe's pass stride
 
@@ -176,57 +186,77 @@ __device__ __forceinline__ void hmac_finish(const uint32_t (&os)[8], const uint3
   compress(out, m);
 }
 
-// ---- S1: PBKDF2-in and the ROMix fill ----------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
+// ---- S1: PBKDF2-in and the ROMix fill, four threads a hash ---------------------
+//
+// The four threads of a hash (lanes 4h .. 4h + 3, t = lane & 3) each compute
+// one of PBKDF2-in's four HMAC blocks, X words 8t .. 8t + 7, then hold X in
+// row layout (salsa.cuh): B0's matrix row t and B1's, eight words. A fill
+// step stores B0's row as X words 4t .. 4t + 3 and B1's as 16 + 4t .. 16 +
+// 4t + 3, one 16-byte store each: the warp's first store covers bytes 0-63
+// of its eight hashes' rows and its second bytes 64-127, whole 32-byte
+// sectors, and together the eight rows' 1 KiB span. Lanes past the count
+// compute a copy of the last hash (every lane takes part in the shuffles)
+// and store nothing.
+__global__ void __launch_bounds__(kThreads, kFrontBlocksPerSm)
 scrypt_front_kernel(const TmScryptHeader hd, const long long* __restrict__ nonces,
                     long long* __restrict__ xout, uint4* __restrict__ v, int count,
                     int stride, int n_log2) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= count) return;
-  const uint32_t nw = bswap32((uint32_t)nonces[lane]);
-  uint32_t is[8], os[8], mid[8], m[16];
+  __shared__ uint32_t xs[kThreads / 4][33];  // X of each hash, padded a word
+  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = gid < 4LL * count;
+  const int hash = live ? (int)(gid >> 2) : count - 1;
+  const int t = threadIdx.x & 3;
+  const int q = threadIdx.x >> 2;
+  const uint32_t nw = bswap32((uint32_t)nonces[hash]);
+  uint32_t is[8], os[8], s[8], m[16];
   hmac_states(hd, nw, is, os);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) mid[i] = is[i];
+  for (int i = 0; i < 8; ++i) s[i] = is[i];
 #pragma unroll
   for (int i = 0; i < 16; ++i) m[i] = hd.w[i];
-  compress(mid, m);  // the salt's first block, the same for all four HMAC blocks
-  uint32_t x[32];
+  compress(s, m);  // the salt's first block, the same for all four HMAC blocks
+  m[0] = hd.w[16];
+  m[1] = hd.w[17];
+  m[2] = hd.w[18];
+  m[3] = nw;
+  m[4] = (uint32_t)(t + 1);  // INT_BE(i): this thread's block
+  m[5] = 0x80000000u;
 #pragma unroll
-  for (int blk = 0; blk < 4; ++blk) {
-    uint32_t s[8], t[8];
+  for (int i = 6; i < 15; ++i) m[i] = 0u;
+  m[15] = 1184u;  // ipad (64) + header (80) + 4 bytes
+  compress(s, m);
+  uint32_t d[8];
+  hmac_finish(os, s, d);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = mid[i];
-    m[0] = hd.w[16];
-    m[1] = hd.w[17];
-    m[2] = hd.w[18];
-    m[3] = nw;
-    m[4] = (uint32_t)(blk + 1);  // INT_BE(i)
-    m[5] = 0x80000000u;
+  for (int i = 0; i < 8; ++i) xs[q][8 * t + i] = bswap32(d[i]);
+  __syncwarp();
+  uint32_t b0[4], b1[4];
 #pragma unroll
-    for (int i = 6; i < 15; ++i) m[i] = 0u;
-    m[15] = 1184u;  // ipad (64) + header (80) + 4 bytes
-    compress(s, m);
-    hmac_finish(os, s, t);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[blk * 8 + i] = bswap32(t[i]);
+  for (int j = 0; j < 4; ++j) {
+    b0[j] = xs[q][4 * t + ((t + j) & 3)];
+    b1[j] = xs[q][16 + 4 * t + ((t + j) & 3)];
   }
-  // fill: V[i, lane] = X, X <- BlockMix(X), for i < N
-  uint4* row = v + (size_t)lane * 8;
+  // fill: V[i, hash] = X, X <- BlockMix(X), for i < N
+  uint4* row = v + (size_t)hash * 8 + t;
   const size_t step = (size_t)stride * 8;
   const int n = 1 << n_log2;
 #pragma unroll 1
   for (int i = 0; i < n; ++i) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      row[k] = make_uint4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+    if (live) {
+      row[0] = quad_row_words(b0, t);
+      row[4] = quad_row_words(b1, t);
     }
     row += step;
-    block_mix(x);
+    block_mix_quad(b0, b1, t);
   }
+  if (live) {
+    long long* out = xout + (size_t)hash * 32 + 4 * t;
 #pragma unroll
-  for (int k = 0; k < 32; ++k) xout[(size_t)lane * 32 + k] = (long long)x[k];
+    for (int j = 0; j < 4; ++j) {
+      out[(t + j) & 3] = (long long)b0[j];
+      out[16 + ((t + j) & 3)] = (long long)b1[j];
+    }
+  }
 }
 
 // ---- 19: the walk --------------------------------------------------------------
@@ -434,7 +464,8 @@ extern "C" {
 int tm_scrypt_front(const TmScryptHeader* hd, const long long* nonces, long long* x,
                     void* v, int count, int stride, int n_log2, int device, void* stream) {
   cudaSetDevice(device);
-  scrypt_front_kernel<<<blocks_for(count), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((4LL * count + kThreads - 1) / kThreads);
+  scrypt_front_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       *hd, nonces, x, (uint4*)v, count, stride, n_log2);
   return finish();
 }
@@ -469,7 +500,8 @@ int tm_row_gather(const void* v, long long rows, const long long* idx, long long
 }
 
 // Resident blocks per SM of the fill (which = 0) or the walk (1) at
-// kThreads threads a block: with the SM count, the hashes in flight a wave.
+// kThreads threads a block: with the SM count, the hashes in flight a wave
+// (a block holds kThreads / 4 hashes of the fill, kThreads of the walk).
 int tm_scrypt_occupancy(int which, int device, int* blocks_per_sm) {
   cudaSetDevice(device);
   const void* fn = which == 0 ? (const void*)scrypt_front_kernel : (const void*)romix_walk_kernel;

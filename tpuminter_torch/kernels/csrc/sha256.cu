@@ -15,24 +15,31 @@
 //                                     (a jitted program there, no pallas_call)
 //
 // What bounds them: 32-bit integer issue. A nonce costs one or two
-// 64-round compressions (~2,000-2,400 integer instructions each: adds,
-// LOP3 logic, funnel-shift rotations) and reads or writes nothing but a
-// few words per launch (K1 excepted: 80 bytes per nonce, still far
-// below the ALU time). Design against that bound:
+// 64-round compressions (~2,400-2,700 instructions each: adds, LOP3
+// logic, funnel-shift rotations) and reads or writes nothing but a few
+// words per launch (K1 excepted: 80 bytes per nonce, still far below the
+// issue time). Hopper issues integer work to two pipes of 64 lanes an SM
+// each: the ALU pipe (IADD3, LOP3, SHF, ...) and the FMA pipe, which runs
+// IMAD. Left to itself the compiler puts nearly every instruction of this
+// code on the ALU pipe, which then binds alone. Design against that bound:
+//   * every add of a round and of the schedule is an IMAD by an opaque
+//     one (kOne), so the FMA pipe carries the adds and the ALU pipe only
+//     the rotations and the logic;
 //   * the message template (midstate, tail blocks, nonce byte positions)
 //     is a by-value kernel argument, so one build serves every job and
 //     the constants sit in the parameter bank, not in memory;
 //   * rotations are single funnel shifts (__funnelshift_r), Ch and Maj
 //     the two-operation forms that compile to LOP3;
 //   * the message schedule is a rolling 16-word window in registers;
-//   * K3-K5 stop the second compression after round 61 (digest words 6
-//     and 7 only), and every search exits early through one device word
-//     (one per row for K5);
+//   * K3-K5 run the second compression to round 60 (digest word 7) and
+//     round 61 (digest word 6) only where word 7 hits, and every search
+//     exits early through one device word (one per row for K5);
 //   * K4/K5 take the header from device memory (the roll's output) and
 //     keep its padding words as compile-time constants, so the compiler
 //     folds the schedule terms they feed; K5's sched arm also computes
 //     each row's nonce-free prefix (rounds 0-2, w16, w17, most of w18
-//     and w19) once, outside the nonce loop;
+//     and w19, and round 3 but for its nonce word) once, outside the
+//     nonce loop;
 //   * reductions are per-thread, then per-block in shared memory, then
 //     one small block over the per-block partials: no atomics on the
 //     min path, and results do not depend on scheduling order.
@@ -106,38 +113,63 @@ __device__ __forceinline__ uint32_t bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
-// Runs rounds [0, rounds) of a compression of message m (16 words) from
-// state s, leaving the working variables in v (a..h). The schedule is a
-// rolling 16-word window.
+// One the compiler cannot see (a __constant__ word the host could
+// rewrite). An add written as a * kOne + b stays an IMAD, which issues to
+// the FMA pipe; a plain add, or an IMAD by a known 1, becomes an IADD3 on
+// the ALU pipe, which the rotations and logic already fill.
+__constant__ uint32_t kOne = 1u;
+
+__device__ __forceinline__ uint32_t mad(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+// a + b on the FMA pipe
+__device__ __forceinline__ uint32_t add_f(uint32_t a, uint32_t b) { return mad(a, kOne, b); }
+// b + k for a round constant k, which takes the IMAD's constant operand
+__device__ __forceinline__ uint32_t add_k(uint32_t k, uint32_t b) { return mad(kOne, k, b); }
+
+// Message schedule word w_i from w_{i-2}, w_{i-7}, w_{i-15}, w_{i-16}.
+__device__ __forceinline__ uint32_t schedule(uint32_t w2, uint32_t w7, uint32_t w15,
+                                             uint32_t w16) {
+  return add_f(small_sigma1(w2), add_f(small_sigma0(w15), add_f(w7, w16)));
+}
+
+// One round on working variables x (a..h) with round constant k and
+// schedule word w. Every add is an IMAD (FMA pipe); the rotations and the
+// logic stay on the ALU pipe.
+__device__ __forceinline__ void round_step(uint32_t (&x)[8], uint32_t k, uint32_t w) {
+  const uint32_t t1 =
+      add_f(ch(x[4], x[5], x[6]), add_f(big_sigma1(x[4]), add_f(w, add_k(k, x[7]))));
+  const uint32_t a = add_f(maj(x[0], x[1], x[2]), add_f(big_sigma0(x[0]), t1));
+  x[7] = x[6]; x[6] = x[5]; x[5] = x[4]; x[4] = add_f(x[3], t1);
+  x[3] = x[2]; x[2] = x[1]; x[1] = x[0]; x[0] = a;
+}
+
+// Runs rounds [0, kRounds) of a compression of message m (16 words) from
+// state s, leaving the working variables in v (a..h) and the rolling
+// schedule window in w (w[i & 15] = w_i for the last 16 words).
 template <int kRounds>
 __device__ __forceinline__ void rounds(const uint32_t (&s)[8], const uint32_t* m,
-                                       uint32_t (&v)[8], uint32_t* e60) {
-  uint32_t w[16];
+                                       uint32_t (&v)[8], uint32_t (&w)[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) w[i] = m[i];
-  uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
-  uint32_t e = s[4], f = s[5], g = s[6], h = s[7];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = s[i];
 #pragma unroll
   for (int i = 0; i < kRounds; ++i) {
     if (i >= 16) {
-      w[i & 15] += small_sigma0(w[(i + 1) & 15]) + w[(i + 9) & 15] +
-                   small_sigma1(w[(i + 14) & 15]);
+      w[i & 15] = schedule(w[(i + 14) & 15], w[(i + 9) & 15], w[(i + 1) & 15], w[i & 15]);
     }
-    const uint32_t t1 = h + big_sigma1(e) + ch(e, f, g) + kK[i] + w[i & 15];
-    const uint32_t t2 = big_sigma0(a) + maj(a, b, c);
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + t2;
-    if (i == 60 && e60 != nullptr) *e60 = e;
+    round_step(v, kK[i], w[i & 15]);
   }
-  v[0] = a; v[1] = b; v[2] = c; v[3] = d;
-  v[4] = e; v[5] = f; v[6] = g; v[7] = h;
 }
 
 __device__ __forceinline__ void compress(uint32_t (&s)[8], const uint32_t* m) {
-  uint32_t v[8];
-  rounds<64>(s, m, v, nullptr);
+  uint32_t v[8], w[16];
+  rounds<64>(s, m, v, w);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] += v[i];
+  for (int i = 0; i < 8; ++i) s[i] = add_f(s[i], v[i]);
 }
 
 // w[g] |= x for a word index known only at run time. Every case names a
@@ -205,17 +237,20 @@ __device__ __forceinline__ void digest(const TmTemplate& t, uint32_t hi, uint32_
   }
 }
 
-// (e60, e61) of the second compression of a double-SHA template: digest
-// word 7 = H0[7] + e60, digest word 6 = H0[6] + e61. Rounds 58-61 only
-// extend the e chain; the compiler drops their dead a chain.
-__device__ __forceinline__ void second_e60_e61(const TmTemplate& t, uint32_t lo,
-                                               uint32_t& e60, uint32_t& e61) {
-  uint32_t s[8], m[16], v[8];
-  first_hash(t, 0u, lo, s);
-  second_block(s, m);
+// Whether the double hash whose first hash is `first` is a candidate:
+// digest word 7 = H0[7] + e60 is 0 and digest word 6 = H0[6] + e61, read
+// big-endian, is at most hw1_cap. The second compression runs rounds 0-60
+// (the compiler drops the a chain past what e60 needs); round 61 runs only
+// where e60 hits, on about 2^-32 of the nonces.
+__device__ __forceinline__ bool second_hit(const uint32_t (&first)[8], uint32_t hw1_cap) {
+  uint32_t s[8], m[16], v[8], w[16];
+  second_block(first, m);
   init_state(s);
-  rounds<62>(s, m, v, &e60);
-  e61 = v[4];
+  rounds<61>(s, m, v, w);
+  if (v[4] != kCandE60) return false;
+  const uint32_t w61 = small_sigma1(w[11]) + w[6] + small_sigma0(w[14]) + w[13];
+  const uint32_t e61 = v[3] + v[7] + big_sigma1(v[4]) + ch(v[4], v[5], v[6]) + kK[61] + w61;
+  return bswap32(kDigest6Bias + e61) <= hw1_cap;
 }
 
 // ---- dynamic headers (K4, K5) -------------------------------------------
@@ -234,47 +269,31 @@ __device__ __forceinline__ void header_block(uint32_t t0, uint32_t t1, uint32_t 
   m[15] = kHdrLen;
 }
 
-// (e60, e61) of the second compression given the first hash's state.
-__device__ __forceinline__ void truncated_second(const uint32_t (&first)[8], uint32_t& e60,
-                                                 uint32_t& e61) {
-  uint32_t s[8], m[16], v[8];
-  second_block(first, m);
-  init_state(s);
-  rounds<62>(s, m, v, &e60);
-  e61 = v[4];
-}
-
-// The plain body: the whole first compression per nonce.
-__device__ __forceinline__ void header_e60_e61(const uint32_t (&mid)[8], uint32_t t0,
-                                               uint32_t t1, uint32_t t2, uint32_t nonce,
-                                               uint32_t& e60, uint32_t& e61) {
-  uint32_t s[8], m[16];
+// The plain body: the whole first compression per nonce, left in x.
+__device__ __forceinline__ void header_first(const uint32_t (&mid)[8], uint32_t t0, uint32_t t1,
+                                             uint32_t t2, uint32_t nonce, uint32_t (&x)[8]) {
+  uint32_t m[16], v[8], w[16];
   header_block(t0, t1, t2, nonce, m);
+  rounds<64>(mid, m, v, w);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = mid[i];
-  compress(s, m);
-  truncated_second(s, e60, e61);
+  for (int i = 0; i < 8; ++i) x[i] = add_f(v[i], mid[i]);
 }
 
 // What no nonce changes (ops/sha256.py prepare_hdr): the state after
-// rounds 0-2, w16, w17, and w18 less sigma0(w3), w19 less w3.
+// rounds 0-2, w16, w17, and w18 less sigma0(w3), w19 less w3; and round
+// 3 less its nonce word w3, which enters e and a as one add each. The
+// midstate is not kept: the feed-forward re-reads it (L1-cached), which
+// leaves the nonce loop 8 more registers.
 struct HdrPrep {
-  uint32_t mid[8];
   uint32_t v[8];
   uint32_t w16, w17, p18, p19;
+  uint32_t e4, a4;
 };
-
-__device__ __forceinline__ void round_step(uint32_t (&x)[8], uint32_t k, uint32_t w) {
-  const uint32_t t1 = x[7] + big_sigma1(x[4]) + ch(x[4], x[5], x[6]) + k + w;
-  const uint32_t t2 = big_sigma0(x[0]) + maj(x[0], x[1], x[2]);
-  x[7] = x[6]; x[6] = x[5]; x[5] = x[4]; x[4] = x[3] + t1;
-  x[3] = x[2]; x[2] = x[1]; x[1] = x[0]; x[0] = t1 + t2;
-}
 
 __device__ __forceinline__ void prepare_hdr(const uint32_t (&mid)[8], uint32_t t0,
                                             uint32_t t1, uint32_t t2, HdrPrep& p) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) p.mid[i] = p.v[i] = mid[i];
+  for (int i = 0; i < 8; ++i) p.v[i] = mid[i];
   round_step(p.v, kK[0], t0);
   round_step(p.v, kK[1], t1);
   round_step(p.v, kK[2], t2);
@@ -283,12 +302,16 @@ __device__ __forceinline__ void prepare_hdr(const uint32_t (&mid)[8], uint32_t t
   p.w17 = t1 + small_sigma0(t2) + small_sigma1(kHdrLen);
   p.p18 = t2 + small_sigma1(p.w16);
   p.p19 = small_sigma0(0x80000000u) + small_sigma1(p.w17);
+  const uint32_t r3 = p.v[7] + big_sigma1(p.v[4]) + ch(p.v[4], p.v[5], p.v[6]) + kK[3];
+  p.e4 = p.v[3] + r3;
+  p.a4 = r3 + big_sigma0(p.v[0]) + maj(p.v[0], p.v[1], p.v[2]);
 }
 
 // The sched body (ops/sha256.py hash_prepared_e60_e61): rounds 3-63 of
-// the first compression from a prepared row, then the truncated second.
-__device__ __forceinline__ void prepared_e60_e61(const HdrPrep& p, uint32_t nonce,
-                                                 uint32_t& e60, uint32_t& e61) {
+// the first compression from a prepared row, round 3 as two adds, plus
+// the row's midstate mid8 (int64 words in device memory), left in x.
+__device__ __forceinline__ void prepared_first(const HdrPrep& p, const long long* mid8,
+                                               uint32_t nonce, uint32_t (&x)[8]) {
   uint32_t w[64];
   w[0] = w[1] = w[2] = 0;  // dead past round 2
   w[3] = bswap32(nonce);
@@ -298,24 +321,16 @@ __device__ __forceinline__ void prepared_e60_e61(const HdrPrep& p, uint32_t nonc
   w[15] = kHdrLen;
   w[16] = p.w16;
   w[17] = p.w17;
-  w[18] = p.p18 + small_sigma0(w[3]);
-  w[19] = p.p19 + w[3];
+  w[18] = add_f(p.p18, small_sigma0(w[3]));
+  w[19] = add_f(p.p19, w[3]);
 #pragma unroll
-  for (int i = 20; i < 64; ++i) {
-    w[i] = small_sigma1(w[i - 2]) + w[i - 7] + small_sigma0(w[i - 15]) + w[i - 16];
-  }
-  uint32_t x[8];
+  for (int i = 20; i < 64; ++i) w[i] = schedule(w[i - 2], w[i - 7], w[i - 15], w[i - 16]);
+  x[0] = add_f(p.a4, w[3]); x[1] = p.v[0]; x[2] = p.v[1]; x[3] = p.v[2];
+  x[4] = add_f(p.e4, w[3]); x[5] = p.v[4]; x[6] = p.v[5]; x[7] = p.v[6];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = p.v[i];
+  for (int i = 4; i < 64; ++i) round_step(x, kK[i], w[i]);
 #pragma unroll
-  for (int i = 3; i < 64; ++i) round_step(x, kK[i], w[i]);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] += p.mid[i];
-  truncated_second(x, e60, e61);
-}
-
-__device__ __forceinline__ bool is_candidate(uint32_t e60, uint32_t e61, uint32_t hw1_cap) {
-  return e60 == kCandE60 && bswap32(kDigest6Bias + e61) <= hw1_cap;
+  for (int i = 0; i < 8; ++i) x[i] = add_f(x[i], (uint32_t)__ldg(mid8 + i));
 }
 
 // Lexicographic a < b over K u32 keys.
@@ -404,9 +419,9 @@ search_candidates_kernel(const TmTemplate t, uint32_t base, uint32_t n,
     if (w0 > *(volatile unsigned long long*)&h[1]) break;
     const uint32_t off = w0 + lane;
     if (off < n) {
-      uint32_t e60, e61;
-      second_e60_e61(t, base + off, e60, e61);
-      if (e60 == kCandE60 && bswap32(kDigest6Bias + e61) <= hw1_cap) {
+      uint32_t s[8];
+      first_hash(t, 0u, base + off, s);
+      if (second_hit(s, hw1_cap)) {
         atomicMin(&h[1], (unsigned long long)off);
         h[0] = 1;
       }
@@ -432,9 +447,9 @@ search_candidates_hdr_kernel(const long long* mid8, const long long* tail3, uint
     if (w0 > *(volatile unsigned long long*)&h[1]) break;
     const uint32_t off = w0 + lane;
     if (off < n) {
-      uint32_t e60, e61;
-      header_e60_e61(mid, t0, t1, t2, base + off, e60, e61);
-      if (is_candidate(e60, e61, hw1_cap)) {
+      uint32_t x[8];
+      header_first(mid, t0, t1, t2, base + off, x);
+      if (second_hit(x, hw1_cap)) {
         atomicMin(&h[1], (unsigned long long)off);
         h[0] = 1;
       }
@@ -482,13 +497,13 @@ search_candidates_hdr_batch_kernel(const long long* mids, const long long* tails
     }
     unsigned long long* hr = h + 2 * row;
     if (off < limit && off <= *(volatile unsigned long long*)&hr[1]) {
-      uint32_t e60, e61;
+      uint32_t x[8];
       if (kSched) {
-        prepared_e60_e61(prep, base + off, e60, e61);
+        prepared_first(prep, mids + row * 8, base + off, x);
       } else {
-        header_e60_e61(mid, t0, t1, t2, base + off, e60, e61);
+        header_first(mid, t0, t1, t2, base + off, x);
       }
-      if (is_candidate(e60, e61, hw1_cap)) {
+      if (second_hit(x, hw1_cap)) {
         atomicMin(&hr[1], (unsigned long long)off);
         hr[0] = 1;
       }

@@ -34,7 +34,7 @@ from tpuminter_torch.ops import scrypt as ops
 __all__ = [
     "romix_scratch", "scrypt_front", "romix_walk", "scrypt_back", "row_gather",
     "scrypt_front_plain", "romix_walk_plain", "scrypt_back_plain", "row_gather_plain",
-    "occupancy", "KERNELS", "THREADS",
+    "occupancy", "KERNELS", "THREADS", "FRONT_THREADS_PER_HASH",
 ]
 
 _I64, _I32 = torch.int64, torch.int32
@@ -42,6 +42,8 @@ _I64, _I32 = torch.int64, torch.int32
 MAX_LANES = 1 << 30
 #: threads per block of every scrypt kernel (``kThreads`` in the source)
 THREADS = 128
+#: threads a hash of the fill (S1); the walk and S2 run one a hash
+FRONT_THREADS_PER_HASH = 4
 
 
 def _launch(name: str, *args) -> None:

@@ -455,9 +455,10 @@ def search_candidates_hdr_batch_sched(mids: torch.Tensor, tails: torch.Tensor,
                                       width: int,
                                       hw1_cap: int = 0xFFFFFFFF) -> torch.Tensor:
     """:func:`search_candidates_hdr_batch` with each row's nonce-free
-    prefix (rounds 0-2, ``w16``, ``w17``, most of ``w18``/``w19``)
-    computed once per row, outside the nonce loop (the reference's
-    ``sched=True`` body). Same handle, bit for bit."""
+    prefix (rounds 0-2, ``w16``, ``w17``, most of ``w18``/``w19``, and
+    round 3 but for its nonce word) computed once per row, outside the
+    nonce loop (the reference's ``sched=True`` body). Same handle, bit
+    for bit."""
     return _hdr_batch(search_candidates_hdr_batch_sched, mids, tails, bases, valids,
                       width, hw1_cap, sched=True)
 

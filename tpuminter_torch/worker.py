@@ -6,7 +6,7 @@ for a worker that joins with the JSON codec, so an unchanged
 ``Cancel`` messages, and, since it advertises the roll-budget dialect
 unless told not to, ``RollAssign`` chunks of whole extranonces, on which
 it reports progress with ``Beacon`` messages. It advertises the
-registered workloads (``tpuminter_torch.workloads``: hashcore), whose
+registered workloads (``tpuminter_torch.workloads``: dict and hashcore), whose
 chunks it computes on the miner's device and answers with
 ``WorkResult``s. It mines every dialect: TARGET, rolled TARGET, MIN and
 SCRYPT (plain or rolled). A chunk of a workload it did not register is

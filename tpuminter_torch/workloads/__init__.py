@@ -7,7 +7,9 @@ names what the worker's ``Join`` advertises; :func:`compute` runs one
 chunk and yields its ``WorkResult``. The coordinator's half (coverage
 state, verification, windows) stays in the reference.
 
-Registered here: ``hashcore`` (``workloads.hashcore``).
+Registered here: ``dict`` (``workloads.dictsearch``) and ``hashcore``
+(``workloads.hashcore``), so the worker's Join names ``dict,hashcore``
+as the reference worker's does.
 """
 
 from __future__ import annotations
@@ -90,4 +92,5 @@ def compute(request, device="cuda", engine: str = "kernel") -> Iterator:
 
 
 # built-in workloads register on import (the registry above must exist first)
+from tpuminter_torch.workloads import dictsearch  # noqa: E402,F401
 from tpuminter_torch.workloads import hashcore  # noqa: E402,F401

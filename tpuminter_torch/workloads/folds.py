@@ -2,10 +2,12 @@
 others, and how it is framed on the wire.
 
 Counterpart of ``tpuminter.workloads.folds``, reduced to what a worker
-needs: the four disciplines' ``initial``/``combine``/``is_final`` and
-their chunk-partial codec. Each partial travels inside a ``WorkResult``
-as a tagged, CRC-trailed frame (tags 0xC1–0xC4) that the reference
-coordinator decodes, so the layouts are the reference's byte for byte.
+needs: the four disciplines' ``initial``/``combine``/``is_final``, their
+host ``of_batch`` (a batch of objective values from a global index, as
+the dict workload scores them) and their chunk-partial codec. Each
+partial travels inside a ``WorkResult`` as a tagged, CRC-trailed frame
+(tags 0xC1–0xC4) that the reference coordinator decodes, so the layouts
+are the reference's byte for byte.
 
 - **fmin**: the single smallest ``[value, index]``, ties to the lowest
   index;
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Any
+from typing import Any, List
 
 __all__ = ["Fold", "FMin", "TopK", "FirstMatch", "FSum", "seal_payload", "TOPK_SLOTS"]
 
@@ -77,6 +79,11 @@ class Fold:
     def combine(self, a: Any, b: Any) -> Any:
         raise NotImplementedError
 
+    def of_batch(self, index0: int, values: List[int]) -> Any:
+        """The accumulator of one contiguous batch of objective values,
+        the first at global index ``index0``."""
+        raise NotImplementedError
+
     def is_final(self, acc: Any) -> bool:
         """True when this accumulator already decides the job."""
         return False
@@ -97,6 +104,12 @@ class FMin(Fold):
         if b is None:
             return list(a)
         return list(min((tuple(a), tuple(b))))
+
+    def of_batch(self, index0, values):
+        if not values:
+            return None
+        value = min(values)
+        return [value, index0 + values.index(value)]  # ties: the lowest index
 
     def encode(self, acc):
         if acc is None:
@@ -129,6 +142,9 @@ class TopK(Fold):
             v, i = int(v), int(i)
             merged[i] = min(merged.get(i, v), v)
         return sorted([v, i] for i, v in merged.items())[: self.k]
+
+    def of_batch(self, index0, values):
+        return sorted([value, index0 + off] for off, value in enumerate(values))[: self.k]
 
     def encode(self, acc):
         acc = acc or []
@@ -171,6 +187,12 @@ class FirstMatch(Fold):
             keep = a if a[0] <= b[0] else b
         return [keep[0], keep[1], a[2] + b[2]]
 
+    def of_batch(self, index0, values):
+        for off, value in enumerate(values):
+            if value <= self.threshold:
+                return [index0 + off, value, off + 1]
+        return [None, None, len(values)] if values else None
+
     def is_final(self, acc):
         return acc is not None and acc[0] is not None
 
@@ -202,6 +224,9 @@ class FSum(Fold):
     def combine(self, a, b):
         a, b = a or [0, 0], b or [0, 0]
         return [a[0] + b[0], a[1] + b[1]]
+
+    def of_batch(self, index0, values):
+        return [sum(values), len(values)]
 
     def encode(self, acc):
         total, count = acc or [0, 0]
