@@ -12,26 +12,29 @@ caught), and without a CUDA device the script exits non-zero at once:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: one nvcc per source under ``tpuminter_torch/kernels/csrc/``
    (``sha256.cu``, ``splitmix.cu``, ``scrypt.cu``, ``probes.cu``), all
-   started together; each kernel's SASS by opcode, and K1-K6's, S1's and
-   19's instructions a nonce or a hash on each issue pipe (ALU, FMA);
+   started together; each kernel's SASS by opcode, and K1-K6's (K3 in
+   both arms), S1's and 19's instructions a nonce or a hash on each issue
+   pipe (ALU, FMA);
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs on the card (exact integer equality) and against hashlib, the
-   rolled search kernels also at the main path's shape (width 2^27, 10
-   rows, the job's real cap, a planted genesis winner, ragged and padding
-   rows), then each timed at the main path's shapes (2^27 nonces a
-   launch, 8 rows of 2^27 for the batched rolled kernel) beside its plain
-   version and its bound (``op_count``: the instructions the function
-   needs on the timed inputs); K7 (splitmix64) on 2^24 random indices
-   under random seeds and on the edge words, against numpy u64 lanes
-   too, and timed at the hashcore path's window (2^24 indices); the
-   scrypt kernels S1 (PBKDF2-in and the ROMix fill), 19 (the walk) and
-   S2 (PBKDF2-out and the batch fold) on 2^12 seeded nonces at N = 1024
-   (X and all of V too) and at N = 16 and on a ragged count, against
-   hashlib.scrypt on a sample, the fold at a planted target; probe 19's
-   stage 1 at its shapes and probe 11 (the row gather) against its
-   plain version; then S1, 19 and S2 timed at the SCRYPT path's batch,
-   19 per step as probe 19's stage 2, 11 per row as probe 11 measured
-   it, beside ``torch.index_select``;
+   inputs on the card (exact integer equality) and against hashlib (K3's
+   header arm on header templates, its generic kernel on the same and on
+   a two-tail-block double-SHA template), the rolled search kernels also
+   at the main path's shape (width 2^27, 10 rows, the job's real cap, a
+   planted genesis winner, ragged and padding rows), then each timed at
+   the main path's shapes (2^27 nonces a launch, 8 rows of 2^27 for the
+   batched rolled kernel) beside its plain version and its bound
+   (``op_count``: the instructions the function needs on the timed
+   inputs); K7 (splitmix64) on 2^24 random indices under random seeds
+   and on the edge words, against numpy u64 lanes too, and timed at the
+   hashcore path's window (2^24 indices); the scrypt kernels S1
+   (PBKDF2-in and the ROMix fill), 19 (the walk) and S2 (PBKDF2-out and
+   the batch fold) on the path's batch of seeded nonces at N = 1024 (X
+   and all of V too), whole and ragged, and at N = 16 on ragged counts
+   down to one lane, against hashlib.scrypt on a sample, the fold at a
+   planted target; probe 19's stage 1 at its shapes and probe 11 (the
+   row gather) against its plain version; then S1, 19 and S2 timed at
+   the SCRYPT path's batch and at 2^15, 19 per step as probe 19's stage
+   2, 11 per row as probe 11 measured it, beside ``torch.index_select``;
 3b. the layout probes (``tpuminter_torch.probes``, the TPU rounds'
    fifteen remaining ``pallas_call`` sites on the kernels P1-P3 of
    ``csrc/probes.cu``): each kernel against its plain version off the
@@ -319,7 +322,7 @@ def op_count(name: str, template=None, base_hi: int = 0):
     if name == "min_toy":  # the fold's high word (digest word 0) against the min
         return _count([state[0]])[0] + 2 + LOOP_OPS, 0
     e60 = _rounds(_h0(), _second_block(state), 61)[1][60]
-    if name == "search_candidates":  # e60 == CAND
+    if name in ("search_candidates", "search_candidates_header"):  # e60 == CAND
         return _count([e60])[0] + 1 + LOOP_OPS, 0
     if name == "search_target":
         # hash word 0 = bswap(H7 + e60) against the target's and the min's
@@ -422,7 +425,10 @@ def phase_kernels(dev, rng):
         "sha256_batch": KernelStats("sha256_batch", "tpuminter/kernels/sha256.py:87"),
         "search_target": KernelStats("search_target", "tpuminter/kernels/sha256.py:257"),
         "search_candidates": KernelStats(
-            "search_candidates", "tpuminter/kernels/sha256.py:371"),
+            "search_candidates", "tpuminter/kernels/sha256.py:371 (any double-SHA template)"),
+        "search_candidates_header": KernelStats(
+            "search_candidates_header", "tpuminter/kernels/sha256.py:371 (an 80-byte header's "
+            "template)"),
         "search_candidates_hdr": KernelStats(
             "search_candidates_hdr", "tpuminter/kernels/sha256.py:489"),
         "search_candidates_hdr_batch": KernelStats(
@@ -476,8 +482,10 @@ def phase_kernels(dev, rng):
                 fail(f"sha256_batch {what} nonce {i} disagrees with hashlib")
     say(f"  sha256_batch: 2^16 nonces x 2 templates equal to plain; 16 digests equal to hashlib")
 
-    # K3: known winners at known offsets, masking, and seeded windows
-    st = stats["search_candidates"]
+    # K3, both arms: known winners at known offsets, masking, and seeded
+    # windows. A header template takes the header arm, and its
+    # generic_form the generic kernel.
+    st, sth = stats["search_candidates"], stats["search_candidates_header"]
     block1 = chain.BlockHeader(
         BLOCK1["version"], bytes.fromhex(BLOCK1["prev_hex"])[::-1],
         bytes.fromhex(BLOCK1["merkle_hex"])[::-1], BLOCK1["timestamp"],
@@ -494,12 +502,37 @@ def phase_kernels(dev, rng):
     ]
     cases += [(hdr, int(rng.integers(0, 1 << 32)), CHECK_N, None) for _ in range(3)]
     for tmpl, base, n, expect in cases:
+        want = K.search_candidates_plain(tmpl, base, n, tw[1], device=dev)
+        before = K.search_candidates_header.launches
         got = K.search_candidates(tmpl, base, n, tw[1], device=dev)
-        st.agree(got, K.search_candidates_plain(tmpl, base, n, tw[1], device=dev),
+        if K.search_candidates_header.launches != before + 1:
+            fail("a header template did not take K3's header arm")
+        sth.agree(got, want, f"base {base} n {n}")
+        sth.agree(got, K.search_candidates_header_plain(ops.header_words(tmpl), base, n, tw[1],
+                                                         device=dev),
+                  f"base {base} n {n}, the header arm's plain version")
+        st.agree(K.search_candidates(generic_form(tmpl), base, n, tw[1], device=dev), want,
                  f"base {base} n {n}")
         if expect is not None and got.cpu().tolist() != expect:
             fail(f"search_candidates base {base} n {n}: {got.tolist()} != {expect}")
-    say(f"  search_candidates: {len(cases)} windows equal to plain; genesis at offset 1000, block 1 at 5000")
+    say(f"  search_candidates, both arms: {len(cases)} windows equal to plain; genesis at offset "
+        "1000, block 1 at 5000")
+    two, msg, found = two_block_candidate(K, ops, rng, dev)
+    if chain.hash_to_int(chain.dsha256(msg[:60] + struct.pack("<I", found) + msg[64:])) >> 224:
+        fail(f"two-block template: nonce {found} is not a candidate by hashlib")
+    base = max(found - 1000, found >> 30 << 30)  # the kernel found no earlier one there
+    for b, n in ((base, 4096), (base, found - base + 1), (found + 1, 4096),
+                 (int(rng.integers(0, 1 << 32)), CHECK_N)):
+        before = K.search_candidates.launches
+        got = K.search_candidates(two, b, n, M32, device=dev)
+        if K.search_candidates.launches != before + 1:
+            fail("a two-block template did not take K3's generic kernel")
+        st.agree(got, K.search_candidates_plain(two, b, n, M32, device=dev),
+                 f"two-block template, base {b} n {n}")
+        if b == base and got.cpu().tolist() != [1, found - base]:
+            fail(f"two-block template: {got.tolist()} misses the candidate at {found}")
+    say(f"  search_candidates, generic arm: a 100-byte double-SHA template (two tail blocks), "
+        f"its first candidate {found} (hashlib-checked) and 4 windows equal to plain")
 
     # K2: regtest target (early hit) and an exhausted window's exact min
     st = stats["search_target"]
@@ -551,8 +584,12 @@ def phase_kernels(dev, rng):
             hdr, lambda: K.search_target(hdr, [0] * 8, base, n, device=dev),
             lambda: K.search_target_plain(hdr, [0] * 8, base, n, device=dev), 88),
         "search_candidates": (
-            hdr, lambda: K.search_candidates(hdr, base, n, 0, device=dev),
+            hdr, lambda: K.search_candidates(generic_form(hdr), base, n, 0, device=dev),
             lambda: K.search_candidates_plain(hdr, base, n, 0, device=dev), 16),
+        "search_candidates_header": (
+            hdr, lambda: K.search_candidates(hdr, base, n, 0, device=dev),
+            lambda: K.search_candidates_header_plain(ops.header_words(hdr), base, n, 0,
+                                                     device=dev), 16),
         "min_toy": (
             toy_short, lambda: K.min_toy(toy_short, 0, base, n, device=dev),
             lambda: K.min_toy_plain(toy_short, 0, base, n, device=dev), 24),
@@ -574,6 +611,33 @@ def phase_kernels(dev, rng):
     splitmix_kernel_checks(dev, rng, stats["splitmix_batch"], int_rate)
     torch.cuda.empty_cache()
     return stats, scrypt_kernel_checks(dev, rng, stats, int_rate)
+
+
+def generic_form(template):
+    """The same template with its nonce bytes listed in reverse order: the
+    same function, in a form ``ops.header_words`` does not take, so that
+    K3's generic kernel runs on a header's template."""
+    return dataclasses.replace(template, positions=template.positions[::-1])
+
+
+def two_block_candidate(K, ops, rng, dev):
+    """(template, message, nonce): a double SHA over a seeded 100-byte
+    message with a little-endian nonce at bytes 60-63, so its template
+    keeps two tail blocks and takes K3's generic kernel, and the lowest
+    candidate nonce (top 32 hash bits zero) of the first such message
+    that has one, found by the kernel over [0, 2^32) in 2^30-nonce
+    launches."""
+    for _ in range(8):
+        msg = rng.bytes(60) + bytes(4) + rng.bytes(36)
+        two = ops._build_template(msg, 60, [(j, 8 * j) for j in range(4)], double=True)
+        if len(two.tail) != 2 or ops.header_words(two) is not None:
+            fail("the 100-byte template is not a two-tail-block generic template")
+        for chunk in range(4):
+            found, off = K.search_candidates(two, chunk << 30, 1 << 30, M32,
+                                             device=dev).tolist()
+            if found:
+                return two, msg, (chunk << 30) + off
+    fail("no seeded 100-byte message had a candidate nonce")
 
 
 def record(st, n, plain_n, ms, plain_ms, nbytes, per_unit, ops_total, int_rate,
@@ -855,6 +919,7 @@ def phase_main_path(card: str):
 PIPE_KERNELS = {
     "sha256_batch": "sha256_batch_kernel", "search_target": "search_target_kernel",
     "search_candidates": "search_candidates_kernel",
+    "search_candidates_header": "search_candidates_header_kernel",
     "search_candidates_hdr": "search_candidates_hdr_kernel",
     "search_candidates_hdr_batch": "search_candidates_hdr_batch_kernel",
     "search_candidates_hdr_batch_sched": "search_candidates_hdr_batch_kernel<sched>",
@@ -867,8 +932,8 @@ def pipe_mixes(infos) -> dict:
     """Per row of K1-K6, S1 and 19, its static SASS instructions on
     each issue pipe (``sass.pipe_mix``) for one nonce or one hash: a SHA
     kernel's hot loop runs one nonce a trip (K1 has no loop: its whole
-    kernel is one nonce); S1 runs 2^10 fill steps a hash on four threads,
-    19 2^10 walk steps on one, each beside the instructions outside its
+    kernel is one nonce); S1 runs 2^10 fill steps a hash and 19 2^10 walk
+    steps, each on four threads, beside the instructions outside its
     loop. Static counts: every branch inside a loop is counted."""
     from tpuminter_torch.kernels import scrypt as KS
     from tpuminter_torch.kernels import sass
@@ -884,7 +949,8 @@ def pipe_mixes(infos) -> dict:
         mix = found[kernel]
         loop = mix["loop"] or mix["total"]
         if row in SCRYPT_PATH_KERNELS:
-            threads = KS.FRONT_THREADS_PER_HASH if row == "scrypt_front" else 1
+            threads = (KS.FRONT_THREADS_PER_HASH if row == "scrypt_front"
+                       else KS.WALK_THREADS_PER_HASH)
             per = {p: threads * (loop[p] * SCRYPT_N + mix["total"][p] - loop[p])
                    for p in sass.PIPES}
             unit = "hash"
@@ -897,8 +963,9 @@ def pipe_mixes(infos) -> dict:
     return out
 
 
-#: the kernels each part of the main path must launch
-FIXED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates", "min_toy")
+#: the kernels each part of the main path must launch; K3's generic kernel
+#: is not on it (every fixed-header job's template takes the header arm)
+FIXED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates_header", "min_toy")
 ROLLED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates_hdr",
                        "search_candidates_hdr_batch", "search_candidates_hdr_batch_sched",
                        "extranonce_roll")
@@ -1355,10 +1422,13 @@ LTC_GENESIS = dict(
 LTC_GENESIS_DSHA = "12a765e31ffd4059bada1e25190f6e98c99d9714d334efa41a195a7e7e04bfe2"
 LTC_GENESIS_SCRYPT = 0x0000050C34A64B415B6B15B37F2216634B5B1669CB9A2E38D76F7213B0671E00
 #: lanes of the kernels' plain check at N = 16 (at N = 1024 it runs at
-#: the path's batch: an int64 plain V of 8 GiB at 2^15), and the lanes a
+#: the path's batch: an int64 plain V of 16 GiB at 2^16), and the lanes a
 #: ragged count leaves out of its V
 SCRYPT_CHECK_N = 1 << 12
 SCRYPT_RAGGED = 333
+#: the path's batch before it rose to 2^16, one wave of S1 (8 blocks of 32
+#: hashes an SM): checked ragged and timed beside the path's batch
+SCRYPT_HALF_BATCH = 1 << 15
 #: the batch sweep of phase 4d, and the batches each of its runs mines
 SCRYPT_SWEEP = tuple(1 << b for b in range(14, 19))
 SCRYPT_SWEEP_BATCHES = 4
@@ -1416,13 +1486,14 @@ def scrypt_values(digest: torch.Tensor) -> list:
 def check_fold(st, hw, nonces, x, xp, what) -> float:
     """``scrypt_back`` on ``x`` against its plain version on ``xp`` and
     against the host's fold of its digests, at no target, the batch's
-    5th-smallest hash and every hash; returns the plain version's ms."""
+    5th-smallest hash (its largest, below 5 lanes) and every hash;
+    returns the plain version's ms."""
     from tpuminter_torch.kernels import scrypt as KS
     from tpuminter_torch.ops import sha256 as ops
 
     digest, _ = KS.scrypt_back(hw, nonces, x, [0] * 8)
     values = scrypt_values(digest)
-    for target in (0, sorted(values)[4], (1 << 256) - 1):
+    for target in (0, sorted(values)[min(4, len(values) - 1)], (1 << 256) - 1):
         tw = [int(w) for w in ops.target_to_words(target)]
         digest, handle = KS.scrypt_back(hw, nonces, x, tw)
         ms, (dp, hp) = event_ms(lambda: KS.scrypt_back_plain(hw, nonces, xp, tw), 1,
@@ -1437,16 +1508,16 @@ def check_fold(st, hw, nonces, x, xp, what) -> float:
 
 def scrypt_kernel_checks(dev, rng, stats, int_rate):
     """S1 → 19 → S2 against their plain versions on the card, exact: the
-    path's batch of seeded nonces at N = 1024, whole and ragged in its V
-    (X and all of V, the digests, and the fold against no target, the
-    batch's 5th-smallest hash and every hash), the same at N = 16 on 2^12,
-    1000 and 2^12 - 3 lanes of a 2^12-lane V, S2's fold at the sweep's
-    largest batch; 96 digests against hashlib.scrypt. Probe 19's stage 1
-    (B = 16384, N = 1024, its V made
+    path's batch of seeded nonces at N = 1024, whole and ragged (also 2^15
+    - 333 lanes) in its V (X and all of V, the digests, and the fold
+    against no target, the batch's 5th-smallest hash and every hash), the
+    same at N = 16 on 2^12, 1000, 2^12 - 3, 5 and 1 lanes of a 2^12-lane
+    V, S2's fold at the sweep's largest batch; 110 digests against
+    hashlib.scrypt. Probe 19's stage 1 (B = 16384, N = 1024, its V made
     on the card, a 4-step chain) and 11 against its plain version. Then
-    each timed: S1, 19 and S2 at the path's batch, 19 per step over a
-    1024-step walk at probe 19's B and the path's, 11 as the slope
-    between 32 and 256 passes at probe 11's batch beside
+    each timed: S1, 19 and S2 at the path's batch and at 2^15, 19 per
+    step over a 1024-step walk at probe 19's B and the path's, 11 as the
+    slope between 32 and 256 passes at probe 11's batch beside
     ``torch.index_select``."""
     from tpuminter_torch.cuda_worker import DEFAULT_SCRYPT_BATCH
     from tpuminter_torch.kernels import scrypt as KS
@@ -1459,7 +1530,8 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
                                            "row_gather"))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     occ = KS.occupancy(dev)
-    per_hash = {"scrypt_front": KS.FRONT_THREADS_PER_HASH, "romix_walk": 1}
+    per_hash = {"scrypt_front": KS.FRONT_THREADS_PER_HASH,
+                "romix_walk": KS.WALK_THREADS_PER_HASH}
     wave = {k: b * KS.THREADS * sms // per_hash[k] for k, b in occ.items()}
     say(f"  scrypt occupancy: blocks of {KS.THREADS} per SM {occ}; hashes in flight a wave "
         f"{wave}")
@@ -1469,13 +1541,15 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     nonces = torch.tensor(rng.integers(0, 1 << 32, b, dtype=np.int64), device=dev)
     plain = {}
     # (n_log2, V's lane stride, lanes): the path's batch at N = 1024, whole
-    # and ragged (S2's fold then takes several grid-stride iterations over
-    # its block partials, as every batch of the path does), then N = 16;
-    # the ragged counts leave S1's last warp (eight hashes of four
-    # threads) part full
+    # and ragged, and 2^15 ragged (S2's fold then takes several grid-stride
+    # iterations over its block partials, as every batch of the path
+    # does), then N = 16; the ragged counts leave S1's and 19's last warp
+    # (eight hashes of four threads) part full, down to one hash
     cases = ((SCRYPT_N_LOG2, b, b), (SCRYPT_N_LOG2, b, b - SCRYPT_RAGGED),
+             (SCRYPT_N_LOG2, b, SCRYPT_HALF_BATCH - SCRYPT_RAGGED),
              (4, SCRYPT_CHECK_N, SCRYPT_CHECK_N), (4, SCRYPT_CHECK_N, 1000),
-             (4, SCRYPT_CHECK_N, SCRYPT_CHECK_N - 3))
+             (4, SCRYPT_CHECK_N, SCRYPT_CHECK_N - 3), (4, SCRYPT_CHECK_N, 5),
+             (4, SCRYPT_CHECK_N, 1))
     for n_log2, stride, count in cases:
         what = f"N=2^{n_log2}, {count} lanes of a {stride}-lane V"
         nz = nonces[:count]
@@ -1496,7 +1570,7 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
         torch.cuda.empty_cache()
         ms_b = check_fold(s2, hw, nz, x, xp, what)
         digest, _ = KS.scrypt_back(hw, nz, x, [0] * 8)
-        for i in range(64 if n_log2 == SCRYPT_N_LOG2 and count == stride else 8):
+        for i in range(64 if n_log2 == SCRYPT_N_LOG2 and count == stride else min(8, count)):
             hdr = hdr76 + struct.pack("<I", int(nz[i]))
             want = hashlib.scrypt(hdr, salt=hdr, n=1 << n_log2, r=1, p=1, dklen=32)
             if tuple(digest[i].tolist()) != struct.unpack(">8I", want):
@@ -1514,12 +1588,13 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
         check_fold(s2, hw, nb[:count], xb[:count], xb[:count], f"{count} lanes of random X")
     del xb, nb
     say(f"  scrypt_front, romix_walk, scrypt_back: {b} nonces (the path's batch) and "
-        f"{b - SCRYPT_RAGGED} in a {b}-lane V at N = 1024, {SCRYPT_CHECK_N}, 1000 and "
-        f"{SCRYPT_CHECK_N - 3} in a {SCRYPT_CHECK_N}-lane V at N = 16, equal to plain (X, all "
-        "of V and no lane past the count, digests, the fold at three targets incl. the "
+        f"{b - SCRYPT_RAGGED} and {SCRYPT_HALF_BATCH - SCRYPT_RAGGED} in a {b}-lane V at N = "
+        f"1024, {SCRYPT_CHECK_N}, 1000, "
+        f"{SCRYPT_CHECK_N - 3}, 5 and 1 in a {SCRYPT_CHECK_N}-lane V at N = 16, equal to plain "
+        "(X, all of V and no lane past the count, digests, the fold at three targets incl. the "
         "batch's 5th-smallest hash) and "
         f"to the host's fold; scrypt_back's fold also on {big} and {big - SCRYPT_RAGGED} lanes "
-        "of random X; 96 digests equal to hashlib.scrypt")
+        "of random X; 110 digests equal to hashlib.scrypt")
 
     # probe 19, stage 1: its shapes and its V, a 4-step chain
     v = probe_v(SCRYPT_N * WALK_B, dev).view(SCRYPT_N, WALK_B, 32)
@@ -1534,15 +1609,20 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     del v
     torch.cuda.empty_cache()
 
-    # S1, 19 and S2 at the path's batch
-    v = KS.romix_scratch(SCRYPT_N_LOG2, b, dev)
-    nz = torch.tensor(rng.integers(0, 1 << 32, b, dtype=np.int64), device=dev)
-    ms1, x = event_ms(lambda: KS.scrypt_front(hw, nz, SCRYPT_N_LOG2, v), 3)
-    ms19, x = event_ms(lambda: KS.romix_walk(x, v, SCRYPT_N_LOG2, SCRYPT_N), 3)
-    ms2, _ = event_ms(lambda: KS.scrypt_back(hw, nz, x, [0] * 8), 5)
+    # S1, 19 and S2 at the path's batch, and at 2^15 beside it
+    batch_ms = {}
+    for count in sorted({b, SCRYPT_HALF_BATCH}):
+        v = KS.romix_scratch(SCRYPT_N_LOG2, count, dev)
+        nz = torch.tensor(rng.integers(0, 1 << 32, count, dtype=np.int64), device=dev)
+        ms1, x = event_ms(lambda: KS.scrypt_front(hw, nz, SCRYPT_N_LOG2, v), 3)
+        ms19, x = event_ms(lambda: KS.romix_walk(x, v, SCRYPT_N_LOG2, SCRYPT_N), 3)
+        ms2, _ = event_ms(lambda: KS.scrypt_back(hw, nz, x, [0] * 8), 5)
+        batch_ms[count] = {"front": ms1, "walk": ms19, "back": ms2}
+        say(f"  at a batch of {count}: S1 {ms1:.4f} ms, 19 {ms19:.4f}, S2 {ms2:.4f}")
+        del v, x
+        torch.cuda.empty_cache()
+    ms1, ms19, ms2 = (batch_ms[b][k] for k in ("front", "walk", "back"))
     walk_us["path_b"] = ms19 * 1e3 / SCRYPT_N
-    del v, x
-    torch.cuda.empty_cache()
     sha = sha_ops()
     row = SCRYPT_N * 128
     record(s1, b, b, ms1, plain["front"], b * (8 + row + 256),
@@ -1586,7 +1666,8 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     del vg
     torch.cuda.empty_cache()
     return {"kernel_mhs": kernel_mhs, "batch": b, "walk_us_per_step": walk_us,
-            "batch_ms": ms1 + ms19 + ms2, "occupancy": occ, "wave": wave}
+            "batch_ms": ms1 + ms19 + ms2, "kernel_ms_by_batch": batch_ms, "occupancy": occ,
+            "wave": wave}
 
 
 # ---- the layout probes (P1-P3: sites 8-10, 12-18 and 20-24) -------------------
@@ -2213,7 +2294,7 @@ def main() -> int:
     rows = []
     for name, st in stats.items():
         t = st.timing
-        path = ("fixed" if name in FIXED_PATH_KERNELS else
+        path = ("fixed" if name in FIXED_PATH_KERNELS + ("search_candidates",) else
                 "hashcore" if name == "splitmix_batch" else
                 "scrypt" if name in SCRYPT_PATH_KERNELS + ("row_gather",) or name in PROBE_SITES
                 else "rolled")

@@ -66,12 +66,14 @@ DEFAULT_SLAB = 1 << 27
 DEFAULT_DEPTH = 2
 
 #: nonces per SCRYPT batch, by device type. On the card V takes a batch ×
-#: 128 KiB at N = 1024 (4 GiB at 2^15); chip_smoke.py's sweep over 2^14 to
-#: 2^18, and its coordinator-size chunk (65,536 nonces) at 2^14 to 2^16,
-#: both measured the best rate at 2^15 on an H100: the chunk is then two
-#: batches, so the pipeline overlaps inside it. The CPU's plain versions hold V in int64 lanes, twice
-#: the bytes, and gain nothing from a wide batch.
-DEFAULT_SCRYPT_BATCH = {"cuda": 1 << 15, "cpu": 256}
+#: 128 KiB at N = 1024 (8 GiB at 2^16). chip_smoke.py's coordinator-size
+#: chunk (65,536 nonces, one batch at 2^16) at batches 2^14 to 2^16 read
+#: 2^16 fastest on an H100 in each of three runs, by more than 2^15's
+#: spread across them: the walk's occupancy lets a wider batch keep more
+#: rows in flight, which outweighs the overlap two batches a chunk gave.
+#: The CPU's plain versions hold V in int64 lanes, twice the bytes, and
+#: gain nothing from a wide batch.
+DEFAULT_SCRYPT_BATCH = {"cuda": 1 << 16, "cpu": 256}
 
 #: log2 of scrypt's N: Litecoin's N = 1024, the reference's ``n_log2``
 SCRYPT_N_LOG2 = 10

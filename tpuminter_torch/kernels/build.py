@@ -27,7 +27,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget",
+__all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget", "TmHeader",
            "TmScryptHeader"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -61,6 +61,13 @@ class TmTarget(ctypes.Structure):
     msb-first target words."""
 
     _fields_ = [("w", ctypes.c_uint32 * 8)]
+
+
+class TmHeader(ctypes.Structure):
+    """Mirror of ``struct TmHeader`` in ``csrc/sha256.cu``: an 80-byte
+    header's midstate and tail words t0..t2."""
+
+    _fields_ = [("mid", ctypes.c_uint32 * 8), ("t", ctypes.c_uint32 * 3)]
 
 
 class TmScryptHeader(ctypes.Structure):
@@ -146,6 +153,9 @@ def library(name: str) -> ctypes.CDLL:
         "sha256": {
             "tm_sha256_batch": [tmpl, ptr, ptr, ptr, i64, i32, ptr],
             "tm_search_candidates": [tmpl, u32, u32, u32, ptr, i32, i32, ptr],
+            "tm_search_candidates_header": [
+                ctypes.POINTER(TmHeader), u32, u32, u32, ptr, i32, i32, ptr,
+            ],
             "tm_search_target": [
                 tmpl, ctypes.POINTER(TmTarget), u32, u32, ptr, ptr, i32, i32, ptr,
             ],

@@ -1,11 +1,11 @@
 // Salsa20/8 and scryptBlockMix (r = 1), shared by scrypt.cu and probes.cu.
 // Two forms, both fully unrolled with constant indices, so the words stay
 // in registers:
-//   * one thread a block: all 32 words in one thread (block_mix; the walk
-//     and the layout probes' walk step);
-//   * four threads a block (block_mix_quad; the fill): each of the four
-//     threads of a hash holds one row of each 4 x 4 Salsa matrix, and the
-//     column rounds gather their columns with warp shuffles.
+//   * one thread a block: all 32 words in one thread (block_mix; the
+//     layout probes' walk step);
+//   * four threads a block (block_mix_quad; the fill and the walk): each of
+//     the four threads of a hash holds one row of each 4 x 4 Salsa matrix,
+//     and the column rounds gather their columns with warp shuffles.
 #pragma once
 
 #include <stdint.h>
@@ -150,6 +150,20 @@ __device__ __forceinline__ uint4 quad_row_words(const uint32_t (&r)[4], int t) {
   const uint32_t a0 = odd ? r[3] : r[0], a1 = odd ? r[0] : r[1];
   const uint32_t a2 = odd ? r[1] : r[2], a3 = odd ? r[2] : r[3];
   return (t & 2) ? make_uint4(a2, a3, a0, a1) : make_uint4(a0, a1, a2, a3);
+}
+
+// The inverse of quad_row_words: words 4t .. 4t + 3 of a block in memory
+// order (m.x is word 4t) into thread t's row, r[j] = word 4t + ((t + j) & 3),
+// a rotation by t in two select stages.
+__device__ __forceinline__ void quad_words_row(const uint4 m, int t, uint32_t (&r)[4]) {
+  const bool half = (t & 2) != 0;
+  const uint32_t a0 = half ? m.z : m.x, a1 = half ? m.w : m.y;
+  const uint32_t a2 = half ? m.x : m.z, a3 = half ? m.y : m.w;
+  const bool odd = (t & 1) != 0;
+  r[0] = odd ? a1 : a0;
+  r[1] = odd ? a2 : a1;
+  r[2] = odd ? a3 : a2;
+  r[3] = odd ? a0 : a3;
 }
 
 }  // namespace

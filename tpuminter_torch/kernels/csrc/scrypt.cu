@@ -26,23 +26,30 @@
 // states that tm_scrypt_back recomputes) are ~3% of the operations.
 //
 // The design:
-//   * the walk (and S2) run one thread per hash: X lives in 32 registers
-//     and Salsa20/8 works on 16 more, fully unrolled with constant
-//     indices, so nothing spills to local memory;
-//   * the fill (S1) runs four threads per hash (salsa.cuh's quad form):
-//     8 words of X a thread, the Salsa columns gathered by warp shuffles,
-//     at most 64 registers, so 2^15 hashes fill 31 warps an SM. One
-//     thread a hash stored a row as 8 x 16-byte stores whose warp
-//     instruction touched 32 rows 128 bytes apart (and, at 96 registers,
-//     ran 8 warps an SM at 2^15): 20% of the bytes bound. A quad's thread
-//     stores its two 16-byte quarters, so a warp's store instruction
-//     writes whole 32-byte sectors, 8 rows' halves in one 1 KiB span;
+//   * S2 runs one thread per hash, its SHA-256 fully unrolled with
+//     constant indices;
+//   * the fill (S1) and the walk (19) run four threads per hash
+//     (salsa.cuh's quad form): 8 words of X a thread, the Salsa columns
+//     gathered by warp shuffles, at most 64 registers, so 2^15 hashes
+//     (2^17 threads) fill 31 warps an SM. One thread a hash moved a row
+//     as 8 x 16-byte accesses whose warp instruction touched 32 rows 128
+//     bytes apart, half a sector each, and ran 8 warps an SM at 2^15. A
+//     quad's thread moves its two 16-byte quarters of the row (X words
+//     4t .. 4t + 3 and 16 + 4t ..), so a quad moves its row's 128
+//     contiguous bytes as four whole 32-byte sectors;
 //   * V is the reference's layout, (N, S, 32) u32 for a lane stride S:
 //     row j of lane b is 128 contiguous bytes at (j * S + b) * 128, so at
-//     a fill step a warp's rows are one contiguous span. The walk loads a
-//     row as 8 x 16-byte loads through the read-only path; its next row
-//     depends on the BlockMix just computed, so latency is hidden only by
-//     the other warps in flight (ROMix's sequential memory hardness);
+//     a fill step a warp's rows are one contiguous span. The walk's next
+//     row depends on the BlockMix just computed (ROMix's sequential
+//     memory hardness), so only the other warps in flight hide a row's
+//     latency: the walk's levers on this card are warps in flight, whole
+//     sectors and issue slots. Tensor cores, TMA and wgmma do not apply:
+//     the work is integer Salsa and a data-dependent 128-byte gather. At
+//     four threads a hash the walk issues about 1,200 warp-lane
+//     instructions a hash a step (S1's loop), which at ~0.7 warp
+//     instructions a clock a scheduler is ~1.7 ms of issue for 2^15
+//     hashes x 1024 steps, beside the 1.29 ms bytes bound: issue and
+//     memory are close, and either may bind;
 //   * sizes are run-time arguments (n_log2, the ragged count, the stride,
 //     the header words as a by-value struct, the target), so one build
 //     serves every job and every N;
@@ -73,9 +80,10 @@ struct TmTarget {
 namespace {
 
 constexpr int kThreads = 128;
-// resident blocks a SM the fill is built for: 8 x 128 threads at <= 64
-// registers, so the path's 2^15 hashes (2^17 threads) are one wave
-constexpr int kFrontBlocksPerSm = 8;
+// resident blocks a SM the fill and the walk are built for: 8 x 128
+// threads at <= 64 registers, so the path's 2^15 hashes (2^17 threads)
+// are one wave
+constexpr int kQuadBlocksPerSm = 8;
 constexpr uint32_t kNotFound = 0x7FFFFFFFu;  // first lane when nothing hit
 constexpr uint32_t kGatherStep = 977u;       // romix_pallas_probe's pass stride
 
@@ -197,7 +205,7 @@ __device__ __forceinline__ void hmac_finish(const uint32_t (&os)[8], const uint3
 // sectors, and together the eight rows' 1 KiB span. Lanes past the count
 // compute a copy of the last hash (every lane takes part in the shuffles)
 // and store nothing.
-__global__ void __launch_bounds__(kThreads, kFrontBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, kQuadBlocksPerSm)
 scrypt_front_kernel(const TmScryptHeader hd, const long long* __restrict__ nonces,
                     long long* __restrict__ xout, uint4* __restrict__ v, int count,
                     int stride, int n_log2) {
@@ -259,37 +267,67 @@ scrypt_front_kernel(const TmScryptHeader hd, const long long* __restrict__ nonce
   }
 }
 
-// ---- 19: the walk --------------------------------------------------------------
+// ---- 19: the walk, four threads a hash ------------------------------------
+//
+// Thread t of a hash's quad holds X in S1's row layout: b0 is B0's matrix
+// row t, b1 B1's. Integerify reads X word 16, which is b1[0] of the quad's
+// thread 0, broadcast by one shuffle. A step's row V[j, hash] is loaded as
+// this thread's two 16-byte quarters, words 4t .. 4t + 3 and 16 + 4t .., so
+// the quad reads the row's 128 bytes as four whole sectors, then rotated
+// into row layout (quad_words_row). A row is read once, so it is loaded
+// through the non-coherent path without allocating in L1. Lanes past the
+// count compute a copy of the last hash (every lane takes part in the
+// shuffles) and store nothing.
 
-__global__ void __launch_bounds__(kThreads)
+// A 16-byte load through the non-coherent path that does not allocate in L1.
+__device__ __forceinline__ uint4 load_row_quarter(const uint4* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads, kQuadBlocksPerSm)
 romix_walk_kernel(const long long* __restrict__ xin, long long* __restrict__ xout,
                   const uint4* __restrict__ v, int count, int stride, int n_log2,
                   int steps) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= count) return;
-  uint32_t x[32];
+  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = gid < 4LL * count;
+  const int hash = live ? (int)(gid >> 2) : count - 1;
+  const int t = threadIdx.x & 3;
+  const long long* in = xin + (size_t)hash * 32 + 4 * t;
+  uint32_t b0[4], b1[4];
 #pragma unroll
-  for (int k = 0; k < 32; ++k) x[k] = (uint32_t)xin[(size_t)lane * 32 + k];
-  const uint4* base = v + (size_t)lane * 8;
+  for (int j = 0; j < 4; ++j) {
+    b0[j] = (uint32_t)in[(t + j) & 3];
+    b1[j] = (uint32_t)in[16 + ((t + j) & 3)];
+  }
+  const uint4* base = v + (size_t)hash * 8 + t;
   const size_t step = (size_t)stride * 8;
   const uint32_t mask = (1u << n_log2) - 1u;
 #pragma unroll 1
   for (int s = 0; s < steps; ++s) {
-    const uint4* row = base + (size_t)(x[16] & mask) * step;  // Integerify: word 16
-    uint4 r[8];
+    const uint32_t j = __shfl_sync(0xFFFFFFFFu, b1[0], 0, 4) & mask;  // Integerify
+    const uint4* row = base + (size_t)j * step;
+    uint32_t r0[4], r1[4];
+    quad_words_row(load_row_quarter(row), t, r0);
+    quad_words_row(load_row_quarter(row + 4), t, r1);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) r[k] = __ldg(row + k);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      x[4 * k] ^= r[k].x;
-      x[4 * k + 1] ^= r[k].y;
-      x[4 * k + 2] ^= r[k].z;
-      x[4 * k + 3] ^= r[k].w;
+    for (int k = 0; k < 4; ++k) {
+      b0[k] ^= r0[k];
+      b1[k] ^= r1[k];
     }
-    block_mix(x);
+    block_mix_quad(b0, b1, t);
   }
+  if (live) {
+    long long* out = xout + (size_t)hash * 32 + 4 * t;
 #pragma unroll
-  for (int k = 0; k < 32; ++k) xout[(size_t)lane * 32 + k] = (long long)x[k];
+    for (int j = 0; j < 4; ++j) {
+      out[(t + j) & 3] = (long long)b0[j];
+      out[16 + ((t + j) & 3)] = (long long)b1[j];
+    }
+  }
 }
 
 // ---- S2: PBKDF2-out and the batch fold ---------------------------------------
@@ -473,7 +511,8 @@ int tm_scrypt_front(const TmScryptHeader* hd, const long long* nonces, long long
 int tm_romix_walk(const long long* xin, long long* xout, const void* v, int count,
                   int stride, int n_log2, int steps, int device, void* stream) {
   cudaSetDevice(device);
-  romix_walk_kernel<<<blocks_for(count), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((4LL * count + kThreads - 1) / kThreads);
+  romix_walk_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       xin, xout, (const uint4*)v, count, stride, n_log2, steps);
   return finish();
 }
@@ -501,7 +540,7 @@ int tm_row_gather(const void* v, long long rows, const long long* idx, long long
 
 // Resident blocks per SM of the fill (which = 0) or the walk (1) at
 // kThreads threads a block: with the SM count, the hashes in flight a wave
-// (a block holds kThreads / 4 hashes of the fill, kThreads of the walk).
+// (a block of either holds kThreads / 4 hashes).
 int tm_scrypt_occupancy(int which, int device, int* blocks_per_sm) {
   cudaSetDevice(device);
   const void* fn = which == 0 ? (const void*)scrypt_front_kernel : (const void*)romix_walk_kernel;

@@ -2,11 +2,13 @@
 // loaded through ctypes (tpuminter_torch/kernels/build.py).
 //
 // Six kernels, each replacing one Pallas kernel of
-// tpuminter/kernels/sha256.py, and the extranonce roll:
+// tpuminter/kernels/sha256.py (K3 in two arms), and the extranonce roll:
 //
 //   tm_sha256_batch                <- pallas_sha256_batch                (sha256.py:87)
 //   tm_search_target               <- pallas_search_target               (sha256.py:257)
-//   tm_search_candidates           <- pallas_search_candidates           (sha256.py:371)
+//   tm_search_candidates           <- pallas_search_candidates           (sha256.py:371),
+//                                     any double-SHA template
+//   tm_search_candidates_header    <- the same, for an 80-byte header's template
 //   tm_search_candidates_hdr       <- pallas_search_candidates_hdr       (sha256.py:489)
 //   tm_search_candidates_hdr_batch <- pallas_search_candidates_hdr_batch (sha256.py:606),
 //                                     both sched arms
@@ -34,12 +36,13 @@
 //   * K3-K5 run the second compression to round 60 (digest word 7) and
 //     round 61 (digest word 6) only where word 7 hits, and every search
 //     exits early through one device word (one per row for K5);
-//   * K4/K5 take the header from device memory (the roll's output) and
-//     keep its padding words as compile-time constants, so the compiler
-//     folds the schedule terms they feed; K5's sched arm also computes
-//     each row's nonce-free prefix (rounds 0-2, w16, w17, most of w18
-//     and w19, and round 3 but for its nonce word) once, outside the
-//     nonce loop;
+//   * K4/K5 take the header from device memory (the roll's output), K3's
+//     header arm takes it by value, and all three keep its padding words
+//     as compile-time constants, so the compiler folds the schedule terms
+//     they feed; K5's sched arm and K3's header arm also compute the
+//     header's nonce-free prefix (rounds 0-2, w16, w17, most of w18 and
+//     w19, and round 3 but for its nonce word) once a row or a thread,
+//     outside the nonce loop;
 //   * reductions are per-thread, then per-block in shared memory, then
 //     one small block over the per-block partials: no atomics on the
 //     min path, and results do not depend on scheduling order.
@@ -66,6 +69,13 @@ struct TmTemplate {
 
 struct TmTarget {
   uint32_t w[8];  // msb-first hash-value words
+};
+
+// An 80-byte header (ops/sha256.py header_words): the midstate of its
+// first 64 bytes and its tail words t0..t2 (Merkle word 7, time, bits).
+struct TmHeader {
+  uint32_t mid[8];
+  uint32_t t[3];
 };
 
 namespace {
@@ -282,7 +292,8 @@ __device__ __forceinline__ void header_first(const uint32_t (&mid)[8], uint32_t 
 // What no nonce changes (ops/sha256.py prepare_hdr): the state after
 // rounds 0-2, w16, w17, and w18 less sigma0(w3), w19 less w3; and round
 // 3 less its nonce word w3, which enters e and a as one add each. The
-// midstate is not kept: the feed-forward re-reads it (L1-cached), which
+// midstate is not kept: the feed-forward re-reads it (K5 from device
+// memory, L1-cached; K3's header arm from the parameter bank), which
 // leaves the nonce loop 8 more registers.
 struct HdrPrep {
   uint32_t v[8];
@@ -308,10 +319,10 @@ __device__ __forceinline__ void prepare_hdr(const uint32_t (&mid)[8], uint32_t t
 }
 
 // The sched body (ops/sha256.py hash_prepared_e60_e61): rounds 3-63 of
-// the first compression from a prepared row, round 3 as two adds, plus
-// the row's midstate mid8 (int64 words in device memory), left in x.
-__device__ __forceinline__ void prepared_first(const HdrPrep& p, const long long* mid8,
-                                               uint32_t nonce, uint32_t (&x)[8]) {
+// the first compression from a prepared header, round 3 as two adds, left
+// in x; the caller adds the midstate (the feed-forward).
+__device__ __forceinline__ void prepared_rounds(const HdrPrep& p, uint32_t nonce,
+                                                uint32_t (&x)[8]) {
   uint32_t w[64];
   w[0] = w[1] = w[2] = 0;  // dead past round 2
   w[3] = bswap32(nonce);
@@ -329,8 +340,6 @@ __device__ __forceinline__ void prepared_first(const HdrPrep& p, const long long
   x[4] = add_f(p.e4, w[3]); x[5] = p.v[4]; x[6] = p.v[5]; x[7] = p.v[6];
 #pragma unroll
   for (int i = 4; i < 64; ++i) round_step(x, kK[i], w[i]);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = add_f(x[i], (uint32_t)__ldg(mid8 + i));
 }
 
 // Lexicographic a < b over K u32 keys.
@@ -429,6 +438,38 @@ search_candidates_kernel(const TmTemplate t, uint32_t base, uint32_t n,
   }
 }
 
+// ---- K3, header arm: K3 on an 80-byte header's template ------------------
+//
+// The template of every fixed-header job (ops/sha256.py header_template)
+// is one tail block, the little-endian nonce in word 3, and the FIPS
+// padding. This arm takes the header by value (midstate and t0..t2, in
+// the parameter bank), so the padding folds into the schedule, and each
+// thread prepares the header's nonce-free prefix once, before its nonce
+// loop (K5's sched body). Same ascending warps and early exit as K3.
+__global__ void __launch_bounds__(kThreads)
+search_candidates_header_kernel(const TmHeader hd, uint32_t base, uint32_t n,
+                                uint32_t hw1_cap, unsigned long long* h) {
+  HdrPrep prep;
+  prepare_hdr(hd.mid, hd.t[0], hd.t[1], hd.t[2], prep);
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t w0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31u); w0 < n;
+       w0 += stride) {
+    if (w0 > *(volatile unsigned long long*)&h[1]) break;
+    const uint32_t off = w0 + lane;
+    if (off < n) {
+      uint32_t x[8];
+      prepared_rounds(prep, base + off, x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = add_f(x[i], hd.mid[i]);
+      if (second_hit(x, hw1_cap)) {
+        atomicMin(&h[1], (unsigned long long)off);
+        h[0] = 1;
+      }
+    }
+  }
+}
+
 // ---- K4: K3's test under a header read from device memory -------------
 //
 // The roll writes the header's midstate and tail words to device memory;
@@ -499,7 +540,9 @@ search_candidates_hdr_batch_kernel(const long long* mids, const long long* tails
     if (off < limit && off <= *(volatile unsigned long long*)&hr[1]) {
       uint32_t x[8];
       if (kSched) {
-        prepared_first(prep, mids + row * 8, base + off, x);
+        prepared_rounds(prep, base + off, x);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = add_f(x[i], (uint32_t)__ldg(mids + row * 8 + i));
       } else {
         header_first(mid, t0, t1, t2, base + off, x);
       }
@@ -691,6 +734,7 @@ int finish() { return (int)cudaGetLastError(); }
 }  // namespace
 
 static_assert(sizeof(TmTemplate) == 67 * 4, "TmTemplate layout is mirrored in build.py");
+static_assert(sizeof(TmHeader) == 11 * 4, "TmHeader layout is mirrored in build.py");
 
 extern "C" {
 
@@ -711,6 +755,17 @@ int tm_search_candidates(const TmTemplate* t, uint32_t base, uint32_t n,
   fill_kernel<<<1, 32, 0, s>>>(handle, 0, kNotFound, 2);
   search_candidates_kernel<<<grid, kThreads, 0, s>>>(
       *t, base, n, hw1_cap, (unsigned long long*)handle);
+  return finish();
+}
+
+int tm_search_candidates_header(const TmHeader* hd, uint32_t base, uint32_t n,
+                                uint32_t hw1_cap, long long* handle, int grid, int device,
+                                void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = (cudaStream_t)stream;
+  fill_kernel<<<1, 32, 0, s>>>(handle, 0, kNotFound, 2);
+  search_candidates_header_kernel<<<grid, kThreads, 0, s>>>(
+      *hd, base, n, hw1_cap, (unsigned long long*)handle);
   return finish();
 }
 

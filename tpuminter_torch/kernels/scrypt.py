@@ -34,7 +34,7 @@ from tpuminter_torch.ops import scrypt as ops
 __all__ = [
     "romix_scratch", "scrypt_front", "romix_walk", "scrypt_back", "row_gather",
     "scrypt_front_plain", "romix_walk_plain", "scrypt_back_plain", "row_gather_plain",
-    "occupancy", "KERNELS", "THREADS", "FRONT_THREADS_PER_HASH",
+    "occupancy", "KERNELS", "THREADS", "FRONT_THREADS_PER_HASH", "WALK_THREADS_PER_HASH",
 ]
 
 _I64, _I32 = torch.int64, torch.int32
@@ -42,8 +42,9 @@ _I64, _I32 = torch.int64, torch.int32
 MAX_LANES = 1 << 30
 #: threads per block of every scrypt kernel (``kThreads`` in the source)
 THREADS = 128
-#: threads a hash of the fill (S1); the walk and S2 run one a hash
+#: threads a hash of the fill (S1) and of the walk (19); S2 runs one a hash
 FRONT_THREADS_PER_HASH = 4
+WALK_THREADS_PER_HASH = 4
 
 
 def _launch(name: str, *args) -> None:
@@ -216,8 +217,9 @@ def row_gather(v: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tensor:
 
 def occupancy(device) -> dict:
     """Resident blocks of :data:`THREADS` threads per SM of the fill and
-    the walk kernels (each lane is one hash): the hashes in flight a
-    wave are ``blocks × THREADS × SMs``."""
+    the walk kernels: the hashes in flight a wave are ``blocks × THREADS
+    × SMs`` over :data:`FRONT_THREADS_PER_HASH` or
+    :data:`WALK_THREADS_PER_HASH`."""
     device = _cuda_device(device)
     out = {}
     for which, name in ((0, "scrypt_front"), (1, "romix_walk")):

@@ -14,7 +14,8 @@ CPU backend has no uint32 arithmetic). A search returns a small
 ``int64`` tensor, its *handle*, that the kernel writes; nothing waits
 for the device until the caller reads it:
 
-- :func:`search_candidates`: ``[found, first_off]``
+- :func:`search_candidates` and its header arm
+  :func:`search_candidates_header`: ``[found, first_off]``
 - :func:`search_target`: ``[found, first_off, min_words[8], min_off]``
   (the min fields cover the whole range only when ``found == 0``)
 - :func:`min_toy`: ``[fold_hi, fold_lo, argmin_off]``
@@ -47,11 +48,11 @@ from tpuminter_torch.ops import merkle
 from tpuminter_torch.ops import sha256 as ops
 
 __all__ = [
-    "sha256_batch", "search_target", "search_candidates", "min_toy",
-    "search_candidates_hdr", "search_candidates_hdr_batch",
+    "sha256_batch", "search_target", "search_candidates", "search_candidates_header",
+    "min_toy", "search_candidates_hdr", "search_candidates_hdr_batch",
     "search_candidates_hdr_batch_sched", "extranonce_roll",
     "sha256_batch_plain", "search_target_plain", "search_candidates_plain",
-    "min_toy_plain", "search_candidates_hdr_plain",
+    "search_candidates_header_plain", "min_toy_plain", "search_candidates_hdr_plain",
     "search_candidates_hdr_batch_plain", "extranonce_roll_plain",
     "KERNELS", "NOT_FOUND",
 ]
@@ -225,11 +226,19 @@ def search_candidates(template: ops.NonceTemplate, base: int, n: int,
     """First offset in ``[0, n)`` whose nonce ``base + off`` (mod 2^32)
     is a *candidate*: double-SHA digest word 7 is zero (the hash's top 32
     bits) and the hash's word 1 is ``<= hw1_cap``. Offsets past the first
-    candidate may be left unsearched. Handle ``[found, first_off]``."""
+    candidate may be left unsearched. Handle ``[found, first_off]``.
+
+    A template of :func:`ops.header_template`'s shape
+    (:func:`ops.header_words`) runs the header arm,
+    :func:`search_candidates_header`; any other double-SHA template runs
+    the generic kernel, counted here."""
     _check_n(n)
     _check_u32(base=base, hw1_cap=hw1_cap)
     if not template.double:
         raise ValueError("the candidate test needs a double-SHA template")
+    words = ops.header_words(template)
+    if words is not None:
+        return search_candidates_header(words, base, n, hw1_cap, device=device)
     if torch.device(device).type == "cpu":
         return search_candidates_plain(template, base, n, hw1_cap)
     device = _cuda_device(device)
@@ -240,6 +249,50 @@ def search_candidates(template: ops.NonceTemplate, base: int, n: int,
         device.index, _stream(device),
     )
     search_candidates.launches += 1
+    return handle
+
+
+@functools.lru_cache(maxsize=64)
+def _header_struct(words) -> build.TmHeader:
+    mid, t0, t1, t2 = words
+    hd = build.TmHeader()
+    hd.mid[:] = list(mid)
+    hd.t[:] = [t0, t1, t2]
+    return hd
+
+
+def search_candidates_header_plain(words, base: int, n: int, hw1_cap: int,
+                                   device="cpu") -> torch.Tensor:
+    """Plain version of the header arm: the shared-schedule formula
+    (:func:`ops.prepare_hdr`, :func:`ops.hash_prepared_e60_e61`)."""
+    mid, t0, t1, t2 = words
+    found = _first_hdr_candidate(list(mid), [t0, t1, t2], base, n, hw1_cap, device,
+                                 sched=True)
+    return torch.tensor(found, dtype=_I64, device=device)
+
+
+def search_candidates_header(words, base: int, n: int, hw1_cap: int = 0xFFFFFFFF, *,
+                             device) -> torch.Tensor:
+    """:func:`search_candidates` for an 80-byte header given by
+    :func:`ops.header_words` ``(midstate8, t0, t1, t2)``, passed to the
+    kernel by value; each thread prepares the header's nonce-free prefix
+    once (K5's sched body). Same handle, bit for bit."""
+    _check_n(n)
+    _check_u32(base=base, hw1_cap=hw1_cap)
+    if len(words) != 4 or len(words[0]) != 8:
+        raise ValueError("words must be (midstate8, t0, t1, t2)")
+    mid, *tail = words
+    _check_u32(**{f"mid{i}": w for i, w in enumerate(mid)},
+               **{f"t{i}": w for i, w in enumerate(tail)})
+    if torch.device(device).type == "cpu":
+        return search_candidates_header_plain(words, base, n, hw1_cap)
+    device = _cuda_device(device)
+    handle = torch.empty(2, dtype=_I64, device=device)
+    _launch(
+        "tm_search_candidates_header", ctypes.byref(_header_struct(tuple(words))), base, n,
+        hw1_cap, handle.data_ptr(), _grid(n, device.index), device.index, _stream(device),
+    )
+    search_candidates_header.launches += 1
     return handle
 
 
@@ -499,10 +552,11 @@ def extranonce_roll(job: merkle.RollJob, en_hi: torch.Tensor, en_lo: torch.Tenso
     return mids, tails
 
 
-#: every kernel wrapper, in table order (K1, K2, K3, K4, K5 both arms,
-#: K6, then the roll)
+#: every kernel wrapper, in table order (K1, K2, K3 both arms, K4, K5
+#: both arms, K6, then the roll)
 KERNELS = (
-    sha256_batch, search_target, search_candidates, search_candidates_hdr,
+    sha256_batch, search_target, search_candidates, search_candidates_header,
+    search_candidates_hdr,
     search_candidates_hdr_batch, search_candidates_hdr_batch_sched, min_toy,
     extranonce_roll,
 )

@@ -54,6 +54,8 @@ __all__ = [
     "byteswap32",
     "hash_words_be",
     "HEADER_TAIL_PAD",
+    "HEADER_NONCE_POSITIONS",
+    "header_words",
     "header_digest_dyn",
     "header_e60_e61_dyn",
     "prepare_hdr",
@@ -292,6 +294,25 @@ def hash_words_be(digest: Sequence[Lane]) -> List[Lane]:
 #: schedule words 4..15 of an 80-byte header's tail block: the FIPS
 #: padding of an 80-byte message (0x80, then the 640-bit length)
 HEADER_TAIL_PAD: Tuple[int, ...] = (0x80000000, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 640)
+
+#: the nonce's byte positions in an 80-byte header's tail block, as
+#: :func:`header_template` plans them: the little-endian nonce in word 3
+HEADER_NONCE_POSITIONS: Tuple[Tuple[int, int, int, int], ...] = (
+    (0, 3, 24, 0), (0, 3, 16, 8), (0, 3, 8, 16), (0, 3, 0, 24),
+)
+
+
+def header_words(template: NonceTemplate):
+    """``(midstate8, t0, t1, t2)`` when ``template`` has exactly the shape
+    :func:`header_template` gives it: double SHA, one tail block, the
+    nonce little-endian in tail word 3 (zeroed), tail words 4-15 the FIPS
+    padding of an 80-byte message. ``None`` for any other template."""
+    tail = template.tail[0] if len(template.tail) == 1 else ()
+    if (not template.double or len(tail) != 16 or tail[3] != 0
+            or tuple(tail[4:]) != HEADER_TAIL_PAD
+            or tuple(template.positions) != HEADER_NONCE_POSITIONS):
+        return None
+    return tuple(template.midstate), tail[0], tail[1], tail[2]
 
 
 def _header_block(tailw3: Sequence[Lane], nonces: Lane) -> List[Lane]:
