@@ -12,17 +12,25 @@ caught), and without a CUDA device the script exits non-zero at once:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: one nvcc per source under ``tpuminter_torch/kernels/csrc/``
    (``sha256.cu``, ``splitmix.cu``, ``scrypt.cu``, ``probes.cu``), all
-   started together; each kernel's SASS by opcode, and K1-K6's (K3 in
-   both arms), S1's and 19's instructions a nonce or a hash on each issue
-   pipe (ALU, FMA);
+   started together; each kernel's SASS by opcode, and K1-K6's (K2, K3
+   and K6 in both arms), S1's and 19's instructions a nonce or a hash on
+   each issue pipe (ALU, FMA);
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs on the card (exact integer equality) and against hashlib (K3's
-   header arm on header templates, its generic kernel on the same and on
-   a two-tail-block double-SHA template), the rolled search kernels also
+   inputs on the card (exact integer equality) and against hashlib or
+   ``toy_hash`` (the header arms of K2 and K3 on header templates and
+   K6's toy arm on toy templates of 13, 52, 58 and 60 bytes and the
+   main path's 26-byte MIN message, across a low-word wrap too, each
+   beside its generic kernel on the same template in a form the arm
+   does not take, and at every ``len(data) % 64`` (every instantiation
+   and byte shift of the arm); K2's header arm also at
+   an exhausted window's minimum as the target and one below it; K3's
+   generic kernel also on a two-tail-block double-SHA template), the
+   rolled search kernels also
    at the main path's shape (width 2^27, 10 rows, the job's real cap, a
    planted genesis winner, ragged and padding rows), then each timed at
    the main path's shapes (2^27 nonces a launch, 8 rows of 2^27 for the
-   batched rolled kernel) beside its plain version and its bound
+   batched rolled kernel; K6's arm and generic kernel on the 60-byte
+   template too) beside its plain version and its bound
    (``op_count``: the instructions the function needs on the timed
    inputs); K7 (splitmix64) on 2^24 random indices under random seeds
    and on the edge words, against numpy u64 lanes too, and timed at the
@@ -45,15 +53,18 @@ caught), and without a CUDA device the script exits non-zero at once:
    times them beside the fused walk; none of them is on the main path;
 4. main path, in four parts, each with every launch count set to 0 just
    before it and read just after: (a) fixed headers: ``CudaMiner()``
-   with its defaults mines the genesis header over a 2^30-nonce window,
-   a regtest-difficulty window and an exhausted exact-min window, and a
-   2^30-nonce MIN chunk; (b) rolled jobs: the genesis block as a rolled
+   with its defaults mines the genesis header over a 2^30-nonce window
+   (K3's header arm), a regtest-difficulty window and an exhausted
+   exact-min window (K2's header arm), and a 2^30-nonce MIN chunk (K6's
+   toy arm), after K1's self-check; the generic K2, K3 and K6 must not
+   launch there; (b) rolled jobs: the genesis block as a rolled
    job over a 2^30-index window, a mainnet-shaped block template (250-byte
    coinbase, 12-deep Merkle branch) at difficulty 1 over four whole
    extranonces, three times (batched with and without the shared
    schedule, and one segment at a time), and a rolled regtest job on
-   the tracking path. Every result is checked with hashlib, and every
-   kernel of each part must have been launched in it; (c) hashcore
+   the tracking path (K2's header arm). Every result is checked with
+   hashlib, and every kernel of each part must have been launched in
+   it; (c) hashcore
    workload chunks: ``workloads.compute`` on the card for fmin, top-k
    (k = 8), first-match (a planted first hit 2^31 in) and sum over 2^32
    indices that cross a 2^32 boundary, each equal to the same path on
@@ -122,6 +133,8 @@ GENESIS_COINBASE_HEX = (
 )
 GENESIS_ROLLED = (4 << 32) | GENESIS_NONCE
 CHECK_N = 1 << 20  # nonces per kernel-vs-plain check window
+OFFSET_N = 1 << 16  # nonces per window of K6's sweep over every nonce offset
+MIN_DATA = b"tpuminter_torch chip smoke"  # the main path's MIN message
 ROWS = 8  # rows of the batched rolled kernel at the main path's shape
 #: nonces per full row of the plan that holds the batched rolled kernel
 #: against its plain version (K4's plain version sweeps ROWS rows' worth)
@@ -319,12 +332,12 @@ def op_count(name: str, template=None, base_hi: int = 0):
         if template.double:
             state = _compress(_h0(), _second_block(state))
         return _count(state)[0] + LOOP_OPS, 0
-    if name == "min_toy":  # the fold's high word (digest word 0) against the min
+    if name in ("min_toy", "min_toy_toy"):  # the fold's high word (digest word 0) against the min
         return _count([state[0]])[0] + 2 + LOOP_OPS, 0
     e60 = _rounds(_h0(), _second_block(state), 61)[1][60]
     if name in ("search_candidates", "search_candidates_header"):  # e60 == CAND
         return _count([e60])[0] + 1 + LOOP_OPS, 0
-    if name == "search_target":
+    if name in ("search_target", "search_target_header"):
         # hash word 0 = bswap(H7 + e60) against the target's and the min's
         # word 0 (< and == each)
         return _count([_bswap(_add(_h0()[7], e60))])[0] + 4 + LOOP_OPS, 0
@@ -423,7 +436,11 @@ def phase_kernels(dev, rng):
 
     stats = {
         "sha256_batch": KernelStats("sha256_batch", "tpuminter/kernels/sha256.py:87"),
-        "search_target": KernelStats("search_target", "tpuminter/kernels/sha256.py:257"),
+        "search_target": KernelStats(
+            "search_target", "tpuminter/kernels/sha256.py:257 (any other template)"),
+        "search_target_header": KernelStats(
+            "search_target_header", "tpuminter/kernels/sha256.py:257 (an 80-byte header's "
+            "template)"),
         "search_candidates": KernelStats(
             "search_candidates", "tpuminter/kernels/sha256.py:371 (any double-SHA template)"),
         "search_candidates_header": KernelStats(
@@ -435,7 +452,9 @@ def phase_kernels(dev, rng):
             "search_candidates_hdr_batch", "tpuminter/kernels/sha256.py:606 (sched=False)"),
         "search_candidates_hdr_batch_sched": KernelStats(
             "search_candidates_hdr_batch_sched", "tpuminter/kernels/sha256.py:606 (sched=True)"),
-        "min_toy": KernelStats("min_toy", "tpuminter/kernels/sha256.py:733"),
+        "min_toy": KernelStats("min_toy", "tpuminter/kernels/sha256.py:733 (any other template)"),
+        "min_toy_toy": KernelStats(
+            "min_toy_toy", "tpuminter/kernels/sha256.py:733 (a toy template)"),
         "extranonce_roll": KernelStats(
             "extranonce_roll", "tpuminter/ops/merkle.py:84 (jnp program, no pallas_call)"),
         "splitmix_batch": KernelStats(
@@ -461,8 +480,9 @@ def phase_kernels(dev, rng):
     tw = [int(w) for w in ops.target_to_words(target)]
     data60 = rng.integers(0, 256, 60, dtype=np.uint8).tobytes()
     toy60 = ops.toy_template(data60)
-    short = b"hello bitcoin"
+    short = TOY_SHORT
     toy_short = ops.toy_template(short)
+    rng2 = np.random.default_rng(SEED + 5)  # the arms' extra inputs; rng's draws stay as they were
 
     # K1: 2^16 seeded nonces through a header and a two-block toy template
     st = stats["sha256_batch"]
@@ -534,39 +554,109 @@ def phase_kernels(dev, rng):
     say(f"  search_candidates, generic arm: a 100-byte double-SHA template (two tail blocks), "
         f"its first candidate {found} (hashlib-checked) and 4 windows equal to plain")
 
-    # K2: regtest target (early hit) and an exhausted window's exact min
-    st = stats["search_target"]
+    # K2, both arms: a regtest target (an early hit, compared up to it),
+    # target 0 (nothing hits: the minimum covers the window) and an
+    # exhausted window's exact min. A header template takes the header
+    # arm, and its generic_form the generic kernel.
+    st, sth = stats["search_target"], stats["search_target_header"]
     regtest = chain.BlockHeader.unpack(genesis.pack()[:72] + struct.pack("<I", REGTEST_BITS) + b"\0" * 4)
     rt = ops.header_template(regtest.pack())
     rtw = [int(w) for w in ops.target_to_words(chain.bits_to_target(REGTEST_BITS))]
-    got = K.search_target(rt, rtw, 0, CHECK_N, device=dev)
-    st.agree(got[:2], K.search_target_plain(rt, rtw, 0, CHECK_N, device=dev)[:2], "regtest")
-    if int(got[0]) != 1:
-        fail("search_target found no regtest winner")
-    base = GENESIS_NONCE - CHECK_N - 10
-    got = K.search_target(hdr, tw, base, CHECK_N, device=dev)
-    st.agree(got, K.search_target_plain(hdr, tw, base, CHECK_N, device=dev), "exhausted window")
+    exhausted = GENESIS_NONCE - CHECK_N - 10
+    for tmpl, words, base, what in ((rt, rtw, 0, "regtest"),
+                                    (hdr, [0] * 8, int(rng2.integers(0, 1 << 32)), "target 0"),
+                                    (hdr, tw, exhausted, "exhausted window")):
+        want = K.search_target_plain(tmpl, words, base, CHECK_N, device=dev)
+        cut = 2 if int(want[0]) else 11  # a hit's min covers only what was swept
+        before = K.search_target_header.launches
+        got = K.search_target(tmpl, words, base, CHECK_N, device=dev)
+        if K.search_target_header.launches != before + 1:
+            fail("a header template did not take K2's header arm")
+        sth.agree(got[:cut], want[:cut], what)
+        sth.agree(got[:cut], K.search_target_header_plain(
+            ops.header_words(tmpl), words, base, CHECK_N, device=dev)[:cut],
+            f"{what}, the header arm's plain version")
+        before = K.search_target.launches
+        st.agree(K.search_target(generic_form(tmpl), words, base, CHECK_N, device=dev)[:cut],
+                 want[:cut], what)
+        if K.search_target.launches != before + 1:
+            fail("a generic form did not take K2's generic kernel")
+        if what == "regtest" and int(got[0]) != 1:
+            fail("search_target found no regtest winner")
     row = got.cpu().tolist()
     value = int.from_bytes(b"".join(struct.pack(">I", w) for w in row[2:10]), "big")
-    nonce = base + row[10]
+    nonce = exhausted + row[10]
     if row[0] != 0 or value != chain.hash_to_int(genesis.with_nonce(nonce).block_hash()):
         fail("search_target exhausted-window minimum disagrees with hashlib")
-    say("  search_target: regtest hit and exhausted 2^20 window equal to plain; min equal to hashlib")
+    # the header arm at a target whose word 0 ties the minimum's: equal to
+    # it (the minimum is the first hit) and one below (nothing hits)
+    for delta, expect in ((0, [1, row[10]]), (-1, [0, K.NOT_FOUND])):
+        words = [int(w) for w in ops.target_to_words(value + delta)]
+        got = K.search_target(hdr, words, exhausted, CHECK_N, device=dev)
+        cut = 2 if delta == 0 else 11
+        sth.agree(got[:cut], K.search_target_plain(hdr, words, exhausted, CHECK_N,
+                                                   device=dev)[:cut],
+                  f"the exhausted window's minimum {delta:+d} as the target")
+        if got[:2].cpu().tolist() != expect:
+            fail(f"search_target at the window's minimum {delta:+d}: {got[:2].tolist()}")
+    say("  search_target, both arms: regtest hit, target 0 and exhausted 2^20 windows equal to "
+        "plain; min equal to hashlib; the header arm at the min as the target and one below")
 
-    # K6: short and block-straddling messages, and a base_lo wrap
-    st = stats["min_toy"]
-    for tmpl, data, base in (
-        (toy_short, short, 0),
-        (toy60, data60, int(rng.integers(0, 1 << 62))),
-        (toy_short, short, (7 << 32) | ((1 << 32) - (1 << 19))),
-    ):
-        got = K.min_toy(tmpl, base >> 32, base & 0xFFFFFFFF, CHECK_N, device=dev)
-        st.agree(got, K.min_toy_plain(tmpl, base >> 32, base & 0xFFFFFFFF, CHECK_N, device=dev),
-                 f"base {base}")
+    # K6, both arms: short and block-straddling messages, a base_lo wrap,
+    # padding spilling into a second block (52 bytes) and a low word
+    # straddling the blocks (58), and the main path's MIN message. A toy
+    # template takes the toy arm, and its generic_form the generic kernel.
+    st, stt = stats["min_toy"], stats["min_toy_toy"]
+    data52, data58 = rng2.bytes(52), rng2.bytes(58)
+    cases = (
+        (short, 0),
+        (data60, int(rng.integers(0, 1 << 62))),
+        (short, (7 << 32) | ((1 << 32) - (1 << 19))),
+        (data52, int(rng2.integers(0, 1 << 62))),
+        (data58, int(rng2.integers(0, 1 << 62))),
+        (MIN_DATA, 0),
+    )
+    for data, base in cases:
+        tmpl = ops.toy_template(data)
+        hi, lo = base >> 32, base & M32
+        want = K.min_toy_plain(tmpl, hi, lo, CHECK_N, device=dev)
+        before = K.min_toy_toy.launches
+        got = K.min_toy(tmpl, hi, lo, CHECK_N, device=dev)
+        if K.min_toy_toy.launches != before + 1:
+            fail("a toy template did not take K6's toy arm")
+        what = f"{len(data)} bytes, base {base}"
+        stt.agree(got, want, what)
+        stt.agree(got, K.min_toy_toy_plain(ops.toy_words(tmpl), hi, lo, CHECK_N, device=dev),
+                  f"{what}, the toy arm's plain version")
+        before = K.min_toy.launches
+        st.agree(K.min_toy(generic_form(tmpl), hi, lo, CHECK_N, device=dev), want, what)
+        if K.min_toy.launches != before + 1:
+            fail("a generic form did not take K6's generic kernel")
         fh, fl, off = got.cpu().tolist()
         if (fh << 32) | fl != chain.toy_hash(data, base + off):
-            fail(f"min_toy base {base}: fold disagrees with toy_hash")
-    say("  min_toy: 3 windows of 2^20 equal to plain (incl. a base_lo wrap); folds equal to toy_hash")
+            fail(f"min_toy {what}: fold disagrees with toy_hash")
+    # every nonce offset len(data) % 64, so every instantiation of the toy
+    # arm and every byte shift of its low word: o and 64 + o bytes, the
+    # latter across a base_lo wrap
+    for o in range(64):
+        for data, base in ((rng2.bytes(o), int(rng2.integers(0, 1 << 62))),
+                           (rng2.bytes(64 + o),
+                            (int(rng2.integers(0, M32)) << 32) | ((1 << 32) - OFFSET_N // 2))):
+            hi, lo = base >> 32, base & M32
+            before = K.min_toy_toy.launches
+            got = K.min_toy(ops.toy_template(data), hi, lo, OFFSET_N, device=dev)
+            if K.min_toy_toy.launches != before + 1:
+                fail("a toy template did not take K6's toy arm")
+            what = f"{len(data)} bytes, base {base}"
+            stt.agree(got, K.min_toy_plain(ops.toy_template(data), hi, lo, OFFSET_N,
+                                           device=dev), what)
+            fh, fl, off = got.cpu().tolist()
+            if (fh << 32) | fl != chain.toy_hash(data, base + off):
+                fail(f"min_toy {what}: fold disagrees with toy_hash")
+    say(f"  min_toy, both arms: {len(cases)} windows of 2^20 (13, 60, 52, 58 and the main "
+        f"path's {len(MIN_DATA)} bytes, a base_lo wrap) equal to plain; the toy arm at every "
+        f"len(data) % 64 (o and 64 + o bytes, the latter across a wrap; 2^16 nonces) equal "
+        "to plain; folds equal to toy_hash")
 
     rolled = rolled_kernel_checks(dev, rng, stats, tw[1])
     torch.cuda.empty_cache()  # the timings below start from a clean allocator
@@ -581,8 +671,12 @@ def phase_kernels(dev, rng):
             hdr, lambda: K.sha256_batch(hdr, big_hi, big_lo),
             lambda: K.sha256_batch_plain(hdr, big_hi, big_lo), 80 * n),
         "search_target": (
-            hdr, lambda: K.search_target(hdr, [0] * 8, base, n, device=dev),
+            hdr, lambda: K.search_target(generic_form(hdr), [0] * 8, base, n, device=dev),
             lambda: K.search_target_plain(hdr, [0] * 8, base, n, device=dev), 88),
+        "search_target_header": (
+            hdr, lambda: K.search_target(hdr, [0] * 8, base, n, device=dev),
+            lambda: K.search_target_header_plain(ops.header_words(hdr), [0] * 8, base, n,
+                                                 device=dev), 88),
         "search_candidates": (
             hdr, lambda: K.search_candidates(generic_form(hdr), base, n, 0, device=dev),
             lambda: K.search_candidates_plain(hdr, base, n, 0, device=dev), 16),
@@ -591,8 +685,11 @@ def phase_kernels(dev, rng):
             lambda: K.search_candidates_header_plain(ops.header_words(hdr), base, n, 0,
                                                      device=dev), 16),
         "min_toy": (
-            toy_short, lambda: K.min_toy(toy_short, 0, base, n, device=dev),
+            toy_short, lambda: K.min_toy(generic_form(toy_short), 0, base, n, device=dev),
             lambda: K.min_toy_plain(toy_short, 0, base, n, device=dev), 24),
+        "min_toy_toy": (
+            toy_short, lambda: K.min_toy(toy_short, 0, base, n, device=dev),
+            lambda: K.min_toy_toy_plain(ops.toy_words(toy_short), 0, base, n, device=dev), 24),
     }
     sms, clock_mhz, int_rate = issue_rate(dev)
     say(f"  bound: {sms} SMs x {ISSUE_LANES_PER_SM} integer lanes x {clock_mhz} MHz = "
@@ -604,6 +701,17 @@ def phase_kernels(dev, rng):
         per_nonce, per_row = op_count(name, tmpl)
         record(stats[name], n, n, ms, plain_ms, nbytes, per_nonce, per_nonce * n + per_row,
                int_rate)
+    # both K6 kernels on the 60-byte template, whose nonce straddles two
+    # tail blocks (the toy arm folds the first on the host)
+    per_nonce, _ = op_count("min_toy", toy60)
+    for name, tmpl in (("min_toy", generic_form(toy60)), ("min_toy_toy", toy60)):
+        ms, got = event_ms(lambda: K.min_toy(tmpl, 0, base, n, device=dev), 5)
+        t = stats[name].timing
+        t["toy60_ms"], t["toy60_bound_ms"] = ms, per_nonce * n / int_rate * 1e3
+        say(f"  {name} on the 60-byte template: {ms:.4f} ms/launch at n={n} "
+            f"({n / ms / 1e6:.3f} GH/s), bound {t['toy60_bound_ms']:.4f} ms")
+    stats["min_toy"].agree(K.min_toy(generic_form(toy60), 0, base, n, device=dev), got,
+                           f"the 60-byte template, slab of {n}, against the toy arm")
     del big_hi, big_lo
     torch.cuda.empty_cache()
     time_rolled_kernels(dev, rng, stats, rolled, int_rate, tw[1])
@@ -879,8 +987,9 @@ def phase_main_path(card: str):
         fail("genesis window: no winner found")
     note = "" if res.nonce == GENESIS_NONCE else f" (an earlier winner than {GENESIS_NONCE}, hashlib-checked)"
     digest = res.hash_value.to_bytes(32, "little")
+    rates = {"fast": res.searched / dt / 1e9}
     say(f"  genesis: nonce {res.nonce} hash {chain.hash_to_hex(digest)}{note}; "
-        f"{res.searched} nonces in {dt:.3f} s = {res.searched / dt / 1e9:.3f} GH/s on {card}")
+        f"{res.searched} nonces in {dt:.3f} s = {rates['fast']:.3f} GH/s on {card}")
     if res.nonce == GENESIS_NONCE and chain.hash_to_hex(digest) != chain.GENESIS_HASH_HEX:
         fail("genesis hash differs from the genesis block hash")
     # regtest difficulty takes the tracking kernel
@@ -901,31 +1010,37 @@ def phase_main_path(card: str):
     check_target_result(res, genesis.pack(), target, "exact-min window")
     if res.hash_value == MIN_UNTRACKED or res.searched > 1 << 27:
         fail("exact-min window: minimum untracked or over-searched")
+    rates["exact_min"] = res.searched / dt / 1e9
     say(f"  exact-min 2^27 window: found={res.found} nonce {res.nonce}, hashlib-checked; "
-        f"{res.searched / dt / 1e9:.3f} GH/s on {card}")
+        f"{rates['exact_min']:.3f} GH/s on {card}")
     # MIN over 2^30 nonces
-    data = b"tpuminter_torch chip smoke"
+    data = MIN_DATA
     t0 = time.perf_counter()
     res = drain(miner.mine(Request(4, PowMode.MIN, 0, (1 << 30) - 1, data=data)))
     dt = time.perf_counter() - t0
     if res.hash_value != chain.toy_hash(data, res.nonce):
         fail("MIN: reported fold is not toy_hash of the reported nonce")
+    rates["min"] = (1 << 30) / dt / 1e9
     say(f"  MIN 2^30: nonce {res.nonce} fold {res.hash_value:#018x}, toy_hash-checked; "
-        f"{(1 << 30) / dt / 1e9:.3f} GH/s on {card}")
-    return read_launches(kernels, FIXED_PATH_KERNELS, "fixed-header")
+        f"{rates['min']:.3f} GH/s on {card}")
+    return read_launches(kernels, FIXED_PATH_KERNELS, "fixed-header", FIXED_PATH_GENERIC), rates
 
 
 #: the SASS kernel behind each row of K1-K6, S1 and 19, for its pipe mix
+#: (K6's toy arm: its instantiation for the timed message, ``TOY_SHORT``)
 PIPE_KERNELS = {
     "sha256_batch": "sha256_batch_kernel", "search_target": "search_target_kernel",
+    "search_target_header": "search_target_header_kernel",
     "search_candidates": "search_candidates_kernel",
     "search_candidates_header": "search_candidates_header_kernel",
     "search_candidates_hdr": "search_candidates_hdr_kernel",
     "search_candidates_hdr_batch": "search_candidates_hdr_batch_kernel",
     "search_candidates_hdr_batch_sched": "search_candidates_hdr_batch_kernel<sched>",
-    "min_toy": "min_toy_kernel", "scrypt_front": "scrypt_front_kernel",
-    "romix_walk": "romix_walk_kernel",
+    "min_toy": "min_toy_kernel", "min_toy_toy": "min_toy_toy_kernel<{k}>",
+    "scrypt_front": "scrypt_front_kernel", "romix_walk": "romix_walk_kernel",
 }
+#: the MIN message K6 is timed on
+TOY_SHORT = b"hello bitcoin"
 
 
 def pipe_mixes(infos) -> dict:
@@ -934,9 +1049,14 @@ def pipe_mixes(infos) -> dict:
     kernel's hot loop runs one nonce a trip (K1 has no loop: its whole
     kernel is one nonce); S1 runs 2^10 fill steps a hash and 19 2^10 walk
     steps, each on four threads, beside the instructions outside its
-    loop. Static counts: every branch inside a loop is counted."""
+    loop. Static counts: every branch inside a loop is counted (K2's
+    header arm's rounds 61-63 and full compares, which run on few
+    nonces, included)."""
     from tpuminter_torch.kernels import scrypt as KS
     from tpuminter_torch.kernels import sass
+    from tpuminter_torch.ops import sha256 as ops
+
+    toy_k = ops.toy_launch(ops.toy_words(ops.toy_template(TOY_SHORT)), 0).k
 
     found = {}
     for lib in ("sha256", "scrypt"):
@@ -946,6 +1066,7 @@ def pipe_mixes(infos) -> dict:
         found.update(sass.pipe_mix(text))
     out = {}
     for row, kernel in PIPE_KERNELS.items():
+        kernel = kernel.format(k=toy_k)
         mix = found[kernel]
         loop = mix["loop"] or mix["total"]
         if row in SCRYPT_PATH_KERNELS:
@@ -963,10 +1084,13 @@ def pipe_mixes(infos) -> dict:
     return out
 
 
-#: the kernels each part of the main path must launch; K3's generic kernel
-#: is not on it (every fixed-header job's template takes the header arm)
-FIXED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates_header", "min_toy")
-ROLLED_PATH_KERNELS = ("sha256_batch", "search_target", "search_candidates_hdr",
+#: the kernels each part of the main path must launch; the generic K2, K3
+#: and K6 must not launch on the fixed-header path (every fixed-header
+#: job's template takes a header arm, every MIN job's the toy arm)
+FIXED_PATH_KERNELS = ("sha256_batch", "search_target_header", "search_candidates_header",
+                      "min_toy_toy")
+FIXED_PATH_GENERIC = ("search_target", "search_candidates", "min_toy")
+ROLLED_PATH_KERNELS = ("sha256_batch", "search_target_header", "search_candidates_hdr",
                        "search_candidates_hdr_batch", "search_candidates_hdr_batch_sched",
                        "extranonce_roll")
 #: row_gather (probe 11) is not on it: the miner never launches it
@@ -978,12 +1102,15 @@ def reset_launches(kernels) -> None:
         fn.launches = 0
 
 
-def read_launches(kernels, required, path):
+def read_launches(kernels, required, path, absent=()):
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     say(f"  launches on the {path} path: {launches}")
     for name in required:
         if launches[name] < 1:
             fail(f"kernel {name} was not launched on the {path} path")
+    for name in absent:
+        if launches[name]:
+            fail(f"kernel {name} was launched on the {path} path")
     return launches
 
 
@@ -2269,7 +2396,7 @@ def main() -> int:
     stats.update(phase_probes(dev, np.random.default_rng(SEED + 4), issue_rate(dev)[2]))
 
     phase("4a. main path, fixed headers (CudaMiner defaults)")
-    fixed = phase_main_path(card_tag)
+    fixed, fixed_rates = phase_main_path(card_tag)
     phase("4b. main path, rolled jobs")
     rolled, rates = phase_rolled_path(card_tag, np.random.default_rng(SEED + 1))
 
@@ -2294,7 +2421,7 @@ def main() -> int:
     rows = []
     for name, st in stats.items():
         t = st.timing
-        path = ("fixed" if name in FIXED_PATH_KERNELS + ("search_candidates",) else
+        path = ("fixed" if name in FIXED_PATH_KERNELS + FIXED_PATH_GENERIC else
                 "hashcore" if name == "splitmix_batch" else
                 "scrypt" if name in SCRYPT_PATH_KERNELS + ("row_gather",) or name in PROBE_SITES
                 else "rolled")
@@ -2309,11 +2436,13 @@ def main() -> int:
             "ops_per_nonce": t["ops_per_nonce"],
             "int32_pipe_ms": t["int32_pipe_ms"], "checks": st.checks,
             **({"pipes": pipes[name]} if name in pipes else {}),
-            **{k: t[k] for k in ("ms_at_reps", "ns_per_row", "probe") if k in t},
+            **{k: t[k] for k in ("ms_at_reps", "ns_per_row", "probe", "toy60_ms",
+                                 "toy60_bound_ms") if k in t},
         })
     say(json.dumps({"hashcore": {"rates": hc_rates, "window_sweep_g_per_s": sweep_rates,
                                  "window_breakdown": breakdown,
                                  "e2e_seconds": hc_e2e_seconds}}))
+    say(json.dumps({"fixed_ghs": fixed_rates}))
     say(json.dumps({"rolled_ghs": rates}))
     say(json.dumps({"dict": {"e2e_seconds": dict_seconds, "candidates": DICT_N}}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {

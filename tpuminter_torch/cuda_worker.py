@@ -9,8 +9,9 @@ Counterpart of ``tpuminter.tpu_worker`` (``TpuMiner``,
   and the host verifies the rare candidates exactly.
 - **TARGET at toy-easy targets, or with ``exact_min``** runs the
   tracking kernel, which compares the full hash and folds the exact
-  minimum.
-- **MIN** runs the toy-dialect fold kernel, ``depth`` launches in flight.
+  minimum (K2's header arm: a header's template always has its shape).
+- **MIN** runs the toy-dialect fold kernel, ``depth`` launches in flight
+  (K6's toy arm: ``data ‖ nonce_be8`` always has its shape).
 - **Rolled TARGET** (extranonce jobs, ``tpuminter_torch.rolled``) at
   real difficulty runs ``rolled.mine_rolled_fast``: the roll kernel
   feeds the batched dynamic-header candidate kernel, ``roll_batch`` rows

@@ -28,7 +28,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget", "TmHeader",
-           "TmScryptHeader"]
+           "TmToy", "TmScryptHeader"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its source
@@ -68,6 +68,14 @@ class TmHeader(ctypes.Structure):
     header's midstate and tail words t0..t2."""
 
     _fields_ = [("mid", ctypes.c_uint32 * 8), ("t", ctypes.c_uint32 * 3)]
+
+
+class TmToy(ctypes.Structure):
+    """Mirror of ``struct TmToy`` in ``csrc/sha256.cu``: a toy template
+    with its high nonce word fixed (``ops.sha256.ToyLaunch``)."""
+
+    _fields_ = [("mid", ctypes.c_uint32 * 8), ("m", ctypes.c_uint32 * 16),
+                ("m1", ctypes.c_uint32 * 3), ("shift", ctypes.c_uint32)]
 
 
 class TmScryptHeader(ctypes.Structure):
@@ -159,7 +167,15 @@ def library(name: str) -> ctypes.CDLL:
             "tm_search_target": [
                 tmpl, ctypes.POINTER(TmTarget), u32, u32, ptr, ptr, i32, i32, ptr,
             ],
+            "tm_search_target_header": [
+                ctypes.POINTER(TmHeader), ctypes.POINTER(TmTarget), u32, u32, ptr, ptr, i32,
+                i32, ptr,
+            ],
             "tm_min_toy": [tmpl, u32, u32, u32, ptr, ptr, i32, i32, ptr],
+            "tm_min_toy_toy": [
+                ctypes.POINTER(TmToy), ctypes.POINTER(TmToy), i32, u32, u32, u32, ptr, ptr,
+                i32, i32, i32, ptr,
+            ],
             "tm_search_candidates_hdr": [ptr, ptr, u32, u32, u32, ptr, i32, i32, ptr],
             "tm_search_candidates_hdr_batch": [
                 ptr, ptr, ptr, ptr, i32, u32, u32, i32, ptr, i32, i32, ptr,

@@ -2,17 +2,22 @@
 // loaded through ctypes (tpuminter_torch/kernels/build.py).
 //
 // Six kernels, each replacing one Pallas kernel of
-// tpuminter/kernels/sha256.py (K3 in two arms), and the extranonce roll:
+// tpuminter/kernels/sha256.py (K2, K3 and K6 in two arms), and the
+// extranonce roll:
 //
 //   tm_sha256_batch                <- pallas_sha256_batch                (sha256.py:87)
-//   tm_search_target               <- pallas_search_target               (sha256.py:257)
+//   tm_search_target               <- pallas_search_target               (sha256.py:257),
+//                                     any template
+//   tm_search_target_header        <- the same, for an 80-byte header's template
 //   tm_search_candidates           <- pallas_search_candidates           (sha256.py:371),
 //                                     any double-SHA template
 //   tm_search_candidates_header    <- the same, for an 80-byte header's template
 //   tm_search_candidates_hdr       <- pallas_search_candidates_hdr       (sha256.py:489)
 //   tm_search_candidates_hdr_batch <- pallas_search_candidates_hdr_batch (sha256.py:606),
 //                                     both sched arms
-//   tm_min_toy                     <- pallas_min_toy                     (sha256.py:733)
+//   tm_min_toy                     <- pallas_min_toy                     (sha256.py:733),
+//                                     any template
+//   tm_min_toy_toy                 <- the same, for a toy template (data || nonce_be8)
 //   tm_extranonce_roll             <- the jnp roll of tpuminter/ops/merkle.py:84
 //                                     (a jitted program there, no pallas_call)
 //
@@ -36,13 +41,19 @@
 //   * K3-K5 run the second compression to round 60 (digest word 7) and
 //     round 61 (digest word 6) only where word 7 hits, and every search
 //     exits early through one device word (one per row for K5);
-//   * K4/K5 take the header from device memory (the roll's output), K3's
-//     header arm takes it by value, and all three keep its padding words
-//     as compile-time constants, so the compiler folds the schedule terms
-//     they feed; K5's sched arm and K3's header arm also compute the
-//     header's nonce-free prefix (rounds 0-2, w16, w17, most of w18 and
-//     w19, and round 3 but for its nonce word) once a row or a thread,
-//     outside the nonce loop;
+//   * K4/K5 take the header from device memory (the roll's output), the
+//     header arms of K2 and K3 take it by value, and all keep its padding
+//     words as compile-time constants, so the compiler folds the schedule
+//     terms they feed; K5's sched arm and the header arms also compute
+//     the header's nonce-free prefix (rounds 0-2, w16, w17, most of w18
+//     and w19, and round 3 but for its nonce word) once a row or a
+//     thread, outside the nonce loop;
+//   * K6's toy arm has the high nonce word folded into its message on
+//     the host and is instantiated on the word the low one starts at, so
+//     the padding's zeros are compile-time constants there too and the
+//     words before it make a prefix computed once a thread;
+//   * K2's header arm rejects a nonce on hash word 0 (round 60) where it
+//     can neither hit the target nor lower the running minimum;
 //   * reductions are per-thread, then per-block in shared memory, then
 //     one small block over the per-block partials: no atomics on the
 //     min path, and results do not depend on scheduling order.
@@ -52,6 +63,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 // A message with a nonce-shaped hole (ops/sha256.py NonceTemplate).
 // Nonce byte p is ((nonce >> pos_nshift[p]) & 0xFF) << pos_wshift[p],
@@ -76,6 +89,17 @@ struct TmTarget {
 struct TmHeader {
   uint32_t mid[8];
   uint32_t t[3];
+};
+
+// A toy message with its high nonce word fixed (ops/sha256.py ToyLaunch):
+// the state before the block that holds the low word, that block's words
+// (low-word bytes zero), the next block's words 0, 14 and 15 (words 1-13
+// are zero), and the low word's bit offset in the word it starts in.
+struct TmToy {
+  uint32_t mid[8];
+  uint32_t m[16];
+  uint32_t m1[3];
+  uint32_t shift;
 };
 
 namespace {
@@ -639,6 +663,42 @@ __global__ void extranonce_roll_kernel(const long long* job, int n_blocks, int n
 // partial per block goes to `partial` (9 words), and reduce_kernel<9>
 // folds the partials. The min covers the whole range only when nothing
 // was found (the case the caller reads it in).
+//
+// Both arms' result stage for one nonce's digest `s`: the 256-bit compare
+// against the target (a hit lowers h[1] and sets h[0]) and the thread's
+// running minimum of (hash words, offset).
+__device__ __forceinline__ void target_fold(const uint32_t (&s)[8], uint32_t off,
+                                            const TmTarget& tg, unsigned long long* h,
+                                            uint32_t (&best)[9]) {
+  uint32_t cand[9];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cand[j] = bswap32(s[7 - j]);
+  cand[8] = off;
+  bool lt = false, eq = true;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    lt = lt || (eq && cand[j] < tg.w[j]);
+    eq = eq && cand[j] == tg.w[j];
+  }
+  if (lt || eq) {
+    atomicMin(&h[1], (unsigned long long)off);
+    h[0] = 1;
+  }
+  if (lex_less<9>(cand, best)) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) best[k] = cand[k];
+  }
+}
+
+// The block's minimum of `best` to its partial (reduce_kernel<9> folds them).
+__device__ __forceinline__ void write_partial(uint32_t (&best)[9], uint32_t* partial) {
+  block_min<9>(best);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) partial[blockIdx.x * 9 + k] = best[k];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 search_target_kernel(const TmTemplate t, const TmTarget tg, uint32_t base,
                      uint32_t n, unsigned long long* h, uint32_t* partial) {
@@ -654,31 +714,58 @@ search_target_kernel(const TmTemplate t, const TmTarget tg, uint32_t base,
     if (off < n) {
       uint32_t s[8];
       digest(t, 0u, base + off, s);
-      uint32_t cand[9];
+      target_fold(s, off, tg, h, best);
+    }
+  }
+  write_partial(best, partial);
+}
+
+// ---- K2, header arm: K2 on an 80-byte header's template ------------------
+//
+// The first hash is K3's header arm's (header by value, the prefix once a
+// thread). The second compression runs to round 60, which settles hash
+// word 0 = bswap(H0[7] + e60): a nonce whose word 0 lies above both the
+// target's and the thread's running minimum's can neither hit nor lower
+// the minimum, and past a thread's first few nonces that is nearly every
+// nonce. The others (ties included) run rounds 61-63 and K2's full
+// compares. Same early exit, partials and handle as K2.
+__global__ void __launch_bounds__(kThreads)
+search_target_header_kernel(const TmHeader hd, const TmTarget tg, uint32_t base,
+                            uint32_t n, unsigned long long* h, uint32_t* partial) {
+  HdrPrep prep;
+  prepare_hdr(hd.mid, hd.t[0], hd.t[1], hd.t[2], prep);
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  uint32_t best[9];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) cand[j] = bswap32(s[7 - j]);
-      cand[8] = off;
-      bool lt = false, eq = true;
+  for (int k = 0; k < 9; ++k) best[k] = 0xFFFFFFFFu;
+  for (uint32_t w0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31u); w0 < n;
+       w0 += stride) {
+    if (w0 > *(volatile unsigned long long*)&h[1]) break;
+    const uint32_t off = w0 + lane;
+    if (off < n) {
+      uint32_t x[8];
+      prepared_rounds(prep, base + off, x);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        lt = lt || (eq && cand[j] < tg.w[j]);
-        eq = eq && cand[j] == tg.w[j];
-      }
-      if (lt || eq) {
-        atomicMin(&h[1], (unsigned long long)off);
-        h[0] = 1;
-      }
-      if (lex_less<9>(cand, best)) {
+      for (int i = 0; i < 8; ++i) x[i] = add_f(x[i], hd.mid[i]);
+      uint32_t s[8], m[16], v[8], w[16];
+      second_block(x, m);
+      init_state(s);
+      rounds<61>(s, m, v, w);
+      const uint32_t hw0 = bswap32(s[7] + v[4]);
+      if (hw0 <= tg.w[0] || hw0 <= best[0]) {
 #pragma unroll
-        for (int k = 0; k < 9; ++k) best[k] = cand[k];
+        for (int i = 61; i < 64; ++i) {
+          w[i & 15] = schedule(w[(i + 14) & 15], w[(i + 9) & 15], w[(i + 1) & 15], w[i & 15]);
+          round_step(v, kK[i], w[i & 15]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[j] += v[j];
+        target_fold(s, off, tg, h, best);
       }
     }
   }
-  block_min<9>(best);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) partial[blockIdx.x * 9 + k] = best[k];
-  }
+  write_partial(best, partial);
 }
 
 // ---- K6: toy-dialect min over 64-bit nonces, no early exit --------------
@@ -704,6 +791,178 @@ min_toy_kernel(const TmTemplate t, uint32_t base_hi, uint32_t base_lo, uint32_t 
 #pragma unroll
     for (int k = 0; k < 3; ++k) partial[blockIdx.x * 3 + k] = best[k];
   }
+}
+
+// ---- K6, toy arm: K6 on a toy template (data || nonce_be8) ---------------
+//
+// A launch sweeps low words under one high word, which the host has ORed
+// into the message (TmToy; a launch across a 2^32 boundary is two, one
+// per high word). The low word begins at word K of its block (a template
+// parameter, 0-15) and spills into word K + 1 when unaligned; the FIPS
+// padding makes every later word but the length zero. So each schedule
+// word's kind is known when the kernel is compiled: zero, fixed (the
+// same for every nonce of the launch) or the nonce's. Zero terms vanish,
+// fixed terms are summed in plain adds the compiler hoists out of the
+// nonce loop, and only the nonce's terms are IMADs in it. Rounds 0..K-1
+// and round K but for its word run once a thread. K >= 13 has a second
+// block (the low word ends in it only at K = 15); else one.
+
+enum : int { kZero = 0, kFixed = 1, kNonce = 2 };
+
+// Kind of message word i (< 16) of block b for the low word at word k.
+__host__ __device__ constexpr int toy_word_kind(int k, int b, int i) {
+  if (b == 1) return i == 0 ? (k == 15 ? kNonce : kZero) : i >= 14 ? kFixed : kZero;
+  if (i < k) return kFixed;
+  if (i <= k + 1) return kNonce;
+  return k <= 12 && i >= 14 ? kFixed : kZero;  // the length, in the last block
+}
+
+// Kind of schedule word i (< 64): the largest of its terms' (zero <
+// fixed < nonce; sigma0 and sigma1 of zero are zero).
+__host__ __device__ constexpr int toy_kind(int k, int b, int i) {
+  int kind[64] = {};
+  for (int j = 0; j <= i; ++j) {
+    if (j < 16) {
+      kind[j] = toy_word_kind(k, b, j);
+      continue;
+    }
+    int m = kind[j - 2];
+    if (kind[j - 7] > m) m = kind[j - 7];
+    if (kind[j - 15] > m) m = kind[j - 15];
+    if (kind[j - 16] > m) m = kind[j - 16];
+    kind[j] = m;
+  }
+  return kind[i];
+}
+
+// s + x on the FMA pipe, or x where nothing is summed yet.
+template <bool kHave>
+__device__ __forceinline__ uint32_t acc_f(uint32_t s, uint32_t x) {
+  if constexpr (kHave) {
+    return add_f(x, s);
+  } else {
+    return x;
+  }
+}
+
+// Schedule word I of block B: its fixed terms in plain adds, then its
+// nonce terms as IMADs; a zero term adds nothing.
+template <int K, int B, int I>
+__device__ __forceinline__ void toy_sched(uint32_t (&w)[64]) {
+  constexpr int a = toy_kind(K, B, I - 2), b = toy_kind(K, B, I - 7),
+                c = toy_kind(K, B, I - 15), d = toy_kind(K, B, I - 16);
+  const uint32_t ta = small_sigma1(w[I - 2]), tb = w[I - 7], tc = small_sigma0(w[I - 15]),
+                 td = w[I - 16];
+  uint32_t s = (a == kFixed ? ta : 0u) + (b == kFixed ? tb : 0u) + (c == kFixed ? tc : 0u) +
+               (d == kFixed ? td : 0u);
+  constexpr bool h0 = a == kFixed || b == kFixed || c == kFixed || d == kFixed;
+  if constexpr (d == kNonce) s = acc_f<h0>(s, td);
+  constexpr bool h1 = h0 || d == kNonce;
+  if constexpr (b == kNonce) s = acc_f<h1>(s, tb);
+  constexpr bool h2 = h1 || b == kNonce;
+  if constexpr (c == kNonce) s = acc_f<h2>(s, tc);
+  constexpr bool h3 = h2 || c == kNonce;
+  if constexpr (a == kNonce) s = acc_f<h3>(s, ta);
+  w[I] = s;
+}
+
+// round_step for a schedule word of kind kKind: a zero word adds
+// nothing, a fixed one joins its round constant in a plain (hoisted) add.
+template <int kKind>
+__device__ __forceinline__ void toy_round(uint32_t (&x)[8], uint32_t k, uint32_t w) {
+  uint32_t hk;
+  if constexpr (kKind == kZero) {
+    hk = add_k(k, x[7]);
+  } else if constexpr (kKind == kFixed) {
+    hk = add_f(k + w, x[7]);
+  } else {
+    hk = add_f(w, add_k(k, x[7]));
+  }
+  const uint32_t t1 = add_f(ch(x[4], x[5], x[6]), add_f(big_sigma1(x[4]), hk));
+  const uint32_t a = add_f(maj(x[0], x[1], x[2]), add_f(big_sigma0(x[0]), t1));
+  x[7] = x[6]; x[6] = x[5]; x[5] = x[4]; x[4] = add_f(x[3], t1);
+  x[3] = x[2]; x[2] = x[1]; x[1] = x[0]; x[0] = a;
+}
+
+// The whole schedule of block B, then its rounds kFirst, kFirst + 1, ...
+// In this order ptxas moves part of the fixed work to the uniform
+// datapath and some adds to the FMA pipe; each word computed just before
+// its round, in a rolling window as rounds<> does, ran slower on an H100.
+template <int K, int B, int... I>
+__device__ __forceinline__ void toy_schedule(uint32_t (&w)[64], std::integer_sequence<int, I...>) {
+  (toy_sched<K, B, 16 + I>(w), ...);
+}
+
+template <int K, int B, int kFirst, int... I>
+__device__ __forceinline__ void toy_rounds(uint32_t (&x)[8], const uint32_t (&w)[64],
+                                           std::integer_sequence<int, I...>) {
+  (toy_round<toy_kind(K, B, kFirst + I)>(x, kK[kFirst + I], w[kFirst + I]), ...);
+}
+
+// Four blocks an SM: ptxas then keeps a one-block body in 64 registers
+// or fewer (80 left to itself), which ran faster on an H100; the
+// two-block bodies (K >= 13) spill a little under it.
+template <int K>
+__global__ void __launch_bounds__(kThreads, 4)
+min_toy_toy_kernel(const TmToy t, uint32_t lo0, uint32_t off0, uint32_t n, uint32_t* partial) {
+  // the nonce-free prefix: rounds 0..K-1, and round K but for its word,
+  // which enters e and a as one add each
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) p[i] = t.mid[i];
+#pragma unroll
+  for (int i = 0; i < K; ++i) round_step(p, kK[i], t.m[i]);
+  const uint32_t r = p[7] + big_sigma1(p[4]) + ch(p[4], p[5], p[6]) + kK[K];
+  const uint32_t e_k = p[3] + r, a_k = r + big_sigma0(p[0]) + maj(p[0], p[1], p[2]);
+  const uint32_t stride = gridDim.x * blockDim.x;
+  uint32_t best[3] = {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
+  for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < n; j += stride) {
+    const uint32_t lo = lo0 + j;
+    const uint32_t spill = __funnelshift_r(0u, lo, t.shift);  // lo << (32 - shift), or 0
+    uint32_t w[64];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      w[i] = i == K ? t.m[i] | (lo >> t.shift) : i == K + 1 ? t.m[i] | spill : t.m[i];
+    }
+    toy_schedule<K, 0>(w, std::make_integer_sequence<int, 48>());
+    uint32_t x[8] = {add_f(a_k, w[K]), p[0], p[1], p[2], add_f(e_k, w[K]), p[4], p[5], p[6]};
+    toy_rounds<K, 0, K + 1>(x, w, std::make_integer_sequence<int, 63 - K>());
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = add_f(x[i], t.mid[i]);
+    if constexpr (K >= 13) {
+      uint32_t v[8];
+      w[0] = K == 15 ? t.m1[0] | spill : t.m1[0];
+#pragma unroll
+      for (int i = 1; i < 14; ++i) w[i] = 0;
+      w[14] = t.m1[1];
+      w[15] = t.m1[2];
+      toy_schedule<K, 1>(w, std::make_integer_sequence<int, 48>());
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = x[i];
+      toy_rounds<K, 1, 0>(v, w, std::make_integer_sequence<int, 64>());
+      x[0] = add_f(x[0], v[0]);
+      x[1] = add_f(x[1], v[1]);
+    }
+    const uint32_t cand[3] = {x[0], x[1], off0 + j};
+    if (lex_less<3>(cand, best)) {
+      best[0] = cand[0];
+      best[1] = cand[1];
+      best[2] = cand[2];
+    }
+  }
+  block_min<3>(best);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) partial[blockIdx.x * 3 + k] = best[k];
+  }
+}
+
+using ToyKernel = void (*)(TmToy, uint32_t, uint32_t, uint32_t, uint32_t*);
+
+template <int... K>
+ToyKernel toy_kernel(int k, std::integer_sequence<int, K...>) {
+  static const ToyKernel table[] = {min_toy_toy_kernel<K>...};
+  return table[k];
 }
 
 // One block folds `count` partials of K words into h[first .. first+K).
@@ -735,6 +994,7 @@ int finish() { return (int)cudaGetLastError(); }
 
 static_assert(sizeof(TmTemplate) == 67 * 4, "TmTemplate layout is mirrored in build.py");
 static_assert(sizeof(TmHeader) == 11 * 4, "TmHeader layout is mirrored in build.py");
+static_assert(sizeof(TmToy) == 28 * 4, "TmToy layout is mirrored in build.py");
 
 extern "C" {
 
@@ -777,6 +1037,18 @@ int tm_search_target(const TmTemplate* t, const TmTarget* target, uint32_t base,
   fill_kernel<<<1, 32, 0, s>>>(handle, 0, kNotFound, 2);
   search_target_kernel<<<grid, kThreads, 0, s>>>(
       *t, *target, base, n, (unsigned long long*)handle, partial);
+  reduce_kernel<9><<<1, kThreads, 0, s>>>(partial, grid, handle, 2);
+  return finish();
+}
+
+int tm_search_target_header(const TmHeader* hd, const TmTarget* target, uint32_t base,
+                            uint32_t n, long long* handle, uint32_t* partial, int grid,
+                            int device, void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = (cudaStream_t)stream;
+  fill_kernel<<<1, 32, 0, s>>>(handle, 0, kNotFound, 2);
+  search_target_header_kernel<<<grid, kThreads, 0, s>>>(
+      *hd, *target, base, n, (unsigned long long*)handle, partial);
   reduce_kernel<9><<<1, kThreads, 0, s>>>(partial, grid, handle, 2);
   return finish();
 }
@@ -827,6 +1099,26 @@ int tm_min_toy(const TmTemplate* t, uint32_t base_hi, uint32_t base_lo, uint32_t
   cudaStream_t s = (cudaStream_t)stream;
   min_toy_kernel<<<grid, kThreads, 0, s>>>(*t, base_hi, base_lo, n, partial);
   reduce_kernel<3><<<1, kThreads, 0, s>>>(partial, grid, handle, 0);
+  return finish();
+}
+
+// Offsets [0, split) under t0 from low word lo0, then [split, n) under t1
+// (the next high word) from low word 0, on grid0 and grid1 blocks; one
+// reduce folds both launches' partials.
+int tm_min_toy_toy(const TmToy* t0, const TmToy* t1, int k, uint32_t lo0, uint32_t split,
+                   uint32_t n, long long* handle, uint32_t* partial, int grid0, int grid1,
+                   int device, void* stream) {
+  if (k < 0 || k > 15 || split == 0 || split > n) return (int)cudaErrorInvalidValue;
+  cudaSetDevice(device);
+  cudaStream_t s = (cudaStream_t)stream;
+  const ToyKernel kernel = toy_kernel(k, std::make_integer_sequence<int, 16>());
+  kernel<<<grid0, kThreads, 0, s>>>(*t0, lo0, 0u, split, partial);
+  int count = grid0;
+  if (split < n) {
+    kernel<<<grid1, kThreads, 0, s>>>(*t1, 0u, split, n - split, partial + 3 * grid0);
+    count += grid1;
+  }
+  reduce_kernel<3><<<1, kThreads, 0, s>>>(partial, count, handle, 0);
   return finish();
 }
 

@@ -16,9 +16,11 @@ for the device until the caller reads it:
 
 - :func:`search_candidates` and its header arm
   :func:`search_candidates_header`: ``[found, first_off]``
-- :func:`search_target`: ``[found, first_off, min_words[8], min_off]``
-  (the min fields cover the whole range only when ``found == 0``)
-- :func:`min_toy`: ``[fold_hi, fold_lo, argmin_off]``
+- :func:`search_target` and its header arm :func:`search_target_header`:
+  ``[found, first_off, min_words[8], min_off]`` (the min fields cover
+  the whole range only when ``found == 0``)
+- :func:`min_toy` and its toy arm :func:`min_toy_toy`: ``[fold_hi,
+  fold_lo, argmin_off]``
 - :func:`search_candidates_hdr`: ``[found, first_off]``
 - :func:`search_candidates_hdr_batch` and its ``_sched`` arm: ``(B, 2)``,
   ``[found, first_off]`` per row
@@ -48,13 +50,13 @@ from tpuminter_torch.ops import merkle
 from tpuminter_torch.ops import sha256 as ops
 
 __all__ = [
-    "sha256_batch", "search_target", "search_candidates", "search_candidates_header",
-    "min_toy", "search_candidates_hdr", "search_candidates_hdr_batch",
-    "search_candidates_hdr_batch_sched", "extranonce_roll",
-    "sha256_batch_plain", "search_target_plain", "search_candidates_plain",
-    "search_candidates_header_plain", "min_toy_plain", "search_candidates_hdr_plain",
-    "search_candidates_hdr_batch_plain", "extranonce_roll_plain",
-    "KERNELS", "NOT_FOUND",
+    "sha256_batch", "search_target", "search_target_header", "search_candidates",
+    "search_candidates_header", "min_toy", "min_toy_toy", "search_candidates_hdr",
+    "search_candidates_hdr_batch", "search_candidates_hdr_batch_sched", "extranonce_roll",
+    "sha256_batch_plain", "search_target_plain", "search_target_header_plain",
+    "search_candidates_plain", "search_candidates_header_plain", "min_toy_plain",
+    "min_toy_toy_plain", "search_candidates_hdr_plain", "search_candidates_hdr_batch_plain",
+    "extranonce_roll_plain", "KERNELS", "NOT_FOUND",
 ]
 
 #: ``first_off`` when no offset of the range hit
@@ -252,6 +254,14 @@ def search_candidates(template: ops.NonceTemplate, base: int, n: int,
     return handle
 
 
+def _check_header_words(words) -> None:
+    if len(words) != 4 or len(words[0]) != 8:
+        raise ValueError("words must be (midstate8, t0, t1, t2)")
+    mid, *tail = words
+    _check_u32(**{f"mid{i}": w for i, w in enumerate(mid)},
+               **{f"t{i}": w for i, w in enumerate(tail)})
+
+
 @functools.lru_cache(maxsize=64)
 def _header_struct(words) -> build.TmHeader:
     mid, t0, t1, t2 = words
@@ -279,11 +289,7 @@ def search_candidates_header(words, base: int, n: int, hw1_cap: int = 0xFFFFFFFF
     once (K5's sched body). Same handle, bit for bit."""
     _check_n(n)
     _check_u32(base=base, hw1_cap=hw1_cap)
-    if len(words) != 4 or len(words[0]) != 8:
-        raise ValueError("words must be (midstate8, t0, t1, t2)")
-    mid, *tail = words
-    _check_u32(**{f"mid{i}": w for i, w in enumerate(mid)},
-               **{f"t{i}": w for i, w in enumerate(tail)})
+    _check_header_words(words)
     if torch.device(device).type == "cpu":
         return search_candidates_header_plain(words, base, n, hw1_cap)
     device = _cuda_device(device)
@@ -300,13 +306,13 @@ def search_candidates_header(words, base: int, n: int, hw1_cap: int = 0xFFFFFFFF
 # K2: full target compare with the exact running minimum
 # ---------------------------------------------------------------------------
 
-def search_target_plain(template: ops.NonceTemplate, target_words: Sequence[int],
-                        base: int, n: int, device="cpu") -> torch.Tensor:
+def _target_scan(digest_of, target_words: Sequence[int], base: int, n: int,
+                 device) -> torch.Tensor:
+    """K2's handle, plain: ``digest_of(nonces)`` gives the digest lanes."""
     tgt = [int(t) for t in target_words]
     best = None  # (words..., off) of the minimum so far
     for offs in _offsets(n, device):
-        digest = ops.digest_words(template, 0, (base + offs) & ops.M32)
-        hw = ops.hash_words_be(digest)
+        hw = ops.hash_words_be(digest_of((base + offs) & ops.M32))
         i = _argmin_lex(hw)
         cand = tuple(int(w[i]) for w in hw) + (int(offs[i]),)
         if best is None or cand < best:
@@ -323,33 +329,90 @@ def search_target_plain(template: ops.NonceTemplate, target_words: Sequence[int]
     return torch.tensor([0, NOT_FOUND, *best], dtype=_I64, device=device)
 
 
-def search_target(template: ops.NonceTemplate, target_words: Sequence[int],
-                  base: int, n: int, *, device) -> torch.Tensor:
-    """Full double SHA of nonces ``base + off`` (mod 2^32), ``off`` in
-    ``[0, n)``: the first offset whose 256-bit hash value is ``<=`` the
-    target (msb-first ``target_words``), with early exit, and the
-    lexicographic minimum of the hash value with its offset (ties to the
-    lowest offset). Handle ``[found, first_off, min_words[8], min_off]``."""
+def search_target_plain(template: ops.NonceTemplate, target_words: Sequence[int],
+                        base: int, n: int, device="cpu") -> torch.Tensor:
+    return _target_scan(lambda nonces: ops.digest_words(template, 0, nonces), target_words,
+                        base, n, device)
+
+
+def _target_struct(words: Sequence[int]) -> build.TmTarget:
+    target = build.TmTarget()
+    target.w[:] = words
+    return target
+
+
+def _check_target(base: int, n: int, target_words: Sequence[int]) -> list:
     _check_n(n)
     _check_u32(base=base)
     words = [int(t) for t in target_words]
     if len(words) != 8:
         raise ValueError("target_words must be 8 msb-first u32 words")
     _check_u32(**{f"target_word{i}": w for i, w in enumerate(words)})
+    return words
+
+
+def search_target(template: ops.NonceTemplate, target_words: Sequence[int],
+                  base: int, n: int, *, device) -> torch.Tensor:
+    """Full double SHA of nonces ``base + off`` (mod 2^32), ``off`` in
+    ``[0, n)``: the first offset whose 256-bit hash value is ``<=`` the
+    target (msb-first ``target_words``), with early exit, and the
+    lexicographic minimum of the hash value with its offset (ties to the
+    lowest offset). Handle ``[found, first_off, min_words[8], min_off]``.
+
+    A template of :func:`ops.header_template`'s shape
+    (:func:`ops.header_words`) runs the header arm,
+    :func:`search_target_header`; any other runs the generic kernel,
+    counted here."""
+    words = _check_target(base, n, target_words)
+    header = ops.header_words(template)
+    if header is not None:
+        return search_target_header(header, words, base, n, device=device)
     if torch.device(device).type == "cpu":
         return search_target_plain(template, words, base, n)
     device = _cuda_device(device)
     grid = _grid(n, device.index)
     handle = torch.empty(11, dtype=_I64, device=device)
     partial = torch.empty(grid * 9, dtype=torch.int32, device=device)
-    target = build.TmTarget()
-    target.w[:] = words
     _launch(
         "tm_search_target", ctypes.byref(_template_struct(template)),
-        ctypes.byref(target), base, n, handle.data_ptr(), partial.data_ptr(),
+        ctypes.byref(_target_struct(words)), base, n, handle.data_ptr(), partial.data_ptr(),
         grid, device.index, _stream(device),
     )
     search_target.launches += 1
+    return handle
+
+
+def search_target_header_plain(words, target_words: Sequence[int], base: int, n: int,
+                               device="cpu") -> torch.Tensor:
+    """Plain version of the header arm: the shared-schedule formula
+    (:func:`ops.prepare_hdr`, :func:`ops.hash_prepared_digest`)."""
+    mid, t0, t1, t2 = words
+    prep = ops.prepare_hdr(list(mid), t0, t1, t2)
+    return _target_scan(lambda nonces: ops.hash_prepared_digest(prep, nonces), target_words,
+                        base, n, device)
+
+
+def search_target_header(words, target_words: Sequence[int], base: int, n: int, *,
+                         device) -> torch.Tensor:
+    """:func:`search_target` for an 80-byte header given by
+    :func:`ops.header_words` ``(midstate8, t0, t1, t2)``, passed to the
+    kernel by value: K3's header arm's first hash, then a second
+    compression that stops at round 60 wherever hash word 0 already rules
+    the nonce out. Same handle, bit for bit."""
+    tw = _check_target(base, n, target_words)
+    _check_header_words(words)
+    if torch.device(device).type == "cpu":
+        return search_target_header_plain(words, tw, base, n)
+    device = _cuda_device(device)
+    grid = _grid(n, device.index)
+    handle = torch.empty(11, dtype=_I64, device=device)
+    partial = torch.empty(grid * 9, dtype=torch.int32, device=device)
+    _launch(
+        "tm_search_target_header", ctypes.byref(_header_struct(tuple(words))),
+        ctypes.byref(_target_struct(tw)), base, n, handle.data_ptr(), partial.data_ptr(),
+        grid, device.index, _stream(device),
+    )
+    search_target_header.launches += 1
     return handle
 
 
@@ -376,9 +439,16 @@ def min_toy(template: ops.NonceTemplate, base_hi: int, base_lo: int, n: int,
     """Minimum over ``n`` consecutive 64-bit nonces from ``base_hi << 32 |
     base_lo`` of the fold (digest words 0 and 1) of the template's hash
     (≡ ``chain.toy_hash`` for a toy template), no early exit, ties to the
-    lowest nonce. Handle ``[fold_hi, fold_lo, argmin_off]``."""
+    lowest nonce. Handle ``[fold_hi, fold_lo, argmin_off]``.
+
+    A template of :func:`ops.toy_template`'s shape (:func:`ops.toy_words`)
+    runs the toy arm, :func:`min_toy_toy`; any other runs the generic
+    kernel, counted here."""
     _check_n(n)
     _check_u32(base_hi=base_hi, base_lo=base_lo)
+    words = ops.toy_words(template)
+    if words is not None:
+        return min_toy_toy(words, base_hi, base_lo, n, device=device)
     if torch.device(device).type == "cpu":
         return min_toy_plain(template, base_hi, base_lo, n)
     device = _cuda_device(device)
@@ -391,6 +461,74 @@ def min_toy(template: ops.NonceTemplate, base_hi: int, base_lo: int, n: int,
         _stream(device),
     )
     min_toy.launches += 1
+    return handle
+
+
+def _toy_segments(base_hi: int, base_lo: int, n: int) -> list:
+    """``(hi, lo0, off0, count)`` of each run of offsets under one high
+    word: one, or two where the low word wraps."""
+    split = min(n, (1 << 32) - base_lo)
+    segments = [(base_hi, base_lo, 0, split)]
+    if split < n:
+        segments.append(((base_hi + 1) & ops.M32, 0, split, n - split))
+    return segments
+
+
+def min_toy_toy_plain(words: ops.ToyWords, base_hi: int, base_lo: int, n: int,
+                      device="cpu") -> torch.Tensor:
+    """Plain version of the toy arm: the arm's own formula
+    (:func:`ops.toy_launch` per high word, :func:`ops.toy_fold_words`)."""
+    best = None
+    for hi, lo0, off0, count in _toy_segments(base_hi, base_lo, n):
+        launch = ops.toy_launch(words, hi)
+        for offs in _offsets(count, device):
+            fold = ops.toy_fold_words(launch, lo0 + offs)
+            i = _argmin_lex(fold)
+            cand = (int(fold[0][i]), int(fold[1][i]), off0 + int(offs[i]))
+            if best is None or cand < best:
+                best = cand
+    return torch.tensor(best, dtype=_I64, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _toy_struct(words: ops.ToyWords, hi: int):
+    """``(TmToy, k)`` of ``words`` under high word ``hi``."""
+    launch = ops.toy_launch(words, hi)
+    t = build.TmToy()
+    t.mid[:] = list(launch.midstate)
+    t.m[:] = list(launch.block)
+    t.m1[:] = list(launch.block1)
+    t.shift = launch.shift
+    return t, launch.k
+
+
+def min_toy_toy(words: ops.ToyWords, base_hi: int, base_lo: int, n: int, *,
+                device) -> torch.Tensor:
+    """:func:`min_toy` for a toy template given by :func:`ops.toy_words`:
+    each launch takes the message with its high nonce word folded in
+    (:func:`ops.toy_launch`) and runs the kernel instantiated for the
+    word the low one begins at; a range whose low word wraps runs as two
+    launches, one per high word, folded by one reduce. Same handle, bit
+    for bit."""
+    _check_n(n)
+    _check_u32(base_hi=base_hi, base_lo=base_lo)
+    if not isinstance(words, ops.ToyWords):
+        raise ValueError("words must be an ops.ToyWords")
+    if torch.device(device).type == "cpu":
+        return min_toy_toy_plain(words, base_hi, base_lo, n)
+    device = _cuda_device(device)
+    segments = _toy_segments(base_hi, base_lo, n)
+    structs = [_toy_struct(words, hi) for hi, *_ in segments]
+    grids = [_grid(count, device.index) for *_, count in segments]
+    handle = torch.empty(3, dtype=_I64, device=device)
+    partial = torch.empty(sum(grids) * 3, dtype=torch.int32, device=device)
+    (t0, k), (t1, _) = structs[0], structs[-1]
+    _launch(
+        "tm_min_toy_toy", ctypes.byref(t0), ctypes.byref(t1), k, base_lo, segments[0][3], n,
+        handle.data_ptr(), partial.data_ptr(), grids[0], grids[-1], device.index,
+        _stream(device),
+    )
+    min_toy_toy.launches += 1
     return handle
 
 
@@ -552,13 +690,12 @@ def extranonce_roll(job: merkle.RollJob, en_hi: torch.Tensor, en_lo: torch.Tenso
     return mids, tails
 
 
-#: every kernel wrapper, in table order (K1, K2, K3 both arms, K4, K5
-#: both arms, K6, then the roll)
+#: every kernel wrapper, in table order (K1, K2 and K3 both arms, K4, K5
+#: both arms, K6 both arms, then the roll)
 KERNELS = (
-    sha256_batch, search_target, search_candidates, search_candidates_header,
-    search_candidates_hdr,
-    search_candidates_hdr_batch, search_candidates_hdr_batch_sched, min_toy,
-    extranonce_roll,
+    sha256_batch, search_target, search_target_header, search_candidates,
+    search_candidates_header, search_candidates_hdr, search_candidates_hdr_batch,
+    search_candidates_hdr_batch_sched, min_toy, min_toy_toy, extranonce_roll,
 )
 for _fn in KERNELS:
     _fn.launches = 0

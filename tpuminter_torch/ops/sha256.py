@@ -5,7 +5,8 @@ the dynamic-header hashes ``header_digest_dyn`` and
 ``header_e60_e61_dyn``) and of the integer half of
 ``tpuminter.ops.symbolic`` (``CAND_E60``, ``DIGEST6_BIAS``, the
 truncated second compression, and the shared-schedule split
-``prepare_hdr`` / ``hash_prepared_e60_e61``).
+``prepare_hdr`` / ``hash_prepared_e60_e61``, with its full-digest
+counterpart ``hash_prepared_digest``).
 
 - **Templates.** A mining message is constant except for a few nonce
   bytes near its end. :func:`_build_template` compresses every block
@@ -22,6 +23,10 @@ truncated second compression, and the shared-schedule split
   :func:`header_e60_e61_dyn`, and :func:`prepare_hdr` with
   :func:`hash_prepared_e60_e61`, which compute once per header what no
   nonce changes (rounds 0-2 and four schedule words).
+- **Toy messages.** :func:`toy_words` recognises :func:`toy_template`'s
+  exact shape, as :func:`header_words` does :func:`header_template`'s;
+  :func:`toy_launch` folds a high nonce word into it for one launch of
+  K6's toy arm, and :func:`toy_fold_words` is that arm's formula.
 - **Plain lanes.** The batched functions below are the kernels' plain
   versions. Torch's CPU backend has no add, shift or compare for
   ``torch.uint32``, so a u32 lane is an ``int64`` tensor holding a value
@@ -34,7 +39,7 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,6 +65,12 @@ __all__ = [
     "header_e60_e61_dyn",
     "prepare_hdr",
     "hash_prepared_e60_e61",
+    "hash_prepared_digest",
+    "ToyWords",
+    "ToyLaunch",
+    "toy_words",
+    "toy_launch",
+    "toy_fold_words",
 ]
 
 M32 = 0xFFFFFFFF
@@ -354,10 +365,9 @@ def prepare_hdr(midstate8: Sequence[Lane], t0: Lane, t1: Lane, t2: Lane) -> Tupl
     return tuple(midstate8), tuple(v), w16, w17, p18, p19
 
 
-def hash_prepared_e60_e61(prep: Tuple, nonces: Lane):
-    """``(e60, e61)`` from a :func:`prepare_hdr` stage: rounds 3-63 of
-    the first hash, then the truncated second compression (≡
-    :func:`header_e60_e61_dyn` on the same header)."""
+def _prepared_first(prep: Tuple, nonces: Lane) -> List[Lane]:
+    """The first hash from a :func:`prepare_hdr` stage: rounds 3-63 and
+    the feed-forward."""
     midstate8, v, w16, w17, p18, p19 = prep
     w3 = byteswap32(nonces)
     w: List[Lane] = [0, 0, 0, w3, *HEADER_TAIL_PAD,  # w0..w2 are dead past round 2
@@ -367,5 +377,125 @@ def hash_prepared_e60_e61(prep: Tuple, nonces: Lane):
     v = list(v)
     for i in range(3, 64):
         v = _round(v, SHA256_K[i], w[i])
-    state = [_add(s, x) for s, x in zip(midstate8, v)]
-    return _compress_e60_e61(SHA256_H0, state + list(_SECOND_PAD))
+    return [_add(s, x) for s, x in zip(midstate8, v)]
+
+
+def hash_prepared_e60_e61(prep: Tuple, nonces: Lane):
+    """``(e60, e61)`` from a :func:`prepare_hdr` stage: rounds 3-63 of
+    the first hash, then the truncated second compression (≡
+    :func:`header_e60_e61_dyn` on the same header)."""
+    return _compress_e60_e61(SHA256_H0, _prepared_first(prep, nonces) + list(_SECOND_PAD))
+
+
+def hash_prepared_digest(prep: Tuple, nonces: Lane) -> List[Lane]:
+    """The double-SHA digest words from a :func:`prepare_hdr` stage (≡
+    :func:`header_digest_dyn` on the same header)."""
+    return _compress(SHA256_H0, _prepared_first(prep, nonces) + list(_SECOND_PAD))
+
+
+# ---------------------------------------------------------------------------
+# toy messages: the MIN dialect's data ‖ nonce_be8
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ToyWords:
+    """A template of :func:`toy_template`'s exact shape: its ``midstate``,
+    its ``tail`` blocks (nonce bytes zero) and ``offset``, the byte of
+    the first tail block at which the nonce begins (``len(data) % 64``)."""
+
+    midstate: Tuple[int, ...]
+    tail: Tuple[Tuple[int, ...], ...]
+    offset: int
+
+
+@dataclass(frozen=True)
+class ToyLaunch:
+    """A toy template with its high nonce word fixed, as one launch of
+    the toy arm takes it. ``midstate``: the state before the block that
+    holds the low word's first byte (a block the high word ends in is
+    compressed into it). ``block``: that block, the low word's bytes
+    zero. ``block1``: the next block's words 0, 14 and 15, its low-word
+    bytes zero (zeros when there is none; its words 1-13 are zero).
+    ``k``: the block's word at which the low word begins, ``shift``: its
+    bit offset there (0, 8, 16 or 24). The low word is ``block[k] |=
+    lo >> shift`` and, past that word, ``lo << (32 - shift)`` ORed into
+    the next word (``block1[0]`` when ``k`` is 15); ``k >= 13`` exactly
+    when there is a next block."""
+
+    midstate: Tuple[int, ...]
+    block: Tuple[int, ...]
+    block1: Tuple[int, int, int]
+    k: int
+    shift: int
+
+
+def _toy_positions(offset: int) -> Tuple[Tuple[int, int, int, int], ...]:
+    """:func:`toy_template`'s nonce positions for a nonce at ``offset``."""
+    out = []
+    for j in range(8):
+        at = offset + j
+        out.append((at // 64, (at % 64) // 4, 24 - 8 * (at % 4), 56 - 8 * j))
+    return tuple(out)
+
+
+def toy_words(template: NonceTemplate) -> Optional[ToyWords]:
+    """A :class:`ToyWords` when ``template`` has exactly the shape
+    :func:`toy_template` gives it: single SHA, the 8 nonce bytes
+    big-endian and in order from byte ``offset`` of the first tail block,
+    zeroed, then the FIPS padding of a message that ends with them, in
+    as many tail blocks as that needs. ``None`` for any other template."""
+    if template.double or len(template.positions) != 8 or template.positions[0][0] != 0:
+        return None
+    _, word, wshift, _ = template.positions[0]
+    if wshift not in (0, 8, 16, 24):
+        return None
+    offset = 4 * word + (24 - wshift) // 8
+    if (tuple(template.positions) != _toy_positions(offset)
+            or len(template.tail) != (1 if offset <= 47 else 2)
+            or any(len(b) != 16 for b in template.tail)):
+        return None
+    tail = b"".join(struct.pack(">16I", *b) for b in template.tail)
+    length = int.from_bytes(tail[-8:], "big") // 8  # message bytes, nonce included
+    if (tail[offset:offset + 9] != bytes(8) + b"\x80" or any(tail[offset + 9:-8])
+            or length % 64 != (offset + 8) % 64 or length < offset + 8
+            or int.from_bytes(tail[-8:], "big") % 8):
+        return None
+    return ToyWords(tuple(template.midstate), tuple(tuple(b) for b in template.tail), offset)
+
+
+def toy_launch(words: ToyWords, hi: int) -> ToyLaunch:
+    """The :class:`ToyLaunch` of ``words`` for high nonce word ``hi``."""
+    blocks = [list(b) for b in words.tail]
+    for block, word, wshift, nshift in _toy_positions(words.offset)[:4]:
+        blocks[block][word] |= ((hi >> (nshift - 32)) & 0xFF) << wshift
+    mid = list(words.midstate)
+    at = words.offset + 4  # the low word's first byte
+    if at >= 64:  # the first block holds no byte of it
+        mid = _compress(mid, blocks.pop(0))
+        at -= 64
+    block1 = (blocks[1][0], blocks[1][14], blocks[1][15]) if len(blocks) == 2 else (0, 0, 0)
+    return ToyLaunch(tuple(mid), tuple(blocks[0]), block1, at // 4, 8 * (at % 4))
+
+
+def toy_fold_words(launch: ToyLaunch, lo: Lane):
+    """Digest words 0 and 1 (the MIN fold's high and low word) of the
+    toy hash of nonces ``hi << 32 | lo`` by the toy arm's formula: the
+    low word ORed in at ``(k, shift)``, rounds ``0..k-1`` on the launch's
+    constants alone, the rest on the lanes, then the next block if any."""
+    k, shift = launch.k, launch.shift
+    spill = ((lo << (32 - shift)) & M32) if shift else 0
+    w: List[Lane] = list(launch.block)
+    w[k] = w[k] | (lo >> shift)
+    if k < 15:
+        w[k + 1] = w[k + 1] | spill
+    v: List[Lane] = list(launch.midstate)
+    for i in range(k):  # the nonce-free prefix
+        v = _round(v, SHA256_K[i], w[i])
+    sched = _schedule(w, 64)
+    for i in range(k, 64):
+        v = _round(v, SHA256_K[i], sched[i])
+    state = [_add(s, x) for s, x in zip(launch.midstate, v)]
+    if k >= 13:
+        b0, b14, b15 = launch.block1
+        state = _compress(state, [b0 | spill if k == 15 else b0, *[0] * 13, b14, b15])
+    return state[0], state[1]
