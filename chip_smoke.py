@@ -46,11 +46,12 @@ caught), and without a CUDA device the script exits non-zero at once:
 3b. the layout probes (``tpuminter_torch.probes``, the TPU rounds'
    fifteen remaining ``pallas_call`` sites on the kernels P1-P3 of
    ``csrc/probes.cu``): each kernel against its plain version off the
-   probes' shapes (ragged, misaligned, off the tile, one block), then
-   every probe module's ``run()`` on one V at the scripts' sizes (B =
-   16384, N = 1024), which holds its kernels against their plain
-   versions and each per-step walk chain against ``romix_walk``, and
-   times them beside the fused walk; none of them is on the main path;
+   probes' shapes (ragged, misaligned, off the tile, one block, other
+   grids), then every probe module's ``run()`` on one V at the scripts'
+   sizes (B = 16384, N = 1024), which holds its kernels against their
+   plain versions and each per-step walk chain against ``romix_walk``,
+   and times them beside the fused walk (and each site beside its one
+   torch call, as a factor); none of them is on the main path;
 4. main path, in four parts, each with every launch count set to 0 just
    before it and read just after: (a) fixed headers: ``CudaMiner()``
    with its defaults mines the genesis header over a 2^30-nonce window
@@ -1842,13 +1843,26 @@ def probe_stats() -> dict:
         for site, (name, replaces) in PROBE_SITES.items()}
 
 
+#: P1's edge counts: every count below 10 at every word offset, and
+#: around the probes' 2^21 words, where the aligned arm has a tail of
+#: 0-3 words
+P1_SMALL_N = tuple(range(1, 10))
+P1_EDGE_N = ((1 << 21) - 5, (1 << 21) - 1, (1 << 21) + 1, (1 << 21) + 5)
+#: P3's (batch, blocks): the probes' B at one pass and on grids of 3 and
+#: 133 blocks (fewer and more blocks than the quad form's 128 groups),
+#: one block, three bitcast blocks, and the smallest batch
+P3_EDGE = ((16_384, None), (16_384, 3), (16_384, 133), (2048, 1), (6144, None), (128, None),
+           (128, 3))
+
+
 def probe_edge_checks(dev, rng, stats) -> int:
     """P1-P3 against their plain versions where the probes' shapes do not
-    reach: P1 on a ragged count, misaligned (its scalar path) and in
-    place; P2 on shapes that are no multiple of its 32 x 32 tile, with
-    and without a carry; every P3 instantiation on random words at the
-    probes' B, in one thread block, and the bitcast layout over several
-    of its blocks. Each check is recorded on the sites that use it."""
+    reach: P1 at 1-9 words at word offsets 0-3 (the offsets take its
+    scalar arm) and at 2^21 - 5, - 1, + 1 and + 5 words aligned and
+    misaligned, and in place; P2 on shapes that are no multiple of its
+    32 x 32 tile, with and without a carry; every P3 instantiation on
+    random words at each of ``P3_EDGE``'s batches and grids. Each check
+    is recorded on the sites that use it."""
     from tpuminter_torch.kernels import probes as KP
     from tpuminter_torch.ops import walk_layouts as W
 
@@ -1860,14 +1874,27 @@ def probe_edge_checks(dev, rng, stats) -> int:
             stats[site].agree(W.to_lanes(got), want, what)
 
     checks = 0
-    x = words((1 << 21) + 5)
-    xb = W.to_bits(x)
-    agree(P1_SITES, KP.xor_const(xb, 0xDEADBEEF), x ^ 0xDEADBEEF, "2^21 + 5 words")
-    agree(P1_SITES, KP.xor_const(xb[1:], 7), x[1:] ^ 7, "misaligned by one word")
+    for n in P1_SMALL_N:
+        x = words(n + 3)
+        xb = W.to_bits(x)
+        for off in range(4):
+            c = int(rng.integers(0, 1 << 32))
+            agree(P1_SITES, KP.xor_const(xb[off:off + n], c), x[off:off + n] ^ c,
+                  f"{n} words at word offset {off}")
+            checks += 1
+    for n in P1_EDGE_N:
+        x = words(n + 1)
+        xb = W.to_bits(x)
+        agree(P1_SITES, KP.xor_const(xb[:n], 0xDEADBEEF), x[:n] ^ 0xDEADBEEF, f"{n} words")
+        agree(P1_SITES, KP.xor_const(xb[1:], 7), x[1:] ^ 7, f"{n} words misaligned by one")
+        checks += 2
     inplace = xb.clone()
     KP.xor_const(inplace, 1, out=inplace)
     agree(P1_SITES, inplace, x ^ 1, "in place")
-    checks += 3
+    shifted = xb.clone()[1:]
+    KP.xor_const(shifted, 1, out=shifted)
+    agree(P1_SITES, shifted, x[1:] ^ 1, "in place, misaligned by one")
+    checks += 2
     for r, c in ((1000, 37), (37, 1000), (33, 1)):
         a, carry = words(r, c), words(c, r)
         agree(P2_SITES, KP.transpose(W.to_bits(a)), KP.transpose_plain(a), f"({r}, {c})")
@@ -1875,7 +1902,7 @@ def probe_edge_checks(dev, rng, stats) -> int:
               KP.transpose_plain(a, carry), f"({r}, {c}) into a carry")
         checks += 2
     for (layout, body), sites in P3_SITES.items():
-        for b, blocks in ((16_384, None), (2048, 1), (6144, None)):
+        for b, blocks in P3_EDGE:
             xw = words(32, b // 128, 128)
             vj = words(*W.operand_shape(layout, b))
             agree(sites, KP.walk_step(W.to_bits(xw), W.to_bits(vj), layout, body, blocks),
@@ -1912,9 +1939,15 @@ def record_site(st, site: dict, int_rate: float) -> None:
                      bound_ms=bound_ms, bound_by=bound_by, ops_per_nonce=0,
                      int32_pipe_ms=site["ops"] / int_rate * 1e3 * ISSUE_LANES_PER_SM
                      / INT32_LANES_PER_SM, probe=detail)
-    lib = f", torch {site['library_ms'] * 1e3:.3f} us" if site.get("library_ms") else ""
+    lib = (f", torch {site['library_ms'] * 1e3:.3f} us (kernel / torch "
+           f"{site['ms'] / site['library_ms']:.3f}x)" if site.get("library_ms") else "")
     say(f"  {st.name}: {site['ms'] * 1e3:.3f} us/launch, bound {bound_ms * 1e3:.3f} us by "
         f"{bound_by} ({bound_ms / site['ms']:.1%}), plain {site['plain_ms']:.3f} ms{lib}")
+    for name, v in detail["variants"].items():
+        if v.get("library_ms"):
+            say(f"    {name}: {v['ms'] * 1e3:.3f} us/launch ({v['bound_ms'] / v['ms']:.1%} of "
+                f"its bound), torch {v['library_ms'] * 1e3:.3f} us (kernel / torch "
+                f"{v['ms'] / v['library_ms']:.3f}x)")
 
 
 def phase_probes(dev, rng, int_rate) -> dict:
@@ -1932,9 +1965,10 @@ def phase_probes(dev, rng, int_rate) -> dict:
 
     stats = probe_stats()
     checks = probe_edge_checks(dev, rng, stats)
-    say(f"  P1-P3: {checks} edge checks equal to their plain versions (P1 ragged, misaligned, "
-        "in place; P2 off its tile; every P3 instantiation at B = 16384, 2048 in one block, "
-        "6144 over three bitcast blocks)")
+    say(f"  P1-P3: {checks} edge checks equal to their plain versions (P1 at 1-9 words at "
+        "every word offset, around 2^21 words aligned and not, in place; P2 off its tile; "
+        "every P3 instantiation at B = 16384 on 128, 3 and 133 blocks, 2048 in one block, "
+        "6144 over three bitcast blocks, 128 at one pass and on 3 blocks)")
     torch.cuda.empty_cache()
     walk = make_walk(dev, B, N)
     for name in PROBES:

@@ -28,6 +28,8 @@ TEMPLATE_ARGS = {
     "transpose_kernel": (("", "xor"),),
     "walk_step_kernel": (("row", "word", "grouped", "bitcast"),
                          ("null", "one_extract", "xor_only", "full")),
+    "walk_lane_kernel": (("row", "word", "grouped", "bitcast"),),
+    "xor_const_kernel": (("scalar", "vec"),),
 }
 
 

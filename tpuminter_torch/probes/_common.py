@@ -38,7 +38,7 @@ __all__ = [
     "from_wm", "rows", "word_rows", "transposed_rows", "grouped_rows", "check_chain",
     "time_ms", "once_ms", "chain_us", "graph_chain_us", "measure", "shipping_us",
     "time_design", "design_lines", "parser", "cli", "where", "words", "lanes", "step_measure",
-    "CHECK_STEPS", "resolve", "library_call",
+    "CHECK_STEPS", "resolve", "library_call", "paired_ms", "ROUNDS",
 ]
 
 #: the scripts' constants: lanes, ROMix's N, lanes of a word plane's row
@@ -48,6 +48,8 @@ M32 = 0xFFFFFFFF
 CHECK_STEPS = 4
 #: back-to-back launches a device time averages over
 REPS = 50
+#: interleaved rounds of :func:`paired_ms` on the card (its median is kept)
+ROUNDS = 3
 #: clock cycles the stream is held while the host queues them (~5 ms)
 HOLD_CYCLES = 10_000_000
 #: integer operations a lane of each walk-step body needs: BlockMix
@@ -272,6 +274,19 @@ def time_ms(fn: Callable[[], object], device, reps: int = REPS) -> float:
         hold *= 4
 
 
+def paired_ms(fns: dict, device, rounds: int = ROUNDS) -> dict:
+    """:func:`time_ms` of each of ``fns`` (name → callable), taken in
+    ``rounds`` interleaved rounds (one on the CPU), every other round in
+    reverse order, and the median kept, so that a drift of the card's
+    clocks falls on every one alike."""
+    rounds = rounds if torch.device(device).type == "cuda" else 1
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(time_ms(fns[name], device))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
 def once_ms(fn: Callable[[], object], device):
     """One call of ``fn`` (a plain version: nothing to warm up), timed;
     returns (ms, its output)."""
@@ -330,8 +345,9 @@ def measure(device, kernel: Callable, plain: Callable, *, nbytes: int, ops_count
     plain version's on the same inputs (``plain`` computes on int64
     lanes; a difference raises), then the kernel's time, the plain
     version's (one call) and the library call's (held equal to the plain
-    version first). ``nbytes`` and ``ops_count`` are the work the
-    function needs, for its bound."""
+    version first), the kernel's and the library call's in
+    :func:`paired_ms`'s interleaved rounds. ``nbytes`` and ``ops_count``
+    are the work the function needs, for its bound."""
     got = lanes(kernel())
     plain_ms, want = once_ms(plain, device)
     if got.shape != want.shape:
@@ -341,8 +357,9 @@ def measure(device, kernel: Callable, plain: Callable, *, nbytes: int, ops_count
         raise RuntimeError(f"kernel differs from its plain version by {err}")
     if library is not None and not torch.equal(lanes(library()).reshape(want.shape), want):
         raise RuntimeError("the library call computes another function than the kernel")
-    return dict(ms=time_ms(kernel, device), plain_ms=plain_ms,
-                library_ms=time_ms(library, device) if library is not None else None,
+    times = paired_ms({"kernel": kernel, **({} if library is None else {"library": library})},
+                      device)
+    return dict(ms=times["kernel"], plain_ms=plain_ms, library_ms=times.get("library"),
                 bytes=nbytes, ops=ops_count, max_abs_err=err, checks=1, **extra)
 
 
