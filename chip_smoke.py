@@ -14,7 +14,9 @@ caught), and without a CUDA device the script exits non-zero at once:
    (``sha256.cu``, ``splitmix.cu``, ``scrypt.cu``, ``probes.cu``), all
    started together; each kernel's SASS by opcode, and K1-K6's (K2, K3
    and K6 in both arms), S1's and 19's instructions a nonce or a hash on
-   each issue pipe (ALU, FMA);
+   each issue pipe (ALU, FMA); the grid-stride SHA searches' and S2's
+   registers, resident blocks an SM and waves a launch at the main
+   path's shape;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs on the card (exact integer equality) and against hashlib or
    ``toy_hash`` (the header arms of K2 and K3 on header templates and
@@ -39,10 +41,15 @@ caught), and without a CUDA device the script exits non-zero at once:
    the batch fold) on the path's batch of seeded nonces at N = 1024 (X
    and all of V too), whole and ragged, and at N = 16 on ragged counts
    down to one lane, against hashlib.scrypt on a sample, the fold at a
-   planted target; probe 19's stage 1 at its shapes and probe 11 (the
-   row gather) against its plain version; then S1, 19 and S2 timed at
-   the SCRYPT path's batch and at 2^15, 19 per step as probe 19's stage
-   2, 11 per row as probe 11 measured it, beside ``torch.index_select``;
+   planted target; S2's one-launch contract on 2^16 lanes of random X
+   (three launches back to back, ragged counts and counts below one
+   block, the first winner in the last block); probe 19's stage 1 at its
+   shapes and probe 11 (the row gather) against its plain version; then
+   S1, 19 and S2 timed at the SCRYPT path's batch and at 2^15 (S2, like
+   the roll, as its launches back to back behind a held stream, since
+   calls from Python pace it at the host's issue; that reading is
+   printed beside), 19 per step as probe 19's stage 2, 11 per row as
+   probe 11 measured it, beside ``torch.index_select``;
 3b. the layout probes (``tpuminter_torch.probes``, the TPU rounds'
    fifteen remaining ``pallas_call`` sites on the kernels P1-P3 of
    ``csrc/probes.cu``): each kernel against its plain version off the
@@ -886,6 +893,7 @@ def time_rolled_kernels(dev, rng, stats, rolled, int_rate, hw1_cap):
     from tpuminter_torch import chain
     from tpuminter_torch.cuda_worker import DEFAULT_SLAB
     from tpuminter_torch.kernels import sha256 as K
+    from tpuminter_torch.probes._common import time_ms
 
     n = DEFAULT_SLAB
     chunk = K.PLAIN_CHUNK["cuda"]
@@ -949,7 +957,8 @@ def time_rolled_kernels(dev, rng, stats, rolled, int_rate, hw1_cap):
 
     job = rolled["m_job"]
     en_hi, en_lo = i64([0, 0], dev), i64([1, 0], dev)
-    ms, got = event_ms(lambda: K.extranonce_roll(job, en_hi, en_lo), 20)
+    paced_ms, got = event_ms(lambda: K.extranonce_roll(job, en_hi, en_lo), 20)
+    ms = time_ms(lambda: K.extranonce_roll(job, en_hi, en_lo), dev)
     plain_ms, want = event_ms(lambda: K.extranonce_roll_plain(job, en_hi, en_lo), 1,
                               warmup=False)
     for g, w in zip(got, want):
@@ -957,6 +966,8 @@ def time_rolled_kernels(dev, rng, stats, rolled, int_rate, hw1_cap):
     per_row = roll_op_count(job)
     record(stats["extranonce_roll"], 2, 2, ms, plain_ms, 8 * len(job.words()) + 2 * 8 * 13,
            per_row, 2 * per_row, int_rate, unit="row")
+    stats["extranonce_roll"].timing["paced_ms"] = paced_ms
+    say(f"  extranonce_roll paced by the host (20 calls back to back): {paced_ms:.4f} ms a call")
 
 
 def phase_main_path(card: str):
@@ -1096,6 +1107,42 @@ ROLLED_PATH_KERNELS = ("sha256_batch", "search_target_header", "search_candidate
                        "extranonce_roll")
 #: row_gather (probe 11) is not on it: the miner never launches it
 SCRYPT_PATH_KERNELS = ("scrypt_front", "romix_walk", "scrypt_back")
+
+
+def wave_report(dev) -> dict:
+    """Registers, resident blocks an SM and waves a launch at the main
+    path's shape of every grid-stride SHA search kernel (K4 on 2^27
+    nonces at its own grid; 3h, 2h and 6t on a 2^27 slab and both K5
+    arms on 8 rows of 2^27 at 8 blocks an SM) and of S2 at the SCRYPT
+    batch: a launch of a fractional number of waves (above one) runs
+    its last wave part-empty."""
+    from tpuminter_torch.cuda_worker import DEFAULT_SCRYPT_BATCH, DEFAULT_SLAB
+    from tpuminter_torch.kernels import scrypt as KS
+    from tpuminter_torch.kernels import sha256 as K
+    from tpuminter_torch.ops import sha256 as ops
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = DEFAULT_SLAB
+    toy_k = ops.toy_launch(ops.toy_words(ops.toy_template(MIN_DATA)), 0).k
+    rows = {name: (which, n * ROWS if name.startswith("search_candidates_hdr_batch") else n)
+            for name, which in K.OCCUPANCY_KERNELS.items()}
+    rows["min_toy_toy"] = (K.OCCUPANCY_TOY + toy_k, n)
+    out = {}
+    for name, (which, count) in rows.items():
+        resident, regs = K.occupancy(which, dev.index)
+        grid = (K.hdr_grid(count, resident, sms) if name == "search_candidates_hdr"
+                else K._grid(count, dev.index))
+        out[name] = dict(registers=regs, blocks_per_sm=resident, grid=grid,
+                         waves=grid / (resident * sms))
+    b = DEFAULT_SCRYPT_BATCH["cuda"]
+    blocks, regs = KS.occupancy(dev)["scrypt_back"]
+    grid = -(-b // KS.THREADS)
+    out["scrypt_back"] = dict(registers=regs, blocks_per_sm=blocks, grid=grid,
+                              waves=grid / (blocks * sms))
+    for name, r in out.items():
+        say(f"  occupancy {name}: {r['registers']} registers, {r['blocks_per_sm']} blocks an SM, "
+            f"grid {r['grid']} at the path's shape = {r['waves']:.3f} waves")
+    return out
 
 
 def reset_launches(kernels) -> None:
@@ -1634,6 +1681,53 @@ def check_fold(st, hw, nonces, x, xp, what) -> float:
     return ms
 
 
+def s2_contract_checks(st, hw, b, dev, rng) -> None:
+    """S2's one-launch contract on ``b`` lanes of random X, each launch
+    equal to its plain version: three launches back to back on other X
+    and targets, with no wait between (a ticket the last block did not
+    reset would fold the next launch wrongly), ragged counts and counts
+    below one block, and a batch whose first winner lies in its last
+    block (the batch's minimum, which the count puts there, as the
+    target)."""
+    from tpuminter_torch.kernels import scrypt as KS
+    from tpuminter_torch.ops import sha256 as ops
+
+    x = torch.tensor(rng.integers(0, 1 << 32, (b, 32), dtype=np.int64), device=dev)
+    nonces = torch.tensor(rng.integers(0, 1 << 32, b, dtype=np.int64), device=dev)
+    values = scrypt_values(KS.scrypt_back_plain(hw, nonces, x, [0] * 8)[0])
+
+    def target(v):
+        return [int(w) for w in ops.target_to_words(v)]
+
+    def span(lo, count, kth):
+        return (nonces[lo:lo + count], x[lo:lo + count],
+                target(sorted(values[lo:lo + count])[min(kth, count - 1)]))
+
+    spans = [span(0, b // 3, 3), span(b // 7, b // 3 + 1000, 4), span(b // 2, b // 3 + 2000, 0)]
+    outs = [KS.scrypt_back(hw, *sp) for sp in spans]  # queued back to back
+    for k, (sp, (digest, handle)) in enumerate(zip(spans, outs)):
+        dp, hp = KS.scrypt_back_plain(hw, *sp)
+        st.agree(digest, dp, f"digests, launch {k + 1} of 3 back to back")
+        st.agree(handle, hp, f"fold, launch {k + 1} of 3 back to back")
+    for count in (b - 1, b - KS.THREADS + 1, KS.THREADS + 1, KS.THREADS - 1, 64, 1):
+        sp = span(0, count, 2)
+        (digest, handle), (dp, hp) = KS.scrypt_back(hw, *sp), KS.scrypt_back_plain(hw, *sp)
+        st.agree(digest, dp, f"digests, {count} lanes")
+        st.agree(handle, hp, f"fold, {count} lanes")
+    low = min(range(b), key=lambda i: (values[i], i))
+    count = min(b, (low // KS.THREADS + 1) * KS.THREADS)
+    sp = (nonces[:count], x[:count], target(values[low]))
+    (digest, handle), (dp, hp) = KS.scrypt_back(hw, *sp), KS.scrypt_back_plain(hw, *sp)
+    st.agree(handle, hp, f"fold, the winner in the last block ({count} lanes)")
+    st.agree(digest, dp, f"digests, the winner in the last block ({count} lanes)")
+    if handle[:2].tolist() != [1, low]:
+        fail(f"scrypt_back: the winner {low} in the last block of {count} lanes was not found: "
+             f"{handle[:2].tolist()}")
+    say(f"  scrypt_back, one launch: 3 launches back to back, {b - 1}, {b - KS.THREADS + 1}, "
+        f"{KS.THREADS + 1}, {KS.THREADS - 1}, 64 and 1 lanes, and the first winner {low} in the "
+        f"last block of {count} lanes, equal to plain")
+
+
 def scrypt_kernel_checks(dev, rng, stats, int_rate):
     """S1 → 19 → S2 against their plain versions on the card, exact: the
     path's batch of seeded nonces at N = 1024, whole and ragged (also 2^15
@@ -1652,17 +1746,15 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     from tpuminter_torch.ops import scrypt as S
     from tpuminter_torch.ops import sha256 as ops
     from tpuminter_torch.ops.walk_layouts import to_bits
-    from tpuminter_torch.probes._common import probe_v
+    from tpuminter_torch.probes._common import probe_v, time_ms
 
     s1, s19, s2, s11 = (stats[k] for k in ("scrypt_front", "romix_walk", "scrypt_back",
                                            "row_gather"))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     occ = KS.occupancy(dev)
-    per_hash = {"scrypt_front": KS.FRONT_THREADS_PER_HASH,
-                "romix_walk": KS.WALK_THREADS_PER_HASH}
-    wave = {k: b * KS.THREADS * sms // per_hash[k] for k, b in occ.items()}
-    say(f"  scrypt occupancy: blocks of {KS.THREADS} per SM {occ}; hashes in flight a wave "
-        f"{wave}")
+    wave = {k: b * KS.THREADS * sms // KS.THREADS_PER_HASH[k] for k, (b, _) in occ.items()}
+    say(f"  scrypt occupancy: (blocks of {KS.THREADS} per SM, registers) {occ}; hashes in "
+        f"flight a wave {wave}")
     hdr76 = rng.bytes(76)
     hw = S.header_to_words(hdr76)
     b = DEFAULT_SCRYPT_BATCH["cuda"]
@@ -1715,6 +1807,7 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     for count in (big, big - SCRYPT_RAGGED):
         check_fold(s2, hw, nb[:count], xb[:count], xb[:count], f"{count} lanes of random X")
     del xb, nb
+    s2_contract_checks(s2, hw, b, dev, rng)
     say(f"  scrypt_front, romix_walk, scrypt_back: {b} nonces (the path's batch) and "
         f"{b - SCRYPT_RAGGED} and {SCRYPT_HALF_BATCH - SCRYPT_RAGGED} in a {b}-lane V at N = "
         f"1024, {SCRYPT_CHECK_N}, 1000, "
@@ -1744,9 +1837,11 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
         nz = torch.tensor(rng.integers(0, 1 << 32, count, dtype=np.int64), device=dev)
         ms1, x = event_ms(lambda: KS.scrypt_front(hw, nz, SCRYPT_N_LOG2, v), 3)
         ms19, x = event_ms(lambda: KS.romix_walk(x, v, SCRYPT_N_LOG2, SCRYPT_N), 3)
-        ms2, _ = event_ms(lambda: KS.scrypt_back(hw, nz, x, [0] * 8), 5)
-        batch_ms[count] = {"front": ms1, "walk": ms19, "back": ms2}
-        say(f"  at a batch of {count}: S1 {ms1:.4f} ms, 19 {ms19:.4f}, S2 {ms2:.4f}")
+        paced2, _ = event_ms(lambda: KS.scrypt_back(hw, nz, x, [0] * 8), 5)
+        ms2 = time_ms(lambda: KS.scrypt_back(hw, nz, x, [0] * 8), dev)
+        batch_ms[count] = {"front": ms1, "walk": ms19, "back": ms2, "back_paced": paced2}
+        say(f"  at a batch of {count}: S1 {ms1:.4f} ms, 19 {ms19:.4f}, S2 {ms2:.4f} (paced by "
+            f"the host, 5 calls back to back: {paced2:.4f})")
         del v, x
         torch.cuda.empty_cache()
     ms1, ms19, ms2 = (batch_ms[b][k] for k in ("front", "walk", "back"))
@@ -1762,6 +1857,7 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     # the 8-word compare (the kernel also recomputes the key and HMAC states)
     record(s2, b, b, ms2, plain["back"], b * (8 + 256 + 64) + 8 * 19, 4 * sha + 16,
            b * (4 * sha + 16), int_rate, unit="hash")
+    s2.timing["paced_ms"] = batch_ms[b]["back_paced"]
     kernel_mhs = b / (ms1 + ms19 + ms2) / 1e3
     say(f"  romix_walk at the path's batch ({b}): {walk_us['path_b']:.3f} us/step; S1 + 19 + "
         f"S2 together {ms1 + ms19 + ms2:.3f} ms a batch = {kernel_mhs:.4f} MH/s "
@@ -2422,6 +2518,7 @@ def main() -> int:
             say(f"  SASS {kernel}: {sum(ops_count.values())} instructions; "
                 + ", ".join(f"{op} {c}" for op, c in top))
     pipes = pipe_mixes(infos)
+    waves = wave_report(dev)
 
     phase("3. kernels against their plain versions")
     stats, scrypt_info = phase_kernels(dev, np.random.default_rng(SEED))
@@ -2470,8 +2567,9 @@ def main() -> int:
             "ops_per_nonce": t["ops_per_nonce"],
             "int32_pipe_ms": t["int32_pipe_ms"], "checks": st.checks,
             **({"pipes": pipes[name]} if name in pipes else {}),
+            **({"occupancy": waves[name]} if name in waves else {}),
             **{k: t[k] for k in ("ms_at_reps", "ns_per_row", "probe", "toy60_ms",
-                                 "toy60_bound_ms") if k in t},
+                                 "toy60_bound_ms", "paced_ms") if k in t},
         })
     say(json.dumps({"hashcore": {"rates": hc_rates, "window_sweep_g_per_s": sweep_rates,
                                  "window_breakdown": breakdown,

@@ -28,7 +28,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["BuildInfo", "build", "library", "SOURCES", "TmTemplate", "TmTarget", "TmHeader",
-           "TmToy", "TmScryptHeader"]
+           "TmToy", "TmScryptHeader", "TmScryptKey"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its source
@@ -83,6 +83,13 @@ class TmScryptHeader(ctypes.Structure):
     76-byte header prefix as 19 big-endian words."""
 
     _fields_ = [("w", ctypes.c_uint32 * 19)]
+
+
+class TmScryptKey(ctypes.Structure):
+    """Mirror of ``struct TmScryptKey`` in ``csrc/scrypt.cu``: SHA-256's
+    state after the header's first 64 bytes (``ops.scrypt.key_state``)."""
+
+    _fields_ = [("w", ctypes.c_uint32 * 8)]
 
 
 @dataclass(frozen=True)
@@ -181,6 +188,8 @@ def library(name: str) -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr, i32, u32, u32, i32, ptr, i32, i32, ptr,
             ],
             "tm_extranonce_roll": [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr],
+            "tm_sha256_occupancy": [i32, i32, ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)],
         },
         "splitmix": {
             "tm_splitmix_batch": [ctypes.c_uint64, ptr, ptr, ptr, ptr, i64, i32, i32, ptr],
@@ -189,10 +198,12 @@ def library(name: str) -> ctypes.CDLL:
             "tm_scrypt_front": [ctypes.POINTER(TmScryptHeader), ptr, ptr, ptr, i32, i32, i32,
                                 i32, ptr],
             "tm_romix_walk": [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
-            "tm_scrypt_back": [ctypes.POINTER(TmScryptHeader), ctypes.POINTER(TmTarget), ptr,
-                               ptr, ptr, ptr, ptr, i32, i32, ptr],
+            "tm_scrypt_back": [ctypes.POINTER(TmScryptHeader), ctypes.POINTER(TmScryptKey),
+                               ctypes.POINTER(TmTarget), ptr, ptr, ptr, ptr, ptr, i32, i32,
+                               ptr],
             "tm_row_gather": [ptr, i64, ptr, ptr, i32, i32, i32, ptr],
-            "tm_scrypt_occupancy": [i32, i32, ctypes.POINTER(ctypes.c_int)],
+            "tm_scrypt_occupancy": [i32, i32, ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)],
         },
         "probes": {
             "tm_xor_const": [ptr, ptr, i64, u32, i32, i32, i32, ptr],

@@ -22,12 +22,16 @@
 // the walk 1024 x 864 operations, 1.74 M in all, 0.052 us at 132 SMs x
 // 128 lanes x 1980 MHz (19 MH/s; 9.6 MH/s on the INT32 pipe alone).
 // Device memory binds, and the integer pipe is close behind. The 17
-// SHA-256 compressions of the two PBKDF2 ends (21 with the key and HMAC
-// states that tm_scrypt_back recomputes) are ~3% of the operations.
+// SHA-256 compressions of the two PBKDF2 ends (20 with the key's second
+// block and the HMAC states that tm_scrypt_back recomputes) are ~3% of
+// the operations.
 //
 // The design:
-//   * S2 runs one thread per hash, its SHA-256 fully unrolled with
-//     constant indices;
+//   * S2 runs one thread per hash in one launch: its seven compressions
+//     in a loop over one compression body, the key's first block from
+//     the host (TmScryptKey), X staged through shared memory in
+//     consecutive 16-byte loads, and the batch fold done by the last
+//     block to finish;
 //   * the fill (S1) and the walk (19) run four threads per hash
 //     (salsa.cuh's quad form): 8 words of X a thread, the Salsa columns
 //     gathered by warp shuffles, at most 64 registers, so 2^15 hashes
@@ -53,9 +57,9 @@
 //   * sizes are run-time arguments (n_log2, the ragged count, the stride,
 //     the header words as a by-value struct, the target), so one build
 //     serves every job and every N;
-//   * the batch fold reduces per thread, per block in shared memory, then
-//     in one small block over the per-block partials (the first winning
-//     lane by atomicMin): no scheduling order changes a result.
+//   * the batch fold reduces per thread, per block in shared memory (the
+//     first winning lane by a shared atomicMin), then in the last block
+//     over the per-block partials: no scheduling order changes a result.
 //
 // X travels between the kernels as int64 lanes (the port's convention for
 // u32 words on the torch side), (count, 32); V is the caller's scratch.
@@ -64,6 +68,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 #include "salsa.cuh"  // Salsa20/8 and BlockMix, shared with probes.cu
 
@@ -77,13 +83,27 @@ struct TmTarget {
   uint32_t w[8];  // msb-first hash-value words
 };
 
+// SHA-256's state after the header's first 64 bytes (ops/scrypt.py
+// key_state): the first block of the key SHA256(header80), the same for
+// every nonce of a job.
+struct TmScryptKey {
+  uint32_t w[8];
+};
+
 namespace {
 
 constexpr int kThreads = 128;
+
 // resident blocks a SM the fill and the walk are built for: 8 x 128
 // threads at <= 64 registers, so the path's 2^15 hashes (2^17 threads)
 // are one wave
 constexpr int kQuadBlocksPerSm = 8;
+// resident blocks a SM S2 is built for: 4 x 128 threads at <= 128
+// registers, so the path's 2^16 hashes (512 blocks) are one wave
+constexpr int kBackBlocksPerSm = 4;
+// words of an S2 block's partial: its minimum's hash words and lane, and
+// its first winning lane
+constexpr int kBackPartial = 10;
 constexpr uint32_t kNotFound = 0x7FFFFFFFu;  // first lane when nothing hit
 constexpr uint32_t kGatherStep = 977u;       // romix_pallas_probe's pass stride
 
@@ -330,7 +350,33 @@ romix_walk_kernel(const long long* __restrict__ xin, long long* __restrict__ xou
   }
 }
 
-// ---- S2: PBKDF2-out and the batch fold ---------------------------------------
+// ---- S2: PBKDF2-out and the batch fold, one launch ----------------------------
+//
+// One thread a hash, 128 hashes a block. The block first stages its
+// hashes' X (one contiguous span of 256 bytes a hash) into shared memory
+// with consecutive 16-byte loads, as u32 words in rows padded a word, so
+// each thread then reads its own row without bank conflicts. A hash's
+// PBKDF2-HMAC-SHA256(P = header80, S = X, c = 1, 32 bytes) is seven
+// compressions: the key's second block (its first, the header's first 64
+// bytes, is the same for every nonce: the host's TmScryptKey), the opad
+// and ipad states, X's two blocks, the constant pad block (1, 0x80000000,
+// zeros, 1568: its 64 schedule words fold into the round constants at
+// compile time) and the outer hash. The six blocks with varying words run
+// one compression body in a loop, the message and state chosen per step,
+// so the kernel's code is about two compressions long (3,700 SASS
+// instructions, against 10,800 for the eight unrolled ones it replaces);
+// unrolled, the same loop ran 7% slower on an H100. Its adds stay plain
+// (IADD3 on the ALU pipe): at 2^16 hashes a scheduler holds about four
+// warps, and the FMA-pipe adds of sha256.cu read 9% slower here. The
+// digests leave through the same shared rows as consecutive 16-byte
+// stores. Each block writes one partial (its
+// lexicographic minimum of (hash words, lane) and its first winning lane,
+// by a shared atomicMin); the last block to finish (an atomic ticket
+// after a fence) folds every partial into the handle, reads the first
+// winner's digest, and resets the ticket for the next launch. So one
+// launch computes the function, and no scheduling order changes a result.
+// The ticket is one device word: the launches of one device run one at a
+// time (the port launches on its current stream).
 
 template <int K>
 __device__ __forceinline__ bool lex_less(const uint32_t (&a)[K], const uint32_t (&b)[K]) {
@@ -369,44 +415,166 @@ __device__ __forceinline__ void block_min(uint32_t (&v)[9]) {
   }
 }
 
-// h[0] = found = 0, h[1] = first lane = none.
-__global__ void init_handle_kernel(long long* h) {
-  if (threadIdx.x == 0) {
-    h[0] = 0;
-    h[1] = kNotFound;
+// The pad block's schedule word i, at compile time.
+__host__ __device__ constexpr uint32_t rotr_c(uint32_t x, int n) {
+  return (x >> n) | (x << (32 - n));
+}
+__host__ __device__ constexpr uint32_t pad_w(int i) {
+  uint32_t w[64] = {};
+  w[0] = 1u;
+  w[1] = 0x80000000u;
+  w[15] = 1568u;  // ipad (64) + X (128) + 4 bytes
+  for (int j = 16; j <= i; ++j) {
+    const uint32_t x15 = w[j - 15], x2 = w[j - 2];
+    w[j] = (rotr_c(x2, 17) ^ rotr_c(x2, 19) ^ (x2 >> 10)) + w[j - 7] +
+           (rotr_c(x15, 7) ^ rotr_c(x15, 18) ^ (x15 >> 3)) + w[j - 16];
+  }
+  return w[i];
+}
+
+// A round of the pad block: its schedule word W is a compile-time
+// constant, which joins the round constant.
+template <uint32_t W>
+__device__ __forceinline__ void pad_round(uint32_t (&x)[8], uint32_t k) {
+  const uint32_t t1 = x[7] + (rotr(x[4], 6) ^ rotr(x[4], 11) ^ rotr(x[4], 25)) +
+                      (x[6] ^ (x[4] & (x[5] ^ x[6]))) + (k + W);
+  const uint32_t t2 = (rotr(x[0], 2) ^ rotr(x[0], 13) ^ rotr(x[0], 22)) +
+                      ((x[0] & x[1]) | (x[2] & (x[0] | x[1])));
+  x[7] = x[6];
+  x[6] = x[5];
+  x[5] = x[4];
+  x[4] = x[3] + t1;
+  x[3] = x[2];
+  x[2] = x[1];
+  x[1] = x[0];
+  x[0] = t1 + t2;
+}
+
+template <int... I>
+__device__ __forceinline__ void pad_rounds(uint32_t (&x)[8], std::integer_sequence<int, I...>) {
+  (pad_round<pad_w(I)>(x, kK[I]), ...);
+}
+
+// s <- s + rounds(s, the pad block).
+__device__ __forceinline__ void compress_pad(uint32_t (&s)[8]) {
+  uint32_t x[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = s[i];
+  pad_rounds(x, std::make_integer_sequence<int, 64>());
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] += x[i];
+}
+
+// PBKDF2-HMAC-SHA256(P = header80, S = X, c = 1, 32 bytes) of one hash:
+// nw is its nonce's little-endian bytes read as a big-endian word, xw its
+// 32 X words (little-endian, in shared memory), dg the digest's
+// big-endian words. Steps 0-5 run one compression body: 0 the key's
+// second block, 1 the opad state, 2 the ipad state, 3 and 4 X's blocks,
+// 5 the outer hash, after the pad block ends the inner hash. The loop is
+// kept rolled (#pragma unroll 1): unrolled, the same code ran slower on
+// an H100.
+__device__ __forceinline__ void pbkdf2_out(const TmScryptHeader& hd, const TmScryptKey& key,
+                                           uint32_t nw, const uint32_t* xw,
+                                           uint32_t (&dg)[8]) {
+  uint32_t kst[8], os[8], st[8];
+#pragma unroll 1
+  for (int b = 0; b < 6; ++b) {
+    uint32_t s[8], m[16];
+    if (b == 5) compress_pad(st);
+    switch (b) {
+      case 0:  // the key, SHA256(header80): its second block
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[i] = key.w[i];
+        m[0] = hd.w[16];
+        m[1] = hd.w[17];
+        m[2] = hd.w[18];
+        m[3] = nw;
+        m[4] = 0x80000000u;
+#pragma unroll
+        for (int i = 5; i < 15; ++i) m[i] = 0u;
+        m[15] = 640u;  // an 80-byte message
+        break;
+      case 1:  // the outer (opad) and inner (ipad) HMAC states
+      case 2: {
+        const uint32_t pad = b == 1 ? 0x5C5C5C5Cu : 0x36363636u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[i] = kH0[i];
+          m[i] = kst[i] ^ pad;
+          m[8 + i] = pad;
+        }
+        break;
+      }
+      case 3:  // X's two blocks, big-endian
+      case 4:
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[i] = st[i];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) m[i] = bswap32(xw[((b - 3) & 1) * 16 + i]);
+        break;
+      default:  // the outer hash: the opad state over the inner digest
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[i] = os[i];
+          m[i] = st[i];
+        }
+        m[8] = 0x80000000u;
+#pragma unroll
+        for (int i = 9; i < 15; ++i) m[i] = 0u;
+        m[15] = 768u;  // opad (64 bytes) + digest (32 bytes)
+        break;
+    }
+    compress(s, m);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (b == 0) {
+        kst[i] = s[i];
+      } else if (b == 1) {
+        os[i] = s[i];
+      } else if (b < 5) {
+        st[i] = s[i];
+      } else {
+        dg[i] = s[i];
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scrypt_back_kernel(const TmScryptHeader hd, const TmTarget tg,
+// blocks of S2's running launch that have written their partial; the
+// last one resets it
+__device__ unsigned int g_back_ticket = 0;
+
+__global__ void __launch_bounds__(kThreads, kBackBlocksPerSm)
+scrypt_back_kernel(const TmScryptHeader hd, const TmScryptKey key, const TmTarget tg,
                    const long long* __restrict__ nonces, const long long* __restrict__ x,
-                   long long* __restrict__ digest, long long* h, uint32_t* __restrict__ partial,
-                   int count) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
+                   long long* __restrict__ digest, long long* __restrict__ h,
+                   uint32_t* __restrict__ partial, int count) {
+  __shared__ uint32_t xs[kThreads][33];  // the block's X, then its digests
+  __shared__ uint32_t first_win, fold_win;
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * kThreads;
+  const int live = min(kThreads, count - first);  // the block's hashes
+  if (tid == 0) {
+    first_win = kNotFound;
+    fold_win = kNotFound;
+  }
+  // X in: the block's rows are one span of live x 16 vectors of 16 bytes,
+  // loaded by consecutive threads
+  const longlong2* src = reinterpret_cast<const longlong2*>(x + (size_t)first * 32);
+  for (int k = tid; k < live * 16; k += kThreads) {
+    const longlong2 v = src[k];
+    xs[k >> 4][(k & 15) * 2] = (uint32_t)v.x;
+    xs[k >> 4][(k & 15) * 2 + 1] = (uint32_t)v.y;
+  }
+  __syncthreads();
   uint32_t best[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) best[k] = 0xFFFFFFFFu;
-  if (lane < count) {
-    uint32_t is[8], os[8], m[16], inner[8], dg[8];
-    hmac_states(hd, bswap32((uint32_t)nonces[lane]), is, os);
-    // PBKDF2(P = hdr, S = X, c = 1, dkLen = 32): inner message X || INT_BE(1)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) m[i] = bswap32((uint32_t)x[(size_t)lane * 32 + i]);
-    compress(is, m);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) m[i] = bswap32((uint32_t)x[(size_t)lane * 32 + 16 + i]);
-    compress(is, m);
-    m[0] = 1u;
-    m[1] = 0x80000000u;
-#pragma unroll
-    for (int i = 2; i < 15; ++i) m[i] = 0u;
-    m[15] = 1568u;  // ipad (64) + X (128) + 4 bytes
-    compress(is, m);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) inner[i] = is[i];
-    hmac_finish(os, inner, dg);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) digest[(size_t)lane * 8 + i] = (long long)dg[i];
+  if (tid < live) {
+    const int lane = first + tid;
+    uint32_t dg[8];
+    pbkdf2_out(hd, key, bswap32((uint32_t)nonces[lane]), xs[tid], dg);
     // the hash value's words, msb first: word j = bswap(digest word 7 - j)
 #pragma unroll
     for (int j = 0; j < 8; ++j) best[j] = bswap32(dg[7 - j]);
@@ -417,46 +585,62 @@ scrypt_back_kernel(const TmScryptHeader hd, const TmTarget tg,
       lt = lt || (eq && best[j] < tg.w[j]);
       eq = eq && best[j] == tg.w[j];
     }
-    if (lt || eq) {
-      atomicMin((unsigned long long*)&h[1], (unsigned long long)lane);
-      h[0] = 1;
-    }
+    if (lt || eq) atomicMin(&first_win, (uint32_t)lane);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xs[tid][i] = dg[i];  // its own row, which only it read
+  }
+  __syncthreads();
+  // digests out: the block's rows are one span of live x 4 vectors
+  longlong2* dst = reinterpret_cast<longlong2*>(digest + (size_t)first * 8);
+  for (int k = tid; k < live * 4; k += kThreads) {
+    dst[k] = make_longlong2((long long)xs[k >> 2][(k & 3) * 2],
+                            (long long)xs[k >> 2][(k & 3) * 2 + 1]);
   }
   block_min(best);
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
+    uint32_t* p = partial + (size_t)blockIdx.x * kBackPartial;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) partial[blockIdx.x * 9 + k] = best[k];
+    for (int k = 0; k < 9; ++k) p[k] = best[k];
+    p[9] = first_win;
   }
-}
-
-// One block folds `blocks` partials into h[2 .. 11) (min words, min lane),
-// then copies the first winner's hash words into h[11 .. 19) (zeros if
-// none won).
-__global__ void __launch_bounds__(kThreads)
-scrypt_fold_kernel(const uint32_t* __restrict__ partial, int blocks,
-                   const long long* __restrict__ digest, long long* h) {
-  uint32_t best[9];
+  // every thread's digests and thread 0's partial visible to the device
+  // before the block takes its ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&g_back_ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block: fold every partial into h (found, first lane, min
+  // words, min lane, the first winner's hash words or zeros)
 #pragma unroll
   for (int k = 0; k < 9; ++k) best[k] = 0xFFFFFFFFu;
-  for (int i = threadIdx.x; i < blocks; i += kThreads) {
+  uint32_t win = kNotFound;
+  for (int i = tid; i < (int)gridDim.x; i += kThreads) {
+    const uint32_t* p = partial + (size_t)i * kBackPartial;
     uint32_t cand[9];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) cand[k] = partial[i * 9 + k];
+    for (int k = 0; k < 9; ++k) cand[k] = __ldcg(p + k);
     if (lex_less<9>(cand, best)) {
 #pragma unroll
       for (int k = 0; k < 9; ++k) best[k] = cand[k];
     }
+    win = min(win, __ldcg(p + 9));
   }
-  block_min(best);
-  if (threadIdx.x == 0) {
+  atomicMin(&fold_win, win);
+  block_min(best);  // its barriers also order fold_win's atomics
+  if (tid == 0) {
+    const uint32_t w = fold_win;
+    const bool found = w != kNotFound;
+    h[0] = found;
+    h[1] = w;
 #pragma unroll
     for (int k = 0; k < 9; ++k) h[2 + k] = best[k];
-    const bool found = h[0] != 0;
-    const long long first = h[1];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      h[11 + j] = found ? (long long)bswap32((uint32_t)digest[first * 8 + 7 - j]) : 0;
+      h[11 + j] = found ? (long long)bswap32((uint32_t)__ldcg(digest + (size_t)w * 8 + 7 - j))
+                        : 0;
     }
+    g_back_ticket = 0u;
   }
 }
 
@@ -496,6 +680,7 @@ int finish() { return (int)cudaGetLastError(); }
 
 static_assert(sizeof(TmScryptHeader) == 19 * 4, "TmScryptHeader layout is mirrored in build.py");
 static_assert(sizeof(TmTarget) == 8 * 4, "TmTarget layout is mirrored in build.py");
+static_assert(sizeof(TmScryptKey) == 8 * 4, "TmScryptKey layout is mirrored in build.py");
 
 extern "C" {
 
@@ -517,16 +702,13 @@ int tm_romix_walk(const long long* xin, long long* xout, const void* v, int coun
   return finish();
 }
 
-int tm_scrypt_back(const TmScryptHeader* hd, const TmTarget* tg, const long long* nonces,
-                   const long long* x, long long* digest, long long* handle, uint32_t* partial,
-                   int count, int device, void* stream) {
+// x and digest 16-byte aligned; partial holds kBackPartial words a block.
+int tm_scrypt_back(const TmScryptHeader* hd, const TmScryptKey* key, const TmTarget* tg,
+                   const long long* nonces, const long long* x, long long* digest,
+                   long long* handle, uint32_t* partial, int count, int device, void* stream) {
   cudaSetDevice(device);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = blocks_for(count);
-  init_handle_kernel<<<1, 32, 0, s>>>(handle);
-  scrypt_back_kernel<<<blocks, kThreads, 0, s>>>(*hd, *tg, nonces, x, digest, handle, partial,
-                                                 count);
-  scrypt_fold_kernel<<<1, kThreads, 0, s>>>(partial, blocks, digest, handle);
+  scrypt_back_kernel<<<blocks_for(count), kThreads, 0, (cudaStream_t)stream>>>(
+      *hd, *key, *tg, nonces, x, digest, handle, partial, count);
   return finish();
 }
 
@@ -538,13 +720,19 @@ int tm_row_gather(const void* v, long long rows, const long long* idx, long long
   return finish();
 }
 
-// Resident blocks per SM of the fill (which = 0) or the walk (1) at
-// kThreads threads a block: with the SM count, the hashes in flight a wave
-// (a block of either holds kThreads / 4 hashes).
-int tm_scrypt_occupancy(int which, int device, int* blocks_per_sm) {
+// Resident blocks per SM, and registers a thread, of the fill (which =
+// 0), the walk (1) or S2 (2) at kThreads threads a block: with the SM
+// count, the hashes in flight a wave (a block of the fill or the walk
+// holds kThreads / 4 hashes, of S2 kThreads).
+int tm_scrypt_occupancy(int which, int device, int* blocks_per_sm, int* regs) {
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  const void* fn = which == 0 ? (const void*)scrypt_front_kernel : (const void*)romix_walk_kernel;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, 0);
+  const void* fns[] = {(const void*)scrypt_front_kernel, (const void*)romix_walk_kernel,
+                       (const void*)scrypt_back_kernel};
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, fns[which]);
+  *regs = attr.numRegs;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fns[which], kThreads, 0);
   return finish();
 }
 

@@ -44,10 +44,13 @@
 //   * K4/K5 take the header from device memory (the roll's output), the
 //     header arms of K2 and K3 take it by value, and all keep its padding
 //     words as compile-time constants, so the compiler folds the schedule
-//     terms they feed; K5's sched arm and the header arms also compute
-//     the header's nonce-free prefix (rounds 0-2, w16, w17, most of w18
-//     and w19, and round 3 but for its nonce word) once a row or a
+//     terms they feed; K4, K5's sched arm and the header arms also
+//     compute the header's nonce-free prefix (rounds 0-2, w16, w17, most
+//     of w18 and w19, and round 3 but for its nonce word) once a row or a
 //     thread, outside the nonce loop;
+//   * the grid-stride searches run at most 8 blocks of 256 an SM, K4 on
+//     whole waves of its resident blocks (tm_sha256_occupancy reports
+//     each search kernel's), so its last wave is never part-empty;
 //   * K6's toy arm has the high nonce word folded into its message on
 //     the host and is instantiated on the word the low one starts at, so
 //     the padding's zeros are compile-time constants there too and the
@@ -496,15 +499,28 @@ search_candidates_header_kernel(const TmHeader hd, uint32_t base, uint32_t n,
 
 // ---- K4: K3's test under a header read from device memory -------------
 //
-// The roll writes the header's midstate and tail words to device memory;
-// every thread reads them once. Same ascending warps and early exit as K3.
+// The roll writes the header's midstate and tail words to device memory.
+// Each thread reads the 11 words once and prepares the header's
+// nonce-free prefix once, before its nonce loop (K5's sched body); each
+// nonce's feed-forward re-reads the midstate (L1-resident), so no
+// midstate is held across the loop. The launcher's grid is whole waves:
+// the kernel's resident blocks an SM (tm_sha256_occupancy) times the SM
+// count times kernels/sha256.py's HDR_WAVES. Every block sweeps the same
+// share of the range, so no wave runs part-empty at the end. Same
+// ascending warps and early exit as K3; a warp also stops where its next
+// step would pass 2^32, so every u32 n is swept once.
 __global__ void __launch_bounds__(kThreads)
-search_candidates_hdr_kernel(const long long* mid8, const long long* tail3, uint32_t base,
-                             uint32_t n, uint32_t hw1_cap, unsigned long long* h) {
-  uint32_t mid[8];
+search_candidates_hdr_kernel(const long long* __restrict__ mid8,
+                             const long long* __restrict__ tail3, uint32_t base, uint32_t n,
+                             uint32_t hw1_cap, unsigned long long* h) {
+  HdrPrep prep;
+  {
+    uint32_t mid[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) mid[i] = (uint32_t)mid8[i];
-  const uint32_t t0 = (uint32_t)tail3[0], t1 = (uint32_t)tail3[1], t2 = (uint32_t)tail3[2];
+    for (int i = 0; i < 8; ++i) mid[i] = (uint32_t)__ldg(mid8 + i);
+    prepare_hdr(mid, (uint32_t)__ldg(tail3), (uint32_t)__ldg(tail3 + 1),
+                (uint32_t)__ldg(tail3 + 2), prep);
+  }
   const uint32_t lane = threadIdx.x & 31u;
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t w0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31u); w0 < n;
@@ -513,12 +529,15 @@ search_candidates_hdr_kernel(const long long* mid8, const long long* tail3, uint
     const uint32_t off = w0 + lane;
     if (off < n) {
       uint32_t x[8];
-      header_first(mid, t0, t1, t2, base + off, x);
+      prepared_rounds(prep, base + off, x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = add_f(x[i], (uint32_t)__ldg(mid8 + i));
       if (second_hit(x, hw1_cap)) {
         atomicMin(&h[1], (unsigned long long)off);
         h[0] = 1;
       }
     }
+    if (n - w0 <= stride) break;
   }
 }
 
@@ -1119,6 +1138,30 @@ int tm_min_toy_toy(const TmToy* t0, const TmToy* t1, int k, uint32_t lo0, uint32
     count += grid1;
   }
   reduce_kernel<3><<<1, kThreads, 0, s>>>(partial, count, handle, 0);
+  return finish();
+}
+
+// Resident blocks of kThreads threads per SM, and registers a thread, of
+// the grid-stride search kernel `which`: 0 K4, 1 K3's header arm, 2 K2's
+// header arm, 3 and 4 K5 (sched off, on), 5 + k K6's toy arm <k>. A
+// grid of blocks_per_sm x SMs blocks is one whole wave.
+int tm_sha256_occupancy(int which, int device, int* blocks_per_sm, int* regs) {
+  const void* fns[] = {
+      (const void*)search_candidates_hdr_kernel, (const void*)search_candidates_header_kernel,
+      (const void*)search_target_header_kernel,
+      (const void*)search_candidates_hdr_batch_kernel<false>,
+      (const void*)search_candidates_hdr_batch_kernel<true>};
+  constexpr int kFns = sizeof(fns) / sizeof(fns[0]);
+  if (which < 0 || which >= kFns + 16) return (int)cudaErrorInvalidValue;
+  cudaSetDevice(device);
+  const void* fn = which < kFns
+                       ? fns[which]
+                       : (const void*)toy_kernel(which - kFns,
+                                                 std::make_integer_sequence<int, 16>());
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, fn);
+  *regs = attr.numRegs;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, 0);
   return finish();
 }
 

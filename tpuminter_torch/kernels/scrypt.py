@@ -23,6 +23,7 @@ counts its kernel launches (plain runs are not counted).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -35,6 +36,7 @@ __all__ = [
     "romix_scratch", "scrypt_front", "romix_walk", "scrypt_back", "row_gather",
     "scrypt_front_plain", "romix_walk_plain", "scrypt_back_plain", "row_gather_plain",
     "occupancy", "KERNELS", "THREADS", "FRONT_THREADS_PER_HASH", "WALK_THREADS_PER_HASH",
+    "BACK_THREADS_PER_HASH", "THREADS_PER_HASH", "BACK_PARTIAL",
 ]
 
 _I64, _I32 = torch.int64, torch.int32
@@ -45,6 +47,9 @@ THREADS = 128
 #: threads a hash of the fill (S1) and of the walk (19); S2 runs one a hash
 FRONT_THREADS_PER_HASH = 4
 WALK_THREADS_PER_HASH = 4
+BACK_THREADS_PER_HASH = 1
+#: u32 words of an S2 block's partial (``kBackPartial``)
+BACK_PARTIAL = 10
 
 
 def _launch(name: str, *args) -> None:
@@ -152,9 +157,19 @@ def romix_walk(x: torch.Tensor, v: torch.Tensor, n_log2: int, steps: int) -> tor
 # ---------------------------------------------------------------------------
 
 def scrypt_back_plain(header_words: Sequence[int], nonces: torch.Tensor, x: torch.Tensor,
-                      target_words: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    digest = ops.pbkdf2_out(header_words, nonces, x)
+                      target_words: Sequence[int],
+                      key: Sequence[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``key``, the header's :func:`ops.scrypt.key_state`, skips the
+    key's first compression, as the kernel does."""
+    digest = ops.pbkdf2_out(header_words, nonces, x, key)
     return digest, ops.batch_fold(digest, target_words)
+
+
+@functools.lru_cache(maxsize=64)
+def _key_struct(header_words: tuple) -> build.TmScryptKey:
+    key = build.TmScryptKey()
+    key.w[:] = ops.key_state(header_words)
+    return key
 
 
 def scrypt_back(header_words: Sequence[int], nonces: torch.Tensor, x: torch.Tensor,
@@ -163,22 +178,27 @@ def scrypt_back(header_words: Sequence[int], nonces: torch.Tensor, x: torch.Tens
     ``target_words``: ``(digest (B, 8), handle)``, the handle packed as
     :func:`ops.scrypt.batch_fold` packs it (found, first winning lane,
     the lexicographic minimum's hash words and lane, the first winner's
-    hash words)."""
+    hash words). One launch: the key's first block comes from the host
+    (:func:`ops.scrypt.key_state`, once a header), and the last block to
+    finish folds the blocks' partials into the handle."""
     count = _count(nonces)
     _check("X", x, (count, 32))
     words = [int(t) for t in target_words]
     if len(words) != 8 or any(not 0 <= w <= ops.M32 for w in words):
         raise ValueError("target_words must be 8 msb-first u32 words")
     device = _same_device(nonces, x)
+    key = _key_struct(tuple(int(w) for w in header_words))
     if device.type == "cpu":
-        return scrypt_back_plain(header_words, nonces, x, words)
+        return scrypt_back_plain(header_words, nonces, x, words, tuple(key.w))
     device = _cuda_device(device)
+    if x.data_ptr() % 16:
+        raise ValueError("X must start on a 16-byte boundary (the kernel loads 16 bytes)")
     digest = torch.empty((count, 8), dtype=_I64, device=device)
     handle = torch.empty(ops.HANDLE_WORDS, dtype=_I64, device=device)
-    partial = torch.empty(-(-count // THREADS) * 9, dtype=_I32, device=device)
+    partial = torch.empty(-(-count // THREADS) * BACK_PARTIAL, dtype=_I32, device=device)
     target = build.TmTarget()
     target.w[:] = words
-    _launch("tm_scrypt_back", ctypes.byref(_header_struct(header_words)),
+    _launch("tm_scrypt_back", ctypes.byref(_header_struct(header_words)), ctypes.byref(key),
             ctypes.byref(target), nonces.data_ptr(), x.data_ptr(), digest.data_ptr(),
             handle.data_ptr(), partial.data_ptr(), count, device.index, _stream(device))
     scrypt_back.launches += 1
@@ -215,17 +235,23 @@ def row_gather(v: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tensor:
     return out
 
 
+#: threads a hash of each kernel with a wave (``occupancy``)
+THREADS_PER_HASH = {"scrypt_front": FRONT_THREADS_PER_HASH,
+                    "romix_walk": WALK_THREADS_PER_HASH, "scrypt_back": BACK_THREADS_PER_HASH}
+
+
 def occupancy(device) -> dict:
-    """Resident blocks of :data:`THREADS` threads per SM of the fill and
-    the walk kernels: the hashes in flight a wave are ``blocks × THREADS
-    × SMs`` over :data:`FRONT_THREADS_PER_HASH` or
-    :data:`WALK_THREADS_PER_HASH`."""
+    """Resident blocks of :data:`THREADS` threads per SM, and registers a
+    thread, of the fill, the walk and S2: ``{name: (blocks, registers)}``.
+    The hashes in flight a wave are ``blocks × THREADS × SMs`` over
+    :data:`THREADS_PER_HASH`."""
     device = _cuda_device(device)
     out = {}
-    for which, name in ((0, "scrypt_front"), (1, "romix_walk")):
-        blocks = ctypes.c_int(0)
-        _launch("tm_scrypt_occupancy", which, device.index, ctypes.byref(blocks))
-        out[name] = blocks.value
+    for which, name in enumerate(THREADS_PER_HASH):
+        blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
+        _launch("tm_scrypt_occupancy", which, device.index, ctypes.byref(blocks),
+                ctypes.byref(regs))
+        out[name] = (blocks.value, regs.value)
     return out
 
 

@@ -43,6 +43,7 @@ import ctypes
 import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from tpuminter_torch.kernels import build
@@ -56,7 +57,8 @@ __all__ = [
     "sha256_batch_plain", "search_target_plain", "search_target_header_plain",
     "search_candidates_plain", "search_candidates_header_plain", "min_toy_plain",
     "min_toy_toy_plain", "search_candidates_hdr_plain", "search_candidates_hdr_batch_plain",
-    "extranonce_roll_plain", "KERNELS", "NOT_FOUND",
+    "extranonce_roll_plain", "KERNELS", "NOT_FOUND", "occupancy", "hdr_grid", "hdr_offsets",
+    "OCCUPANCY_KERNELS", "OCCUPANCY_TOY", "HDR_WAVES",
 ]
 
 #: ``first_off`` when no offset of the range hit
@@ -68,7 +70,8 @@ NOT_FOUND = 0x7FFFFFFF
 PLAIN_CHUNK = {"cpu": 1 << 16, "cuda": 1 << 22}
 #: threads per block of every kernel (``kThreads`` in the source)
 THREADS = 256
-#: resident blocks aimed for per SM; grids are capped at this many
+#: resident blocks aimed for per SM; grids are capped at this many (K4's
+#: is whole waves of its resident blocks instead: :func:`hdr_grid`)
 BLOCKS_PER_SM = 8
 
 _I64 = torch.int64
@@ -120,6 +123,66 @@ def _sm_count(device_index: int) -> int:
 
 def _grid(n: int, device_index: int) -> int:
     return min(-(-n // THREADS), _sm_count(device_index) * BLOCKS_PER_SM)
+
+
+#: ``which`` of ``tm_sha256_occupancy`` for each grid-stride search
+#: kernel; K6's toy arm ``<k>`` is ``OCCUPANCY_TOY + k``
+OCCUPANCY_KERNELS = {"search_candidates_hdr": 0, "search_candidates_header": 1,
+                     "search_target_header": 2, "search_candidates_hdr_batch": 3,
+                     "search_candidates_hdr_batch_sched": 4}
+OCCUPANCY_TOY = 5
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(which: int, device_index: int) -> tuple:
+    """(resident blocks of :data:`THREADS` threads per SM, registers a
+    thread) of search kernel ``which`` (:data:`OCCUPANCY_KERNELS`) on the
+    card, as the CUDA runtime reports them for the built kernel."""
+    blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
+    _launch("tm_sha256_occupancy", which, device_index, ctypes.byref(blocks),
+            ctypes.byref(regs))
+    return blocks.value, regs.value
+
+
+#: waves of K4's grid: its blocks sweep the range grid-stride, so each
+#: block's share is equal, and more waves let an SM that finishes early
+#: take a block a slower one would have run (on an H100, 4 waves ran
+#: faster than 1 or 2)
+HDR_WAVES = 4
+
+
+def hdr_grid(n: int, resident: int, sms: int) -> int:
+    """K4's grid for ``n`` nonces: :data:`HDR_WAVES` whole waves of
+    ``resident`` blocks an SM on ``sms`` SMs, or one block for each
+    :data:`THREADS` offsets where the range is smaller. The blocks sweep
+    the range grid-stride, so each block's share is equal but for its
+    last step, and no wave runs part-empty at the end."""
+    if n < 1 or resident < 1 or sms < 1:
+        raise ValueError("n, resident and sms must be positive")
+    return min(-(-n // THREADS), HDR_WAVES * resident * sms)
+
+
+def hdr_offsets(n: int, grid: int, threads=None) -> np.ndarray:
+    """The offsets K4's launch of ``grid`` blocks sweeps, thread by thread
+    (``threads``: global thread indices, all by default), as the kernel's
+    u32 loop walks them: ``(threads, steps)``, -1 where a step is masked
+    (its offset at or past ``n``) or not taken. A warp starts at its
+    first 32 offsets and steps ``grid × THREADS`` at a time while its
+    step is below ``n``; it stops where the next step would reach ``n``,
+    so its u32 step never wraps past 2^32. One step more than the range
+    needs is modelled, so a loop that overran would show."""
+    stride = grid * THREADS
+    tid = np.arange(grid * THREADS) if threads is None else np.asarray(threads)
+    w0 = (tid - tid % 32).astype(np.uint64)
+    steps = -(-n // stride) + 1
+    k = np.arange(steps, dtype=np.uint64)
+    step = (w0[:, None] + k[None, :] * np.uint64(stride)) % np.uint64(1 << 32)
+    taken = step < n
+    # the next step is taken only when n - w0 > stride (u32: w0 < n here)
+    more = (np.uint64(n) - step) % np.uint64(1 << 32) > stride
+    taken[:, 1:] &= np.logical_and.accumulate(taken[:, :-1] & more[:, :-1], axis=1)
+    off = step + (tid % 32).astype(np.uint64)[:, None]
+    return np.where(taken & (off < n), off.astype(np.int64), -1)
 
 
 def _launch(name: str, *args) -> None:
@@ -565,7 +628,9 @@ def search_candidates_hdr(mid8: torch.Tensor, tail3: torch.Tensor, base: int, n:
     midstate ``mid8`` (8,) and tail words ``tail3`` (3,), int64 tensors
     (an :func:`extranonce_roll` row, never read by the host). First
     candidate offset in ``[0, n)`` from nonce ``base``. Handle
-    ``[found, first_off]``."""
+    ``[found, first_off]``. The kernel prepares the header's nonce-free
+    prefix once a thread (K5's sched body) and runs on whole waves of its
+    resident blocks (:func:`hdr_grid`, :func:`occupancy`)."""
     _check_n(n)
     _check_u32(base=base, hw1_cap=hw1_cap)
     _check_lanes("mid8", mid8, (8,))
@@ -575,9 +640,11 @@ def search_candidates_hdr(mid8: torch.Tensor, tail3: torch.Tensor, base: int, n:
         return search_candidates_hdr_plain(mid8, tail3, base, n, hw1_cap)
     device = _cuda_device(device)
     handle = torch.empty(2, dtype=_I64, device=device)
+    resident, _ = occupancy(OCCUPANCY_KERNELS["search_candidates_hdr"], device.index)
     _launch(
         "tm_search_candidates_hdr", mid8.data_ptr(), tail3.data_ptr(), base, n, hw1_cap,
-        handle.data_ptr(), _grid(n, device.index), device.index, _stream(device),
+        handle.data_ptr(), hdr_grid(n, resident, _sm_count(device.index)), device.index,
+        _stream(device),
     )
     search_candidates_hdr.launches += 1
     return handle

@@ -17,6 +17,7 @@ compute:
 - **walk** (kernel 19): :func:`romix_walk`, ``X ← BlockMix(X ⊕
   V[Integerify(X) mod N])``, Integerify being X word 16;
 - **back** (S2): :func:`pbkdf2_out` (the key and HMAC states again,
+  the key's first block from :func:`key_state`, computed once a job,
   then four compressions) gives the digest words, and
   :func:`batch_fold` the batch's found flag, first winning lane and
   lexicographic-minimum lane.
@@ -48,7 +49,7 @@ from tpuminter_torch.ops.sha256 import M32, _compress, byteswap32, hash_words_be
 
 __all__ = [
     "HEADER_WORDS", "HANDLE_WORDS", "NOT_FOUND", "salsa20_8", "block_mix",
-    "romix_fill", "romix_walk", "romix", "pbkdf2_in", "pbkdf2_out",
+    "romix_fill", "romix_walk", "romix", "pbkdf2_in", "pbkdf2_out", "key_state",
     "scrypt_header_batch", "batch_fold", "header_to_words", "row_gather",
 ]
 
@@ -163,13 +164,22 @@ def _header(header_words: Sequence[int]) -> List[int]:
     return words
 
 
-def _hmac_states(header: List[int], nw: torch.Tensor):
+def key_state(header_words: Sequence[int]) -> tuple:
+    """SHA-256's state after the header's first 64 bytes (its first 16
+    words): the first block of the HMAC key SHA256(header80), the same
+    for every nonce of a job, as 8 ints."""
+    return tuple(_compress(SHA256_H0, _header(header_words)[:16]))
+
+
+def _hmac_states(header: List[int], nw: torch.Tensor, key: Sequence[int] = None):
     """The inner and outer HMAC states keyed by SHA256(header80): the
-    key block is the header's first 16 words, then its last three, the
-    nonce word ``nw`` and the padding. The two pad blocks run as one
-    compression over ``2B`` lanes (the plain version's cost is its count
-    of torch calls)."""
-    key8 = _compress(_compress(SHA256_H0, header[:16]), header[16:] + [nw, *_KEY_PAD])
+    key's first block is the header's first 16 words (or ``key``, their
+    :func:`key_state`), its second the last three, the nonce word ``nw``
+    and the padding. The two pad blocks run as one compression over
+    ``2B`` lanes (the plain version's cost is its count of torch
+    calls)."""
+    first = list(key) if key is not None else _compress(SHA256_H0, header[:16])
+    key8 = _compress(first, header[16:] + [nw, *_KEY_PAD])
     b = nw.shape[0]
     pad = torch.full((2 * b,), 0x36363636, dtype=_I64, device=nw.device)
     pad[b:] = 0x5C5C5C5C
@@ -197,12 +207,13 @@ def pbkdf2_in(header_words: Sequence[int], nonces: torch.Tensor) -> torch.Tensor
     return words.view(4, b, 8).permute(1, 0, 2).reshape(b, 32)
 
 
-def pbkdf2_out(header_words: Sequence[int], nonces: torch.Tensor,
-               x: torch.Tensor) -> torch.Tensor:
+def pbkdf2_out(header_words: Sequence[int], nonces: torch.Tensor, x: torch.Tensor,
+               key: Sequence[int] = None) -> torch.Tensor:
     """``PBKDF2(P=hdr, S=X, c=1, dkLen=32)``: X after ROMix → the
     ``(B, 8)`` big-endian digest words (the reference's
-    ``scrypt_header_batch`` output convention)."""
-    istate, ostate = _hmac_states(_header(header_words), byteswap32(nonces))
+    ``scrypt_header_batch`` output convention). ``key``, the header's
+    :func:`key_state`, skips its compression (S2's split)."""
+    istate, ostate = _hmac_states(_header(header_words), byteswap32(nonces), key)
     bp = [byteswap32(x[:, i]) for i in range(32)]
     st = _compress(_compress(istate, bp[:16]), bp[16:])
     inner = _compress(st, [1, 0x80000000] + [0] * 13 + [1568])

@@ -1,29 +1,34 @@
-"""P1 and P3 timed beside their versions before the redesign, in one run.
+"""K4 and S2 timed beside their versions before the redesign, in one run.
 
-Not a counterpart of a script: it answers how much of P1's and P3's
-move came from the kernels and how much from the probes' timing. It
-builds ``csrc/probes.cu`` of another checkout (``--before DIR``, an
-unpacked checkout of commit 0c1403f, whose C interface this module
-knows: ``tm_xor_const(in, out, n, c, device, stream)`` choosing its own
-grid, ``tm_walk_step(layout, body, xw, vj, out, batch, block, blocks,
-device, stream)`` with ``blocks <= 0`` for one thread a lane) into
-``build/before/`` with ``kernels.build``'s flags, and times on the same
-operands, at the probes' B = 16384:
+Not a counterpart of a script: cards differ by about 10% from one run to
+the next, so a redesign's move is read only against the old kernel on
+the same card. It builds ``csrc/sha256.cu`` and ``csrc/scrypt.cu`` of
+another checkout (``--before DIR``, an unpacked checkout of commit
+30c4a81, whose C interface this module knows:
+``tm_search_candidates_hdr(mid8, tail3, base, n, hw1_cap, handle, grid,
+device, stream)``, launched on 8 blocks an SM, and
+``tm_scrypt_back(hd, tg, nonces, x, digest, handle, partial, count,
+device, stream)`` with 9 partial words a block) into ``build/before/``
+with ``kernels.build``'s flags, one ``nvcc`` each, both at once, and
+times on the same operands:
 
-- P1 on 2 MiB (B·32 words, sites 9, 12 and 13) and 4 KiB (1024 words,
-  site 10): before, this checkout's, ``torch.bitwise_xor``;
-- every P3 instantiation at its one-pass grid, and the row layout's
-  ``full`` on one block (``full_g1``): before, this checkout's, and
-  ``probes._common.library_call`` where there is one.
+- K4 on 2^27 nonces of a roll row (a seeded mainnet-shaped template's
+  extranonce 0, rolled on the card; ``hw1_cap`` 0, so no early exit):
+  before, and this checkout's, also on 1, 2 and 8 whole waves of its
+  resident blocks beside its ``HDR_WAVES``;
+- S2 on 2^16 and 2^15 hashes of seeded X at the batch's 5th-smallest
+  hash as the target: before, and this checkout's.
 
-Each output is first held equal to the others' and to the plain
-version's. Each is then read two ways: ``time_ms`` once each, one after
-the other (how the probes read a kernel before ``paired_ms``), and
-``paired_ms`` over ``--rounds`` interleaved rounds in alternating order.
+Each output is first held equal to the other's and to the plain
+version's (K4 also on the genesis row around its winner, at the genesis
+target's cap). Each pair is then timed in ``paired_ms``'s interleaved
+rounds (``--rounds``, alternating order, medians), and each kernel's
+static SASS instructions and registers are read from both builds
+(``kernels.sass``).
 
 Run on the card::
 
-    git archive 0c1403f | tar -x -C build/before_src
+    git archive 30c4a81 | tar -x -C build/before_src
     python -m tpuminter_torch.probes.before_after --before build/before_src
 """
 
@@ -38,35 +43,66 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpuminter_torch.kernels import build
-from tpuminter_torch.kernels import probes as K
-from tpuminter_torch.kernels.sha256 import _stream
-from tpuminter_torch.ops import walk_layouts as ops
-from tpuminter_torch.probes._common import B, lanes, library_call, paired_ms, resolve, time_ms
+from tpuminter_torch import chain
+from tpuminter_torch.kernels import build, sass
+from tpuminter_torch.kernels import scrypt as KS
+from tpuminter_torch.kernels import sha256 as K
+from tpuminter_torch.kernels.sha256 import _sm_count, _stream
+from tpuminter_torch.ops import merkle
+from tpuminter_torch.ops import scrypt as S
+from tpuminter_torch.ops import sha256 as ops
+from tpuminter_torch.probes._common import paired_ms, resolve
 
 __all__ = ["load_before", "run", "main"]
 
 ROUNDS = 6
+#: K4's nonces a launch on the rolled path, and S2's hashes a batch
+K4_N = 1 << 27
+S2_COUNTS = (1 << 16, 1 << 15)
+#: the kernels compared, by library: (SASS name after, SASS names before)
+KERNELS = {"sha256": ("search_candidates_hdr_kernel", ("search_candidates_hdr_kernel",)),
+           "scrypt": ("scrypt_back_kernel", ("init_handle_kernel", "scrypt_back_kernel",
+                                             "scrypt_fold_kernel"))}
+#: K4's whole waves this checkout's kernel is also timed on, beside
+#: ``kernels.sha256.HDR_WAVES``
+WAVES = (1, 2, 4, 8)
+#: the grid the K4 launcher of commit 30c4a81 gave every launch, blocks an SM
+BEFORE_BLOCKS_PER_SM = 8
+#: u32 words of an S2 block's partial at commit 30c4a81
+BEFORE_PARTIAL = 9
 
 
-def load_before(checkout: Path) -> ctypes.CDLL:
-    """``checkout``'s ``probes.cu`` built with ``kernels.build``'s flags
-    and loaded, with the C interface of commit 0c1403f declared."""
-    src = Path(checkout) / "tpuminter_torch" / "kernels" / "csrc" / "probes.cu"
-    if not src.is_file():
-        raise FileNotFoundError(f"no probes.cu under {checkout}")
-    out = build.BUILD_DIR.parent / "before" / "tm_probes_before.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    done = subprocess.run([build._nvcc(), *build.FLAGS, "-o", str(out), str(src)],
-                          capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(out))
-    ptr, u32, i32, i64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, ctypes.c_int64
-    lib.tm_xor_const.argtypes = [ptr, ptr, i64, u32, i32, ptr]
-    lib.tm_walk_step.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.tm_xor_const.restype = lib.tm_walk_step.restype = i32
-    return lib
+def load_before(checkout: Path) -> dict:
+    """``checkout``'s ``sha256.cu`` and ``scrypt.cu`` built with
+    ``kernels.build``'s flags and loaded, with the C interface of commit
+    30c4a81 declared: ``{"sha256": lib, "scrypt": lib}``."""
+    csrc = Path(checkout) / "tpuminter_torch" / "kernels" / "csrc"
+    out_dir = build.BUILD_DIR.parent / "before"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in KERNELS:
+        src = csrc / f"{name}.cu"
+        if not src.is_file():
+            raise FileNotFoundError(f"no {src.name} under {checkout}")
+        out = out_dir / f"tm_{name}_before.so"
+        running[name] = (out, subprocess.Popen(
+            [build._nvcc(), *build.FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu of {checkout}:\n{log}")
+        libs[name] = ctypes.CDLL(str(out))
+        libs[name].path = str(out)
+    ptr, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+    k4 = libs["sha256"].tm_search_candidates_hdr
+    k4.argtypes = [ptr, ptr, u32, u32, u32, ptr, i32, i32, ptr]
+    s2 = libs["scrypt"].tm_scrypt_back
+    s2.argtypes = [ctypes.POINTER(build.TmScryptHeader), ctypes.POINTER(build.TmTarget), ptr,
+                   ptr, ptr, ptr, ptr, i32, i32, ptr]
+    k4.restype = s2.restype = i32
+    return libs
 
 
 def _check(err: int, what: str) -> None:
@@ -74,85 +110,163 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
-def _words(rng, shape, device) -> torch.Tensor:
-    x = rng.integers(0, 1 << 32, shape, dtype=np.uint32).astype(np.int64)
-    return ops.to_bits(torch.from_numpy(x).to(device))
+def _equal(outs: dict, what: str) -> None:
+    """Every output (a tensor or a tuple of them) equal to the first's."""
+    def parts(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    (first, want), *rest = outs.items()
+    for name, got in rest:
+        if not all(torch.equal(g, w) for g, w in zip(parts(got), parts(want))):
+            raise RuntimeError(f"{what}: {name} differs from {first}")
 
 
-def _read(fns: dict, want: torch.Tensor, device, rounds: int, what: str) -> dict:
-    """Every callable's output held equal to ``want``, then µs a call in
-    sequence and in :func:`paired_ms`'s rounds."""
-    for name, fn in fns.items():
-        if not torch.equal(lanes(fn()).reshape(want.shape), want):
-            raise RuntimeError(f"{what}: {name} differs from the plain version")
-    sequential = {name: time_ms(fn, device) * 1e3 for name, fn in fns.items()}
-    paired = {name: ms * 1e3 for name, ms in paired_ms(fns, device, rounds).items()}
-    return {"sequential_us": sequential, "paired_us": paired}
+def _sass(path: str, kernels) -> dict:
+    """Static SASS instructions and registers of ``kernels`` in a build,
+    or None without ``cuobjdump``."""
+    counts, usage = sass.sass_summary(path), sass.resource_usage(path)
+    if counts is None:
+        return None
+    return {k: {"instructions": sum(counts[k].values()), "registers": usage[k]["REG"]}
+            for k in kernels}
 
 
-def run(before: Path, b: int = B, rounds: int = ROUNDS, device="cuda") -> dict:
+def _k4_rows(device) -> tuple:
+    """A seeded mainnet-shaped template's extranonce-0 row, rolled on the
+    card, and the genesis header's row."""
+    rng = np.random.default_rng(10)
+    genesis = chain.GENESIS_HEADER.pack()
+    job = merkle.build_roll(genesis, rng.bytes(120), rng.bytes(126), 4,
+                            tuple(rng.bytes(32) for _ in range(12)))
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    mids, tails = K.extranonce_roll(job, zero, zero)
+    tmpl = ops.header_template(genesis)
+    g_mid = torch.tensor(list(tmpl.midstate), dtype=torch.int64, device=device)
+    g_tail = torch.tensor(list(tmpl.tail[0][:3]), dtype=torch.int64, device=device)
+    return (mids[0], tails[0]), (g_mid, g_tail)
+
+
+def _k4(lib, device, rounds: int) -> dict:
+    (mid, tail), (g_mid, g_tail) = _k4_rows(device)
+    sms = _sm_count(device.index)
+
+    def before(mid, tail, base, n, cap):
+        handle = torch.empty(2, dtype=torch.int64, device=device)
+        grid = min(-(-n // K.THREADS), BEFORE_BLOCKS_PER_SM * sms)
+        _check(lib.tm_search_candidates_hdr(mid.data_ptr(), tail.data_ptr(), base, n, cap,
+                                            handle.data_ptr(), grid, device.index,
+                                            _stream(device)), "tm_search_candidates_hdr (before)")
+        return handle
+
+    genesis = chain.GENESIS_HEADER
+    cap = int(ops.target_to_words(chain.bits_to_target(genesis.bits))[1])
+    base = (genesis.nonce - (1 << 21)) & ops.M32
+    args = (g_mid, g_tail, base, 1 << 22, cap)
+    _equal({"plain": K.search_candidates_hdr_plain(*args), "before": before(*args),
+            "after": K.search_candidates_hdr(*args)}, "K4 on the genesis row")
+    base = int(np.random.default_rng(11).integers(0, (1 << 32) - K4_N))
+    args = (mid, tail, base, K4_N, 0)
+    _equal({"plain": K.search_candidates_hdr_plain(*args), "before": before(*args),
+            "after": K.search_candidates_hdr(*args)}, f"K4 on {K4_N} nonces")
+    resident, _ = K.occupancy(K.OCCUPANCY_KERNELS["search_candidates_hdr"], device.index)
+
+    def after_at(waves):
+        """This checkout's kernel on ``waves`` whole waves instead of
+        ``HDR_WAVES``."""
+        handle = torch.empty(2, dtype=torch.int64, device=device)
+        _check(build.library("sha256").tm_search_candidates_hdr(
+            mid.data_ptr(), tail.data_ptr(), base, K4_N, 0, handle.data_ptr(),
+            waves * resident * sms, device.index, _stream(device)), "tm_search_candidates_hdr")
+        return handle
+
+    fns = {"before": lambda: before(*args), "after": lambda: K.search_candidates_hdr(*args)}
+    fns.update({f"after, {w} waves": (lambda w=w: after_at(w)) for w in WAVES
+                if w != K.HDR_WAVES})
+    _equal({name: fn() for name, fn in fns.items()}, f"K4 on {K4_N} nonces at every grid")
+    return {"n": K4_N, "paired_ms": paired_ms(fns, device, rounds), "grid": {
+        "before": min(-(-K4_N // K.THREADS), BEFORE_BLOCKS_PER_SM * sms),
+        "after": K.hdr_grid(K4_N, resident, sms)}, "resident_after": resident,
+        "waves_after": K.HDR_WAVES}
+
+
+def _s2(lib, device, rounds: int) -> dict:
+    rng = np.random.default_rng(12)
+    words = S.header_to_words(rng.bytes(76))
+    big = max(S2_COUNTS)
+    x_all = torch.tensor(rng.integers(0, 1 << 32, (big, 32), dtype=np.int64), device=device)
+    n_all = torch.tensor(rng.integers(0, 1 << 32, big, dtype=np.int64), device=device)
+    hd = build.TmScryptHeader()
+    hd.w[:] = list(words)
+    out = {}
+    for count in S2_COUNTS:
+        x, nonces = x_all[:count], n_all[:count]
+        digest, _ = KS.scrypt_back(words, nonces, x, [0] * 8)
+        raw = digest.cpu().numpy().astype(">u4").tobytes()
+        values = sorted(int.from_bytes(raw[i:i + 32], "little") for i in range(0, len(raw), 32))
+        target = [int(w) for w in ops.target_to_words(values[4])]
+        tg = build.TmTarget()
+        tg.w[:] = target
+
+        def before(x=x, nonces=nonces, count=count, tg=tg):
+            digest = torch.empty((count, 8), dtype=torch.int64, device=device)
+            handle = torch.empty(S.HANDLE_WORDS, dtype=torch.int64, device=device)
+            partial = torch.empty(-(-count // KS.THREADS) * BEFORE_PARTIAL, dtype=torch.int32,
+                                  device=device)
+            _check(lib.tm_scrypt_back(ctypes.byref(hd), ctypes.byref(tg), nonces.data_ptr(),
+                                      x.data_ptr(), digest.data_ptr(), handle.data_ptr(),
+                                      partial.data_ptr(), count, device.index,
+                                      _stream(device)), "tm_scrypt_back (before)")
+            return digest, handle
+
+        def after(x=x, nonces=nonces, target=target):
+            return KS.scrypt_back(words, nonces, x, target)
+
+        _equal({"plain": KS.scrypt_back_plain(words, nonces, x, target), "before": before(),
+                "after": after()}, f"S2 on {count} hashes")
+        out[count] = {"paired_ms": paired_ms({"before": before, "after": after}, device,
+                                             rounds)}
+    blocks, regs = KS.occupancy(device)["scrypt_back"]
+    return {"by_count": out, "resident_after": blocks, "registers_after": regs}
+
+
+def run(before: Path, rounds: int = ROUNDS, device="cuda") -> dict:
     device = resolve(device)
     if device.type != "cuda":
         raise RuntimeError("the comparison times kernels on the card; the CPU has none")
-    lib = load_before(before)
-    stream = lambda: _stream(device)  # noqa: E731
-    rng = np.random.default_rng(9)
-    rows = {}
-    for label, n in (("P1 2MiB", b * 32), ("P1 4KiB", 1024)):
-        x = _words(rng, (n,), device)
-        out = torch.empty_like(x)
-
-        def p1_before(x=x, out=out):
-            _check(lib.tm_xor_const(x.data_ptr(), out.data_ptr(), x.numel(), 1, device.index,
-                                    stream()), "tm_xor_const (before)")
-            return out
-
-        rows[label] = _read({"before": p1_before, "after": lambda x=x: K.xor_const(x, 1),
-                             "bitwise_xor": lambda x=x: torch.bitwise_xor(x, 1)},
-                            K.xor_const_plain(lanes(x), 1), device, rounds, label)
-    xw = _words(rng, (32, b // ops.LANES, ops.LANES), device)
-    block = ops.bitcast_block(b)
-    cases = [(layout, body, None) for layout, body in K.INSTANTIATIONS] + [("row", "full", 1)]
-    for layout, body, blocks in cases:
-        vj = _words(rng, ops.operand_shape(layout, b), device)
-        out = torch.empty_like(xw)
-
-        def p3_before(vj=vj, out=out, ids=(K._LAYOUT_ID[layout], K._BODY_ID[body]), g=blocks):
-            _check(lib.tm_walk_step(*ids, xw.data_ptr(), vj.data_ptr(), out.data_ptr(), b,
-                                    block, g or 0, device.index, stream()),
-                   "tm_walk_step (before)")
-            return out
-
-        fns = {"before": p3_before, "after": lambda vj=vj, lb=(layout, body), g=blocks:
-               K.walk_step(xw, vj, *lb, g)}
-        library = library_call(xw, vj, layout, body)
-        if library is not None and blocks is None:
-            fns["library"] = library
-        label = f"P3 {layout} x {body}" + ("" if blocks is None else f" on {blocks} block")
-        rows[label] = _read(fns, K.walk_step_plain(lanes(xw), lanes(vj), layout, body), device,
-                            rounds, label)
-    return {"device": torch.cuda.get_device_name(device), "b": b, "rounds": rounds,
-            "rows": rows}
+    libs = load_before(before)
+    infos = build.build()
+    code = {}
+    for name, (after_kernel, before_kernels) in KERNELS.items():
+        code[name] = {"before": _sass(libs[name].path, before_kernels),
+                      "after": _sass(str(infos[name].path), (after_kernel,))}
+    return {"device": torch.cuda.get_device_name(device), "rounds": rounds,
+            "k4": _k4(libs["sha256"], device, rounds),
+            "s2": _s2(libs["scrypt"], device, rounds), "sass": code}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--before", type=Path, required=True,
-                    help="an unpacked checkout of commit 0c1403f")
-    ap.add_argument("--b", type=int, default=B, help=f"lanes (default {B})")
+                    help="an unpacked checkout of commit 30c4a81")
     ap.add_argument("--rounds", type=int, default=ROUNDS,
                     help=f"paired_ms's interleaved rounds (default {ROUNDS})")
     args = ap.parse_args(argv)
-    result = run(args.before, args.b, args.rounds)
-    print(f"before / after on {result['device']}, µs a launch: in sequence | median of "
-          f"{args.rounds} interleaved rounds")
-    for label, row in result["rows"].items():
-        seq, pair = row["sequential_us"], row["paired_us"]
-        ref = "bitwise_xor" if "bitwise_xor" in pair else "library" if "library" in pair else None
-        factor = f" (after / {ref} {pair['after'] / pair[ref]:.3f}x)" if ref else ""
-        print(f"{label:26s} " + " ".join(f"{k} {v:.3f}" for k, v in seq.items()) + " | "
-              + " ".join(f"{k} {v:.3f}" for k, v in pair.items()) + factor)
+    result = run(args.before, args.rounds)
+    print(f"before / after on {result['device']}, ms a launch, median of {args.rounds} "
+          "interleaved rounds")
+    k4 = result["k4"]
+    ms = k4["paired_ms"]
+    print(f"K4 on {k4['n']} nonces: before {ms['before']:.4f} (grid {k4['grid']['before']}), "
+          f"after {ms['after']:.4f} (grid {k4['grid']['after']}: {k4['waves_after']} waves of "
+          f"{k4['resident_after']} blocks an SM): {ms['after'] / ms['before']:.3f}x; "
+          + ", ".join(f"{name} {t:.4f}" for name, t in ms.items() if "waves" in name))
+    for count, row in result["s2"]["by_count"].items():
+        ms = row["paired_ms"]
+        print(f"S2 on {count} hashes: before {ms['before']:.4f}, after {ms['after']:.4f}: "
+              f"{ms['after'] / ms['before']:.3f}x")
+    for name, both in result["sass"].items():
+        print(f"SASS {name}: before {both['before']}, after {both['after']}")
     print(json.dumps({"before_after": result}))
     return 0
 
