@@ -16,7 +16,8 @@ caught), and without a CUDA device the script exits non-zero at once:
    and K6 in both arms), S1's and 19's instructions a nonce or a hash on
    each issue pipe (ALU, FMA); the grid-stride SHA searches' and S2's
    registers, resident blocks an SM and waves a launch at the main
-   path's shape;
+   path's shape; that the roll (R) uses no local memory (no stack frame
+   or spill in ptxas's report, no LDL/STL in its SASS);
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs on the card (exact integer equality) and against hashlib or
    ``toy_hash`` (the header arms of K2 and K3 on header templates and
@@ -27,7 +28,9 @@ caught), and without a CUDA device the script exits non-zero at once:
    and byte shift of the arm); K2's header arm also at
    an exhausted window's minimum as the target and one below it; K3's
    generic kernel also on a two-tail-block double-SHA template), the
-   rolled search kernels also
+   roll at extranonce sizes 1, 4 and 8 placed word-aligned, across a
+   word and across a block, 12-deep and empty branches, 1, 2, 7 and 10
+   rows (and hashlib on two rows of each), the rolled search kernels also
    at the main path's shape (width 2^27, 10 rows, the job's real cap, a
    planted genesis winner, ragged and padding rows), then each timed at
    the main path's shapes (2^27 nonces a launch, 8 rows of 2^27 for the
@@ -44,12 +47,16 @@ caught), and without a CUDA device the script exits non-zero at once:
    planted target; S2's one-launch contract on 2^16 lanes of random X
    (three launches back to back, ragged counts and counts below one
    block, the first winner in the last block); probe 19's stage 1 at its
-   shapes and probe 11 (the row gather) against its plain version; then
+   shapes and probe 11 (the row gather) against its plain version at 1,
+   7, 8191 and 8192 lanes and 0, 1, 3, 32 and 256 passes, on its 256 MiB
+   V and on V's of 5 and 1000 rows (the pass stride wraps); then
    S1, 19 and S2 timed at the SCRYPT path's batch and at 2^15 (S2, like
    the roll, as its launches back to back behind a held stream, since
    calls from Python pace it at the host's issue; that reading is
-   printed beside), 19 per step as probe 19's stage 2, 11 per row as
-   probe 11 measured it, beside ``torch.index_select``;
+   printed beside; the roll also at 10 rows and beside its serial floor,
+   one row's chain of compressions with no loads), 19 per step as
+   probe 19's stage 2, 11 per row as probe 11 measured it (behind a held
+   stream too), beside ``torch.index_select``;
 3b. the layout probes (``tpuminter_torch.probes``, the TPU rounds'
    fifteen remaining ``pallas_call`` sites on the kernels P1-P3 of
    ``csrc/probes.cu``): each kernel against its plain version off the
@@ -799,6 +806,47 @@ def host_rows(header80, prefix, suffix, size, branch, ens, ops, chain):
     return mids, tails
 
 
+#: the roll's checks across the shapes its host-side placement must get
+#: right: extranonce sizes, coinbase prefixes that put the extranonce at
+#: tail byte 56 (the mainnet template's: word-aligned), 58 (a 4-byte one
+#: crosses a word, an 8-byte one the block) and 63 (every size but 1
+#: crosses the block), both branch depths, and a launch's rows (1, a
+#: window's 2, 7, roll_batch + 2)
+ROLL_SIZES, ROLL_PREFIXES, ROLL_DEPTHS, ROLL_ROW_COUNTS = (1, 4, 8), (120, 122, 127), (12, 0), (
+    1, 2, 7, 10)
+
+
+def roll_shape_checks(dev, st, genesis, K, merkle, ops, chain) -> str:
+    """R against its plain version at every shape of the lists above, on
+    seeded 64-bit extranonces (bytes past the size set: the kernel must
+    drop them as the plain version does), and the first two rows of each
+    job against hashlib."""
+    rng = np.random.default_rng(SEED + 6)
+    jobs = 0
+    for size in ROLL_SIZES:
+        for plen in ROLL_PREFIXES:
+            for depth in ROLL_DEPTHS:
+                parts = (rng.bytes(plen), rng.bytes(126), size,
+                         tuple(rng.bytes(32) for _ in range(depth)))
+                job = merkle.build_roll(genesis, *parts)
+                ens = [int(e) for e in rng.integers(0, 1 << 63, max(ROLL_ROW_COUNTS))]
+                hi, lo = i64([e >> 32 for e in ens], dev), i64([e & M32 for e in ens], dev)
+                want = K.extranonce_roll_plain(job, hi, lo)
+                for rows in ROLL_ROW_COUNTS:
+                    got = K.extranonce_roll(job, hi[:rows], lo[:rows])
+                    for g, w, what in zip(got, want, ("midstates", "tail words")):
+                        st.agree(g, w[:rows], f"size {size}, prefix {plen}, {depth}-deep, "
+                                 f"{rows} rows: {what}")
+                short = [e % (1 << 8 * size) for e in ens[:2]]
+                if [t[:2].cpu().tolist() for t in want] != list(
+                        host_rows(genesis, *parts, short, ops, chain)):
+                    fail(f"extranonce_roll plain, size {size}, prefix {plen}, {depth}-deep: "
+                         "not hashlib's")
+                jobs += 1
+    return (f"{jobs} jobs (sizes {ROLL_SIZES}, prefixes {ROLL_PREFIXES}, depths {ROLL_DEPTHS}) "
+            f"at {ROLL_ROW_COUNTS} rows equal to plain, 2 rows each to hashlib")
+
+
 def rolled_kernel_checks(dev, rng, stats, hw1_cap):
     """The roll, K4 and both K5 arms against their plain versions (and
     the roll against hashlib) on the genesis block as a rolled job and a
@@ -832,8 +880,9 @@ def rolled_kernel_checks(dev, rng, stats, hw1_cap):
     if [g_mids[0].tolist(), g_tails[0].tolist()] != [
             list(ops.header_template(genesis).midstate), list(ops.header_template(genesis).tail[0][:3])]:
         fail("extranonce 4 of the genesis coinbase does not roll to the genesis header")
+    shapes = roll_shape_checks(dev, st, genesis, K, merkle, ops, chain)
     say("  extranonce_roll: 12-deep and empty branches equal to plain and to hashlib; "
-        "extranonce 4 of the genesis coinbase rolls to the genesis header")
+        f"extranonce 4 of the genesis coinbase rolls to the genesis header; {shapes}")
 
     st = stats["search_candidates_hdr"]
     m_mids, m_tails = K.extranonce_roll(m_job, i64([0, 0], dev), i64([0, 1], dev))
@@ -959,15 +1008,26 @@ def time_rolled_kernels(dev, rng, stats, rolled, int_rate, hw1_cap):
     en_hi, en_lo = i64([0, 0], dev), i64([1, 0], dev)
     paced_ms, got = event_ms(lambda: K.extranonce_roll(job, en_hi, en_lo), 20)
     ms = time_ms(lambda: K.extranonce_roll(job, en_hi, en_lo), dev)
+    hi10, lo10 = i64([0] * 10, dev), i64(range(10), dev)
+    ms10 = time_ms(lambda: K.extranonce_roll(job, hi10, lo10), dev)
     plain_ms, want = event_ms(lambda: K.extranonce_roll_plain(job, en_hi, en_lo), 1,
                               warmup=False)
     for g, w in zip(got, want):
         stats["extranonce_roll"].agree(g, w, "2 rows, 12-deep")
+    # the serial floor: one row's chain of compressions, no loads
+    n_blocks, depth = len(job.coinbase.tail), len(job.branch)
+    compressions = n_blocks + 1 + 3 * depth + 1
+    if K.serial_floor(n_blocks, depth, dev).tolist() != K.serial_floor_plain(n_blocks, depth):
+        fail("the roll's serial floor differs from its plain version")
+    floor_ms = time_ms(lambda: K.serial_floor(n_blocks, depth, dev), dev)
     per_row = roll_op_count(job)
-    record(stats["extranonce_roll"], 2, 2, ms, plain_ms, 8 * len(job.words()) + 2 * 8 * 13,
+    record(stats["extranonce_roll"], 2, 2, ms, plain_ms, 4 * len(job.words()) + 2 * 8 * 13,
            per_row, 2 * per_row, int_rate, unit="row")
-    stats["extranonce_roll"].timing["paced_ms"] = paced_ms
-    say(f"  extranonce_roll paced by the host (20 calls back to back): {paced_ms:.4f} ms a call")
+    stats["extranonce_roll"].timing.update(paced_ms=paced_ms, ms_10_rows=ms10,
+                                           serial_floor_ms=floor_ms, compressions=compressions)
+    say(f"  extranonce_roll paced by the host (20 calls back to back): {paced_ms:.4f} ms a call; "
+        f"10 rows {ms10:.4f} ms; serial floor ({compressions} compressions, one row, no loads) "
+        f"{floor_ms:.4f} ms, {floor_ms / ms:.1%} of the roll's time")
 
 
 def phase_main_path(card: str):
@@ -1107,6 +1167,27 @@ ROLLED_PATH_KERNELS = ("sha256_batch", "search_target_header", "search_candidate
                        "extranonce_roll")
 #: row_gather (probe 11) is not on it: the miner never launches it
 SCRYPT_PATH_KERNELS = ("scrypt_front", "romix_walk", "scrypt_back")
+
+
+def roll_local_memory(infos) -> None:
+    """R keeps every message word in registers: ptxas reports no stack
+    frame and no spills for it, and its SASS has no local load or store
+    (LDL/STL). Fails otherwise."""
+    from tpuminter_torch.kernels import sass
+
+    lines = infos["sha256"].log.splitlines()
+    reports = [lines[i + 2].strip() for i, line in enumerate(lines[:-2])
+               if "Compiling entry" in line and "extranonce_roll_kernel" in line]
+    for report in reports:
+        if re.findall(r"(\d+) bytes", report) != ["0", "0", "0"]:
+            fail(f"extranonce_roll_kernel uses local memory: {report}")
+    counts = sass.sass_summary(str(infos["sha256"].path)) or {}
+    local = {k: {op: c for op, c in ops_.items() if op in ("LDL", "STL")}
+             for k, ops_ in counts.items() if k.startswith("extranonce_roll_kernel")}
+    if not counts or any(local.values()):
+        fail(f"extranonce_roll_kernel's SASS: {local or 'not read (no cuobjdump)'}")
+    say(f"  extranonce_roll_kernel: {reports or ['(built before: no ptxas report)']}; no LDL/STL "
+        "in its SASS")
 
 
 def wave_report(dev) -> dict:
@@ -1728,6 +1809,32 @@ def s2_contract_checks(st, hw, b, dev, rng) -> None:
         f"last block of {count} lanes, equal to plain")
 
 
+#: 11's checks: lane counts (one, a part of a warp's rows, one short of
+#: the probe's, the probe's), pass counts, and small V's whose rows wrap
+#: the pass stride (977) within a launch
+GATHER_CHECK_COUNTS, GATHER_CHECK_REPS, GATHER_SMALL_ROWS = (1, 7, 8191, 8192), (
+    0, 1, 3, 32, 256), (5, 1000)
+
+
+def gather_checks(dev, s11, KS, vg, idx) -> str:
+    """11 against its plain version at every count and pass count above,
+    on the probe's V and on small ones (bit patterns of seeded words)."""
+    from tpuminter_torch.ops.walk_layouts import to_bits
+
+    rng = np.random.default_rng(SEED + 7)
+    small = {rows: to_bits(torch.tensor(rng.integers(0, 1 << 32, (rows, 32), dtype=np.int64),
+                                        device=dev)) for rows in GATHER_SMALL_ROWS}
+    cases = [(vg, idx)] + [(v, idx % rows) for rows, v in small.items()]
+    for v, lanes in cases:
+        for count in GATHER_CHECK_COUNTS:
+            for reps in GATHER_CHECK_REPS:
+                sub = lanes[:count]
+                s11.agree(KS.row_gather(v, sub, reps), KS.row_gather_plain(v, sub, reps),
+                          f"{count} lanes, {reps} passes, {v.shape[0]} rows")
+    return (f"equal to plain at {GATHER_CHECK_COUNTS} lanes x {GATHER_CHECK_REPS} passes on "
+            f"{GATHER_ROWS} rows and on {GATHER_SMALL_ROWS} (wrapping)")
+
+
 def scrypt_kernel_checks(dev, rng, stats, int_rate):
     """S1 → 19 → S2 against their plain versions on the card, exact: the
     path's batch of seeded nonces at N = 1024, whole and ragged (also 2^15
@@ -1869,24 +1976,36 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     del i
     idx = torch.tensor(rng.integers(0, GATHER_ROWS, GATHER_B, dtype=np.int64), device=dev)
     lo, hi = GATHER_REPS
-    got = KS.row_gather(vg, idx, lo)
+    checks = gather_checks(dev, s11, KS, vg, idx)
     plain_ms, want = event_ms(lambda: KS.row_gather_plain(vg, idx, lo), 1, warmup=False)
-    s11.agree(got, want, f"{lo} passes of {GATHER_B} rows of {GATHER_ROWS}")
-    s11.agree(KS.row_gather(vg, idx, 3), KS.row_gather_plain(vg, idx, 3), "3 passes")
-    ms_lo, _ = event_ms(lambda: KS.row_gather(vg, idx, lo), 5)
-    ms_hi, _ = event_ms(lambda: KS.row_gather(vg, idx, hi), 5)
+    s11.agree(KS.row_gather(vg, idx, lo), want, f"{lo} passes of {GATHER_B} rows of {GATHER_ROWS}")
+    ms_lo = time_ms(lambda: KS.row_gather(vg, idx, lo), dev)
+    ms_hi = time_ms(lambda: KS.row_gather(vg, idx, hi), dev)
     lib_ms, _ = event_ms(lambda: torch.index_select(vg, 0, idx), 20)
     per_pass = (ms_hi - ms_lo) / (hi - lo)
-    # a pass reads one 128-byte row a lane; idx is read and out written
-    # once a launch, outside the slope between the two rep counts
-    record(s11, GATHER_B, GATHER_B, per_pass, plain_ms / lo, GATHER_B * 128, 32,
+    g = KS.gather_geometry(GATHER_B, hi, sms)
+    # a pass reads one 128-byte row a lane, but lanes and passes meet on
+    # the same rows (this run's idx: the rows of 256 passes are ~63%
+    # distinct): the bytes bound counts each distinct row once, over the
+    # slope between the two pass counts (idx read and out written once a
+    # launch fall outside it)
+    def distinct(reps):
+        steps = torch.arange(reps, dtype=torch.int64, device=dev) * 977
+        return int(torch.unique((idx[:, None] + steps[None]) % GATHER_ROWS).numel())
+
+    pass_bytes = (distinct(hi) - distinct(lo)) * 128 / (hi - lo)
+    record(s11, GATHER_B, GATHER_B, per_pass, plain_ms / lo, pass_bytes, 32,
            32 * GATHER_B, int_rate, unit="row")
     s11.timing.update(library_ms=lib_ms, ms_at_reps={lo: ms_lo, hi: ms_hi},
-                      ns_per_row=per_pass * 1e6 / GATHER_B)
-    say(f"  row_gather (probe 11): {lo} passes equal to plain; {ms_lo:.4f} ms at {lo} passes, "
-        f"{ms_hi:.4f} at {hi}: {per_pass * 1e6 / GATHER_B:.3f} ns per 128-byte row "
-        f"({128 * GATHER_B / per_pass / 1e6:.1f} GB/s); index_select of one pass "
-        f"{lib_ms:.4f} ms ({lib_ms * 1e6 / GATHER_B:.3f} ns per row)")
+                      ns_per_row=per_pass * 1e6 / GATHER_B,
+                      bound_every_read_ms=GATHER_B * 128 / MEM_BYTES_PER_S * 1e3,
+                      geometry=dict(slices=g.slices, per=g.per, grid=g.grid))
+    say(f"  row_gather (probe 11): {checks}; {ms_lo:.4f} ms at {lo} passes, {ms_hi:.4f} at {hi} "
+        f"(launches behind a held stream; {g.slices} slices of {g.per} passes, {g.grid} "
+        f"blocks): {per_pass * 1e6 / GATHER_B:.4f} ns per 128-byte row "
+        f"({128 * GATHER_B / per_pass / 1e6:.1f} GB/s of reads; {pass_bytes / GATHER_B:.1f} "
+        f"distinct bytes a row read, {pass_bytes / per_pass / 1e6:.1f} GB/s); index_select of "
+        f"one pass {lib_ms:.4f} ms ({lib_ms * 1e6 / GATHER_B:.3f} ns per row)")
     del vg
     torch.cuda.empty_cache()
     return {"kernel_mhs": kernel_mhs, "batch": b, "walk_us_per_step": walk_us,
@@ -2518,6 +2637,7 @@ def main() -> int:
             say(f"  SASS {kernel}: {sum(ops_count.values())} instructions; "
                 + ", ".join(f"{op} {c}" for op, c in top))
     pipes = pipe_mixes(infos)
+    roll_local_memory(infos)
     waves = wave_report(dev)
 
     phase("3. kernels against their plain versions")
@@ -2569,7 +2689,8 @@ def main() -> int:
             **({"pipes": pipes[name]} if name in pipes else {}),
             **({"occupancy": waves[name]} if name in waves else {}),
             **{k: t[k] for k in ("ms_at_reps", "ns_per_row", "probe", "toy60_ms",
-                                 "toy60_bound_ms", "paced_ms") if k in t},
+                                 "toy60_bound_ms", "paced_ms", "ms_10_rows", "serial_floor_ms",
+                                 "compressions", "geometry", "bound_every_read_ms") if k in t},
         })
     say(json.dumps({"hashcore": {"rates": hc_rates, "window_sweep_g_per_s": sweep_rates,
                                  "window_breakdown": breakdown,

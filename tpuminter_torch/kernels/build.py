@@ -187,7 +187,8 @@ def library(name: str) -> ctypes.CDLL:
             "tm_search_candidates_hdr_batch": [
                 ptr, ptr, ptr, ptr, i32, u32, u32, i32, ptr, i32, i32, ptr,
             ],
-            "tm_extranonce_roll": [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr],
+            "tm_extranonce_roll": [ptr, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr],
+            "tm_sha256_serial_floor": [i32, i32, ptr, i32, ptr],
             "tm_sha256_occupancy": [i32, i32, ctypes.POINTER(ctypes.c_int),
                                     ctypes.POINTER(ctypes.c_int)],
         },
@@ -201,7 +202,7 @@ def library(name: str) -> ctypes.CDLL:
             "tm_scrypt_back": [ctypes.POINTER(TmScryptHeader), ctypes.POINTER(TmScryptKey),
                                ctypes.POINTER(TmTarget), ptr, ptr, ptr, ptr, ptr, i32, i32,
                                ptr],
-            "tm_row_gather": [ptr, i64, ptr, ptr, i32, i32, i32, ptr],
+            "tm_row_gather": [ptr, i64, ptr, ptr, i32, i32, i32, i32, i64, i32, ptr],
             "tm_scrypt_occupancy": [i32, i32, ctypes.POINTER(ctypes.c_int),
                                     ctypes.POINTER(ctypes.c_int)],
         },

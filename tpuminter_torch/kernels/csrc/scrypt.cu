@@ -645,31 +645,85 @@ scrypt_back_kernel(const TmScryptHeader hd, const TmScryptKey key, const TmTarge
 }
 
 // ---- 11: the row-gather probe -------------------------------------------------
+//
+// Each lane's output is the xor of every word of rows (idx + r * 977) mod
+// rows for r < reps. No pass depends on another, so the work spreads
+// freely; what bounds it is HBM, one random 128-byte row a lane a pass,
+// and the latency of a read no other read waits on:
+//   * eight threads a row: thread q reads the row's 16-byte piece q, so a
+//     warp's load reads four whole rows, each one line;
+//   * a thread issues kGatherUnroll passes' loads before it folds any of
+//     them;
+//   * where one pass's rows leave the card short of threads, the passes
+//     split into `slices` runs of `per` passes, each its own row slot:
+//     slot s runs lane s % count over the passes of slice s / count, and
+//     the slices' partial xors meet by atomicXor on the output, zeroed
+//     first (xor is associative and commutative, so the order does not
+//     matter). More slices also run more passes at once, and lanes'
+//     passes meet on the same rows (~37% of the probe's reads repeat a
+//     row), which L2 then serves;
+//   * the row index steps by 977 mod rows with one conditional subtract,
+//     not a 64-bit modulo a pass;
+//   * the row's eight partials fold by __shfl_xor_sync, and its piece-0
+//     thread writes.
+// The host computes the launch (kernels/scrypt.py gather_geometry).
 
-// `reps` passes of one 128-byte row read per lane, row (idx + r * 977) mod
-// rows, every word xor-folded into the lane's output so no load is dead.
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGatherThreads = 256;
+constexpr int kGatherPieces = 8;  // threads a row, 16 bytes each
+constexpr int kGatherUnroll = 8;  // passes a thread has in flight
+
+__global__ void __launch_bounds__(kGatherThreads)
 row_gather_kernel(const uint4* __restrict__ v, const long long* __restrict__ idx,
-                  long long* __restrict__ out, int count, long long rows, int reps) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= count) return;
-  const unsigned long long start = (unsigned long long)idx[lane];
+                  long long* __restrict__ out, int count, unsigned long long rows, int reps,
+                  int slices, int per) {
+  const unsigned long long t = (unsigned long long)blockIdx.x * kGatherThreads + threadIdx.x;
+  const int piece = (int)(t % kGatherPieces);
+  const unsigned long long slot = t / kGatherPieces;
+  const int lane = (int)(slot % (unsigned)count);
+  const unsigned long long slice = slot / (unsigned)count;
+  const bool live = slice < (unsigned long long)slices;
   uint4 acc = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll 4
-  for (int r = 0; r < reps; ++r) {
-    const unsigned long long row =
-        (start + (unsigned long long)r * kGatherStep) % (unsigned long long)rows;
-    const uint4* p = v + row * 8;
+  if (live) {
+    const int r0 = (int)slice * per;
+    const int r1 = min(reps, r0 + per);
+    const unsigned long long step = kGatherStep % rows;
+    unsigned long long row =
+        ((unsigned long long)idx[lane] + (unsigned long long)r0 * kGatherStep) % rows;
+    const uint4* base = v + piece;
+    int r = r0;
+    for (; r + kGatherUnroll <= r1; r += kGatherUnroll) {
+      uint4 q[kGatherUnroll];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const uint4 q = __ldg(p + k);
+      for (int u = 0; u < kGatherUnroll; ++u) {
+        q[u] = __ldg(base + row * kGatherPieces);
+        row += step;
+        row -= row >= rows ? rows : 0ull;
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherUnroll; ++u) {
+        acc.x ^= q[u].x;
+        acc.y ^= q[u].y;
+        acc.z ^= q[u].z;
+        acc.w ^= q[u].w;
+      }
+    }
+    for (; r < r1; ++r) {
+      const uint4 q = __ldg(base + row * kGatherPieces);
       acc.x ^= q.x;
       acc.y ^= q.y;
       acc.z ^= q.z;
       acc.w ^= q.w;
+      row += step;
+      row -= row >= rows ? rows : 0ull;
     }
   }
-  out[lane] = (long long)(acc.x ^ acc.y ^ acc.z ^ acc.w);
+  // every thread of the warp reaches the shuffles, live or not
+  uint32_t x = acc.x ^ acc.y ^ acc.z ^ acc.w;
+#pragma unroll
+  for (int o = kGatherPieces / 2; o > 0; o >>= 1) x ^= __shfl_xor_sync(0xFFFFFFFFu, x, o);
+  if (live && piece == 0) {
+    atomicXor(reinterpret_cast<unsigned long long*>(out) + lane, (unsigned long long)x);
+  }
 }
 
 int blocks_for(int count) { return (count + kThreads - 1) / kThreads; }
@@ -712,11 +766,22 @@ int tm_scrypt_back(const TmScryptHeader* hd, const TmScryptKey* key, const TmTar
   return finish();
 }
 
+// The launch is kernels/scrypt.py gather_geometry's: `grid` blocks of
+// kGatherThreads and `slices` runs of `per` passes (slices * per >= reps).
+// The output is zeroed first, on the same stream.
 int tm_row_gather(const void* v, long long rows, const long long* idx, long long* out,
-                  int count, int reps, int device, void* stream) {
+                  int count, int reps, int slices, int per, long long grid, int device,
+                  void* stream) {
+  if (rows < 1 || count < 1 || reps < 0 || slices < 1 || per < 0 ||
+      (long long)slices * per < reps || grid < 1 || grid > 0x7FFFFFFFLL ||
+      grid * kGatherThreads < (long long)slices * count * kGatherPieces) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaSetDevice(device);
-  row_gather_kernel<<<blocks_for(count), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)v, idx, out, count, rows, reps);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(out, 0, sizeof(long long) * (size_t)count, s);
+  row_gather_kernel<<<(unsigned)grid, kGatherThreads, 0, s>>>(
+      (const uint4*)v, idx, out, count, (unsigned long long)rows, reps, slices, per);
   return finish();
 }
 

@@ -20,8 +20,10 @@
 //   tm_min_toy_toy                 <- the same, for a toy template (data || nonce_be8)
 //   tm_extranonce_roll             <- the jnp roll of tpuminter/ops/merkle.py:84
 //                                     (a jitted program there, no pallas_call)
+//   tm_sha256_serial_floor         <- none: the roll's yardstick, one thread's
+//                                     chain of compressions with no loads
 //
-// What bounds them: 32-bit integer issue. A nonce costs one or two
+// What bounds the searches: 32-bit integer issue. A nonce costs one or two
 // 64-round compressions (~2,400-2,700 instructions each: adds, LOP3
 // logic, funnel-shift rotations) and reads or writes nothing but a few
 // words per launch (K1 excepted: 80 bytes per nonce, still far below the
@@ -608,71 +610,231 @@ search_candidates_hdr_batch_kernel(const long long* mids, const long long* tails
 
 // ---- the extranonce roll: one thread per extranonce row -----------------
 //
-// job (int64 words): coinbase midstate [8] | coinbase tail blocks
-// [16 * n_blocks], extranonce bytes zeroed | byte positions [4 * n_pos]
-// (block, word, word shift, extranonce shift) | branch [8 * depth] |
-// header words 0-8 [9] | time, bits [2]. Per row: the coinbase txid
-// (double SHA), the branch fold with the coinbase always on the left,
-// then the header's first block: midstate (8) and tail words (3).
-// Run once per window on a few rows; what bounds it is launch latency.
-__global__ void extranonce_roll_kernel(const long long* job, int n_blocks, int n_pos,
-                                       int depth, const long long* en_hi,
-                                       const long long* en_lo, long long* mids,
-                                       long long* tails, int rows) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const uint32_t hi = (uint32_t)en_hi[r], lo = (uint32_t)en_lo[r];
-  const long long* cb_tail = job + 8;
-  const long long* pos = cb_tail + 16 * n_blocks;
-  const long long* branch = pos + 4 * n_pos;
-  const long long* head = branch + 8 * depth;
-  uint32_t s[8], m[16];
+// A row is one serial chain of about 42 compressions (the coinbase's tail
+// blocks and its second hash, three compressions for each branch level,
+// the header's first block), and a launch holds a few rows: one warp
+// runs alone on the card, so what bounds the kernel is how fast one
+// chain's instructions issue and how long each round's dependent path
+// is, not pipe balance across warps. The body is built for that, apart
+// from the searches' throughput form (compress, round_step):
+//   * plain adds (IADD3), no IMAD by kOne: h + K + W is formed before
+//     the round needs it, so the e chain is Sigma1/Ch -> one 3-input add,
+//     and the a chain Sigma0/Maj -> one more. The same body with the adds
+//     off both chains as IMADs read slower;
+//   * constant messages fold at compile time: the Merkle pair's padding
+//     block is 64 literal sums K[i] + W[i] (kPad512KW, no schedule), and
+//     the second hash's words 8-15 are literals (the reference's _PAD512
+//     and _PAD256);
+//   * no runtime index into a message: the host resolves the extranonce's
+//     byte positions into the tail word it starts in and its bit shift
+//     (ops/merkle.py extranonce_place), and each word of the two blocks it
+//     can touch takes its share by a select on a compile-time word index,
+//     so every message stays in registers (no local memory);
+//   * the job is read ahead of the chain: the header words and the
+//     extranonce's words before the first round, each coinbase tail block
+//     and each branch level's sibling one compression (one level) before
+//     it is used, in 16-byte loads of u32 words.
+//
+// job (u32 words, ops/merkle.py RollJob.words): coinbase midstate [8] |
+// g0, k, mask_hi, mask_lo [4]: the extranonce's first byte sits in tail
+// word g0 (0-15) at bit shift k (0, 8, 16, 24 from the word's top), and
+// mask_hi:mask_lo keeps its bytes of the 8-byte stream | coinbase tail
+// blocks [16 * n_blocks], extranonce bytes zeroed | branch [8 * depth] |
+// header words 0-8, time, bits, 0 [12]. Every section starts on a 16-byte
+// boundary. Per row: the coinbase txid (double SHA), the branch fold with
+// the coinbase always on the left, then the header's first block:
+// midstate (8) and tail words (3).
+
+constexpr int kRollThreads = 32;  // rows a block
+constexpr int kRollJobHead = 12;  // midstate and the extranonce's placement
+
+// K[i] + W[i] of the padding block of a 64-byte message (0x80000000, 0 x 14,
+// 512): the Merkle pair's second block.
+__constant__ uint32_t kPad512KW[64] = {
+    0xC28A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
+    0x923F82A4u, 0xAB1C5ED5u, 0xD807AA98u, 0x12835B01u, 0x243185BEu, 0x550C7DC3u,
+    0x72BE5D74u, 0x80DEB1FEu, 0x9BDC06A7u, 0xC19BF374u, 0x649B69C1u, 0xF0FE4786u,
+    0x0FE1EDC6u, 0x240CF254u, 0x4FE9346Fu, 0x6CC984BEu, 0x61B9411Eu, 0x16F988FAu,
+    0xF2C65152u, 0xA88E5A6Du, 0xB019FC65u, 0xB9D99EC7u, 0x9A1231C3u, 0xE70EEAA0u,
+    0xFDB1232Bu, 0xC7353EB0u, 0x3069BAD5u, 0xCB976D5Fu, 0x5A0F118Fu, 0xDC1EEEFDu,
+    0x0A35B689u, 0xDE0B7A04u, 0x58F4CA9Du, 0xE15D5B16u, 0x007F3E86u, 0x37088980u,
+    0xA507EA32u, 0x6FAB9537u, 0x17406110u, 0x0D8CD6F1u, 0xCDAA3B6Du, 0xC0BBBE37u,
+    0x83613BDAu, 0xDB48A363u, 0x0B02E931u, 0x6FD15CA7u, 0x521AFACAu, 0x31338431u,
+    0x6ED41A95u, 0x6D437890u, 0xC39C91F2u, 0x9ECCABBDu, 0xB5C9A0E6u, 0x532FB63Cu,
+    0xD2C741C6u, 0x07237EA3u, 0xA4954B68u, 0x4C191D76u};
+
+// One round on x (a..h) given hkw = h + K[i] + W[i], which is ready
+// before the round.
+__device__ __forceinline__ void round_lat(uint32_t (&x)[8], uint32_t hkw) {
+  const uint32_t s1 = big_sigma1(x[4]), c = ch(x[4], x[5], x[6]);
+  const uint32_t e = (x[3] + hkw) + s1 + c;
+  const uint32_t a = (hkw + s1 + c) + big_sigma0(x[0]) + maj(x[0], x[1], x[2]);
+  x[7] = x[6]; x[6] = x[5]; x[5] = x[4]; x[4] = e;
+  x[3] = x[2]; x[2] = x[1]; x[1] = x[0]; x[0] = a;
+}
+
+// s = compress(s, m), the schedule a rolling window beside the rounds.
+__device__ __forceinline__ void compress_lat(uint32_t (&s)[8], const uint32_t (&m)[16]) {
+  uint32_t v[8], w[16];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = (uint32_t)job[i];
-  for (int b = 0; b < n_blocks; ++b) {
-    for (int i = 0; i < 16; ++i) m[i] = (uint32_t)cb_tail[16 * b + i];
-    for (int p = 0; p < n_pos; ++p) {
-      if (pos[4 * p] == b) {
-        const int nshift = (int)pos[4 * p + 3];
-        const uint32_t src = nshift >= 32 ? hi : lo;
-        m[pos[4 * p + 1]] |= ((src >> (nshift & 31)) & 0xFFu) << pos[4 * p + 2];
-      }
+  for (int i = 0; i < 16; ++i) w[i] = m[i];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = s[i];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (i >= 16) {
+      w[i & 15] = small_sigma1(w[(i + 14) & 15]) + w[(i + 9) & 15] +
+                  small_sigma0(w[(i + 1) & 15]) + w[i & 15];
     }
-    compress(s, m);
+    round_lat(v, v[7] + kK[i] + w[i & 15]);
   }
-  second_block(s, m);
-  init_state(s);
-  compress(s, m);  // s = the coinbase txid's words
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] += v[i];
+}
+
+// s = compress(s, the padding block of a 64-byte message): no schedule.
+__device__ __forceinline__ void compress_pad512(uint32_t (&s)[8]) {
+  uint32_t v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = s[i];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) round_lat(v, v[7] + kPad512KW[i]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] += v[i];
+}
+
+// SHA-256 of a 32-byte message d (the second hash of a double SHA), in
+// place: its block's words 8-15 are literals.
+__device__ __forceinline__ void hash_digest_lat(uint32_t (&d)[8]) {
+  uint32_t m[16];
+  second_block(d, m);
+  init_state(d);
+  compress_lat(d, m);
+}
+
+// Eight u32 words at p (16-byte aligned) in two 16-byte loads.
+__device__ __forceinline__ void load8(const uint32_t* __restrict__ p, uint32_t* out) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// ORs the extranonce's words c[0..2] into tail words g0 .. g0 + 2 of the
+// block whose first tail word is 16 * b: rel = 16 * b - g0. Word i takes
+// c[i + rel] where that is 0, 1 or 2; every index into m is a constant.
+__device__ __forceinline__ void inject(uint32_t (&m)[16], int rel, const uint32_t (&c)[3]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = rel + i;
+    m[i] |= (d == 0 ? c[0] : 0u) | (d == 1 ? c[1] : 0u) | (d == 2 ? c[2] : 0u);
+  }
+}
+
+__global__ void __launch_bounds__(kRollThreads)
+extranonce_roll_kernel(const uint32_t* __restrict__ job, int n_blocks, int depth,
+                       const long long* __restrict__ en_hi, const long long* __restrict__ en_lo,
+                       long long* __restrict__ mids, long long* __restrict__ tails, int rows) {
+  const int r = blockIdx.x * kRollThreads + threadIdx.x;
+  if (r >= rows) return;
+  const uint32_t* tail = job + kRollJobHead;
+  const uint32_t* branch = tail + 16 * n_blocks;
+  const uint32_t* head = branch + 8 * depth;
+  uint32_t s[8], hw[12], nxt[16], sib[8];
+  load8(job, s);
+  load8(head, hw);
+  {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(head) + 2);
+    hw[8] = q.x; hw[9] = q.y; hw[10] = q.z; hw[11] = q.w;
+  }
+  load8(tail, nxt);
+  load8(tail + 8, nxt + 8);
+  if (depth > 0) load8(branch, sib);
+  // the extranonce as an 8-byte stream in message order (byte j is
+  // en >> 8j), masked to its size, shifted right by k into the three
+  // words it can touch
+  const uint4 place = __ldg(reinterpret_cast<const uint4*>(job) + 2);
+  const int g0 = (int)place.x;
+  const uint32_t k = place.y;
+  const uint32_t xh = bswap32((uint32_t)en_lo[r]) & place.z;
+  const uint32_t xl = bswap32((uint32_t)en_hi[r]) & place.w;
+  const uint32_t c[3] = {xh >> k, __funnelshift_r(xl, xh, k), __funnelshift_r(0u, xl, k)};
+
+  for (int b = 0; b < n_blocks; ++b) {
+    uint32_t m[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) m[i] = nxt[i];
+    if (b + 1 < n_blocks) {
+      load8(tail + 16 * (b + 1), nxt);
+      load8(tail + 16 * (b + 1) + 8, nxt + 8);
+    }
+    if (b < 2) inject(m, 16 * b - g0, c);
+    compress_lat(s, m);
+  }
+  hash_digest_lat(s);  // s = the coinbase txid's words
   for (int d = 0; d < depth; ++d) {
-    uint32_t t[8];
+    uint32_t m[16];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       m[i] = s[i];
-      m[8 + i] = (uint32_t)branch[8 * d + i];
+      m[8 + i] = sib[i];
     }
-    init_state(t);
-    compress(t, m);
-    m[0] = 0x80000000u;
-#pragma unroll
-    for (int i = 1; i < 15; ++i) m[i] = 0;
-    m[15] = 512;
-    compress(t, m);
-    second_block(t, m);
+    if (d + 1 < depth) load8(branch + 8 * (d + 1), sib);
     init_state(s);
-    compress(s, m);
+    compress_lat(s, m);
+    compress_pad512(s);
+    hash_digest_lat(s);
   }
-  uint32_t hs[8];
+  uint32_t m[16], hs[8];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) m[i] = (uint32_t)head[i];
+  for (int i = 0; i < 9; ++i) m[i] = hw[i];
 #pragma unroll
   for (int i = 0; i < 7; ++i) m[9 + i] = s[i];
   init_state(hs);
-  compress(hs, m);
+  compress_lat(hs, m);
 #pragma unroll
   for (int i = 0; i < 8; ++i) mids[8 * r + i] = hs[i];
   tails[3 * r] = s[7];
-  tails[3 * r + 1] = (uint32_t)head[9];
-  tails[3 * r + 2] = (uint32_t)head[10];
+  tails[3 * r + 1] = hw[9];
+  tails[3 * r + 2] = hw[10];
+}
+
+// R's serial floor: the roll's own chain for a job of n_blocks tail blocks
+// and a depth-deep branch, in the roll's body, with no loads and no roll:
+// each message is the last state twice over (s || s) where the roll reads
+// a tail block, a sibling or the header's words, and the padding blocks
+// and second hashes are the roll's. From SHA-256's initial state; out =
+// the header's midstate. It times what one thread can do for a row.
+__global__ void __launch_bounds__(kRollThreads)
+serial_floor_kernel(int n_blocks, int depth, long long* __restrict__ out) {
+  uint32_t s[8], m[16];
+  init_state(s);
+  // lane 0 starts at SHA-256's initial state; a start that varies by lane
+  // keeps the chain on the vector pipes, as a row's is (a uniform one runs
+  // on the uniform datapath)
+  s[0] += threadIdx.x;
+  for (int b = 0; b < n_blocks; ++b) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m[i] = m[8 + i] = s[i];
+    compress_lat(s, m);
+  }
+  hash_digest_lat(s);
+  for (int d = 0; d < depth; ++d) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m[i] = m[8 + i] = s[i];
+    init_state(s);
+    compress_lat(s, m);
+    compress_pad512(s);
+    hash_digest_lat(s);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m[i] = m[8 + i] = s[i];
+  init_state(s);
+  compress_lat(s, m);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = s[i];
+  }
 }
 
 // ---- K2: full target compare + exact running minimum --------------------
@@ -1102,12 +1264,26 @@ int tm_search_candidates_hdr_batch(const long long* mids, const long long* tails
   return finish();
 }
 
-int tm_extranonce_roll(const long long* job, int n_blocks, int n_pos, int depth,
-                       const long long* en_hi, const long long* en_lo, long long* mids,
-                       long long* tails, int rows, int device, void* stream) {
+// job: ops/merkle.py RollJob.words() as u32 words, 16-byte aligned.
+int tm_extranonce_roll(const uint32_t* job, int n_blocks, int depth, const long long* en_hi,
+                       const long long* en_lo, long long* mids, long long* tails, int rows,
+                       int device, void* stream) {
+  if (n_blocks < 1 || depth < 0 || rows < 1 || ((uintptr_t)job & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaSetDevice(device);
-  extranonce_roll_kernel<<<(rows + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-      job, n_blocks, n_pos, depth, en_hi, en_lo, mids, tails, rows);
+  extranonce_roll_kernel<<<(rows + kRollThreads - 1) / kRollThreads, kRollThreads, 0,
+                           (cudaStream_t)stream>>>(job, n_blocks, depth, en_hi, en_lo, mids,
+                                                   tails, rows);
+  return finish();
+}
+
+// out: 8 words, serial_floor_kernel's last state for a job of n_blocks
+// tail blocks and a depth-deep branch.
+int tm_sha256_serial_floor(int n_blocks, int depth, long long* out, int device, void* stream) {
+  if (n_blocks < 1 || depth < 0) return (int)cudaErrorInvalidValue;
+  cudaSetDevice(device);
+  serial_floor_kernel<<<1, kRollThreads, 0, (cudaStream_t)stream>>>(n_blocks, depth, out);
   return finish();
 }
 

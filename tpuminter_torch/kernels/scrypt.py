@@ -24,19 +24,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import torch
 
 from tpuminter_torch.kernels import build
-from tpuminter_torch.kernels.sha256 import _cuda_device, _same_device, _stream
+from tpuminter_torch.kernels.sha256 import _cuda_device, _same_device, _sm_count, _stream
 from tpuminter_torch.ops import scrypt as ops
 
 __all__ = [
     "romix_scratch", "scrypt_front", "romix_walk", "scrypt_back", "row_gather",
     "scrypt_front_plain", "romix_walk_plain", "scrypt_back_plain", "row_gather_plain",
     "occupancy", "KERNELS", "THREADS", "FRONT_THREADS_PER_HASH", "WALK_THREADS_PER_HASH",
-    "BACK_THREADS_PER_HASH", "THREADS_PER_HASH", "BACK_PARTIAL",
+    "BACK_THREADS_PER_HASH", "THREADS_PER_HASH", "BACK_PARTIAL", "GatherGeometry",
+    "gather_geometry", "GATHER_THREADS", "GATHER_PIECES", "GATHER_SLOTS_PER_SM",
 ]
 
 _I64, _I32 = torch.int64, torch.int32
@@ -211,12 +213,48 @@ def scrypt_back(header_words: Sequence[int], nonces: torch.Tensor, x: torch.Tens
 
 row_gather_plain = ops.row_gather
 
+#: threads a block of the gather (``kGatherThreads``) and threads a row,
+#: each reading one 16-byte piece of it (``kGatherPieces``)
+GATHER_THREADS = 256
+GATHER_PIECES = 8
+#: row slots (of GATHER_PIECES threads) a launch aims to give each SM: 32
+#: slices at the probe's 8192 lanes on 132 SMs, which read fastest
+GATHER_SLOTS_PER_SM = 2048
+
+
+@dataclass(frozen=True)
+class GatherGeometry:
+    """11's launch: ``slices`` runs of ``per`` passes (the last may be
+    shorter), each a row slot for every lane, on ``grid`` blocks."""
+
+    count: int
+    reps: int
+    slices: int
+    per: int
+    grid: int
+
+
+def gather_geometry(count: int, reps: int, sms: int) -> GatherGeometry:
+    """11's launch for ``count`` lanes of ``reps`` passes on ``sms`` SMs:
+    the passes split into as many slices as it takes for ``count ×
+    slices`` row slots to reach :data:`GATHER_SLOTS_PER_SM` an SM (one
+    slice when one pass already does; never more slices than passes, and
+    never an empty one)."""
+    if not 1 <= count <= MAX_LANES or not 0 <= reps < 1 << 31 or sms < 1:
+        raise ValueError("count must be in [1, 2^30], reps in [0, 2^31) and sms >= 1")
+    slices = max(1, min(-(-sms * GATHER_SLOTS_PER_SM // count), reps))
+    per = -(-reps // slices)
+    slices = -(-reps // per) if per else 1
+    grid = -(-slices * count * GATHER_PIECES // GATHER_THREADS)
+    return GatherGeometry(count, reps, slices, per, grid)
+
 
 def row_gather(v: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tensor:
     """``(rows, 32)`` words and ``(B,)`` row indices in ``[0, rows)`` →
     ``(B,)`` lanes: the xor of every word of rows ``(idx + r · 977) mod
     rows``, ``r < reps`` (one 128-byte row read a lane a pass). V is
-    int32 bit patterns on the card, int64 lanes on the CPU."""
+    int32 bit patterns on the card, int64 lanes on the CPU. On the card
+    the launch is :func:`gather_geometry`'s for this card."""
     count = _count(idx)
     rows = v.shape[0] if v.dim() == 2 else -1
     if rows < 1:
@@ -228,9 +266,10 @@ def row_gather(v: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tensor:
     if device.type == "cpu":
         return row_gather_plain(v, idx, reps)
     device = _cuda_device(device)
+    g = gather_geometry(count, reps, _sm_count(device.index))
     out = torch.empty(count, dtype=_I64, device=device)
     _launch("tm_row_gather", v.data_ptr(), rows, idx.data_ptr(), out.data_ptr(), count, reps,
-            device.index, _stream(device))
+            g.slices, g.per, g.grid, device.index, _stream(device))
     row_gather.launches += 1
     return out
 

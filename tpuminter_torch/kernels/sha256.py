@@ -46,6 +46,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tpuminter_torch.chain import SHA256_H0
 from tpuminter_torch.kernels import build
 from tpuminter_torch.ops import merkle
 from tpuminter_torch.ops import sha256 as ops
@@ -58,7 +59,7 @@ __all__ = [
     "search_candidates_plain", "search_candidates_header_plain", "min_toy_plain",
     "min_toy_toy_plain", "search_candidates_hdr_plain", "search_candidates_hdr_batch_plain",
     "extranonce_roll_plain", "KERNELS", "NOT_FOUND", "occupancy", "hdr_grid", "hdr_offsets",
-    "OCCUPANCY_KERNELS", "OCCUPANCY_TOY", "HDR_WAVES",
+    "OCCUPANCY_KERNELS", "OCCUPANCY_TOY", "HDR_WAVES", "serial_floor", "serial_floor_plain",
 ]
 
 #: ``first_off`` when no offset of the range hit
@@ -730,7 +731,10 @@ extranonce_roll_plain = merkle.roll_plain
 
 @functools.lru_cache(maxsize=16)
 def _job_buffer(job: merkle.RollJob, device: torch.device) -> torch.Tensor:
-    return torch.tensor(job.words(), dtype=_I64, device=device)
+    """The job's u32 words (:meth:`~ops.merkle.RollJob.words`) on the
+    card as int32 bit patterns, once a job."""
+    words = np.array(job.words(), dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(words).to(device)
 
 
 def extranonce_roll(job: merkle.RollJob, en_hi: torch.Tensor, en_lo: torch.Tensor):
@@ -747,14 +751,51 @@ def extranonce_roll(job: merkle.RollJob, en_hi: torch.Tensor, en_lo: torch.Tenso
     mids = torch.empty((b, 8), dtype=_I64, device=device)
     tails = torch.empty((b, 3), dtype=_I64, device=device)
     if b:
-        cb = job.coinbase
         _launch(
-            "tm_extranonce_roll", _job_buffer(job, device).data_ptr(), len(cb.tail),
-            len(cb.positions), len(job.branch), en_hi.data_ptr(), en_lo.data_ptr(),
-            mids.data_ptr(), tails.data_ptr(), b, device.index, _stream(device),
+            "tm_extranonce_roll", _job_buffer(job, device).data_ptr(), len(job.coinbase.tail),
+            len(job.branch), en_hi.data_ptr(), en_lo.data_ptr(), mids.data_ptr(),
+            tails.data_ptr(), b, device.index, _stream(device),
         )
         extranonce_roll.launches += 1
     return mids, tails
+
+
+def serial_floor_plain(n_blocks: int, depth: int) -> list:
+    """The roll's chain for a job of ``n_blocks`` coinbase tail blocks and
+    a ``depth``-deep branch, with every message the roll reads (a tail
+    block, a sibling, the header's words) replaced by the last state
+    twice over (``s ‖ s``): from SHA-256's initial state, ``n_blocks``
+    compressions and the txid's second hash, then per level a pair
+    compression, its padding block and its second hash, then the
+    header's first block. The header's midstate, 8 u32 words."""
+    h0 = list(SHA256_H0)
+    state = h0
+    for _ in range(n_blocks):
+        state = ops._compress(state, state + state)
+    state = ops._compress(h0, state + list(merkle._PAD256))
+    for _ in range(depth):
+        state = ops._compress(h0, state + state)
+        state = ops._compress(state, list(merkle._PAD512))
+        state = ops._compress(h0, state + list(merkle._PAD256))
+    return ops._compress(h0, state + state)
+
+
+def serial_floor(n_blocks: int, depth: int, device) -> torch.Tensor:
+    """:func:`serial_floor_plain` by one thread of the roll's body on the
+    card (``tm_sha256_serial_floor``), ``(8,)`` int64 words: the roll's
+    yardstick, what one thread takes for a row's chain with no loads.
+    Not a kernel of any path; the CPU gets the plain version."""
+    if not 1 <= n_blocks < 1 << 31 or not 0 <= depth < 1 << 31:
+        raise ValueError("n_blocks must be in [1, 2^31) and depth in [0, 2^31)")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.tensor(serial_floor_plain(n_blocks, depth), dtype=_I64)
+    device = _cuda_device(device)
+    out = torch.empty(8, dtype=_I64, device=device)
+    _launch("tm_sha256_serial_floor", n_blocks, depth, out.data_ptr(), device.index,
+            _stream(device))
+    serial_floor.launches += 1
+    return out
 
 
 #: every kernel wrapper, in table order (K1, K2 and K3 both arms, K4, K5
@@ -764,5 +805,5 @@ KERNELS = (
     search_candidates_header, search_candidates_hdr, search_candidates_hdr_batch,
     search_candidates_hdr_batch_sched, min_toy, min_toy_toy, extranonce_roll,
 )
-for _fn in KERNELS:
+for _fn in KERNELS + (serial_floor,):
     _fn.launches = 0

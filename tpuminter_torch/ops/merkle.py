@@ -35,7 +35,8 @@ import torch
 from tpuminter_torch.chain import HEADER_SIZE, SHA256_H0
 from tpuminter_torch.ops import sha256 as ops
 
-__all__ = ["RollJob", "build_roll", "roll_plain", "roll_batch_deduped", "to_device"]
+__all__ = ["RollJob", "build_roll", "extranonce_place", "roll_plain", "roll_batch_deduped",
+           "to_device"]
 
 #: FIPS padding block of a 64-byte message (a Merkle pair)
 _PAD512 = (0x80000000,) + (0,) * 14 + (512,)
@@ -60,17 +61,43 @@ class RollJob:
     time_bits: Tuple[int, int]
 
     def words(self) -> list:
-        """The job as the roll kernel's flat word buffer (layout in
-        ``csrc/sha256.cu``, ``extranonce_roll_kernel``)."""
+        """The job as the roll kernel's u32 word buffer (layout in
+        ``csrc/sha256.cu``, ``extranonce_roll_kernel``): the coinbase
+        midstate, :func:`extranonce_place`, the tail blocks, the branch,
+        and header words 0-8, time, bits and a zero."""
         cb = self.coinbase
-        out = list(cb.midstate)
+        out = list(cb.midstate) + list(extranonce_place(cb))
         for block in cb.tail:
             out += block
-        for pos in cb.positions:
-            out += pos
         for sib in self.branch:
             out += sib
-        return out + list(self.head9) + list(self.time_bits)
+        return out + list(self.head9) + list(self.time_bits) + [0]
+
+
+def extranonce_place(coinbase: ops.NonceTemplate) -> Tuple[int, int, int, int]:
+    """Where the roll kernel puts the extranonce, resolved once a job from
+    the template's byte positions: ``(g0, k, mask_hi, mask_lo)``.
+
+    The extranonce's bytes in message order (byte ``j`` is ``en >> 8j``)
+    form an 8-byte stream whose first word is ``bswap32(en_lo)`` and
+    second ``bswap32(en_hi)``; ``mask_hi:mask_lo`` keeps the first
+    ``size`` bytes of it. Its first byte is tail byte ``4·g0 + k/8``, so
+    shifted right by ``k`` bits the stream's three words are ORed into
+    tail words ``g0``, ``g0 + 1`` and ``g0 + 2`` (``g0 < 16``: the first
+    tail block holds the first byte). Refuses positions that are not
+    consecutive little-endian bytes from nonce bit 0."""
+    pos = sorted(coinbase.positions, key=lambda p: p[3])
+    size = len(pos)
+    offsets = [64 * block + 4 * word + 3 - wshift // 8 for block, word, wshift, _ in pos]
+    start = offsets[0] if pos else -1
+    if (not 1 <= size <= 8 or not 0 <= start < 64
+            or [p[3] for p in pos] != [8 * j for j in range(size)]
+            or any(p[2] % 8 or not 0 <= p[2] <= 24 for p in pos)
+            or offsets != list(range(start, start + size))):
+        raise ValueError("the extranonce must be 1-8 consecutive little-endian bytes "
+                         "starting in the first tail block")
+    stream = ((1 << 8 * size) - 1) << (64 - 8 * size)
+    return start // 4, 8 * (start % 4), stream >> 32, stream & 0xFFFFFFFF
 
 
 def build_roll(header80: bytes, coinbase_prefix: bytes, coinbase_suffix: bytes,

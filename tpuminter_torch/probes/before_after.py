@@ -1,35 +1,45 @@
-"""K4 and S2 timed beside their versions before the redesign, in one run.
+"""Redesigned kernels timed beside their versions before the redesign, in one run.
 
 Not a counterpart of a script: cards differ by about 10% from one run to
 the next, so a redesign's move is read only against the old kernel on
-the same card. It builds ``csrc/sha256.cu`` and ``csrc/scrypt.cu`` of
-another checkout (``--before DIR``, an unpacked checkout of commit
-30c4a81, whose C interface this module knows:
-``tm_search_candidates_hdr(mid8, tail3, base, n, hw1_cap, handle, grid,
-device, stream)``, launched on 8 blocks an SM, and
-``tm_scrypt_back(hd, tg, nonces, x, digest, handle, partial, count,
-device, stream)`` with 9 partial words a block) into ``build/before/``
-with ``kernels.build``'s flags, one ``nvcc`` each, both at once, and
-times on the same operands:
+the same card. The module holds a table of comparisons (``COMPARISONS``),
+one row for each old C interface, keyed by the commit whose sources it
+knows. A row builds that commit's ``csrc/`` sources (an unpacked
+checkout, ``--before COMMIT=DIR``) into ``build/before/COMMIT/`` with
+``kernels.build``'s flags, one ``nvcc`` each, all at once, holds old
+against new against plain on the same operands, times old and new in
+``paired_ms``'s interleaved rounds (``--rounds``, alternating order,
+medians), and reads each kernel's static SASS instructions and
+registers from both builds (``kernels.sass``). The rows:
 
-- K4 on 2^27 nonces of a roll row (a seeded mainnet-shaped template's
-  extranonce 0, rolled on the card; ``hw1_cap`` 0, so no early exit):
-  before, and this checkout's, also on 1, 2 and 8 whole waves of its
-  resident blocks beside its ``HDR_WAVES``;
-- S2 on 2^16 and 2^15 hashes of seeded X at the batch's 5th-smallest
-  hash as the target: before, and this checkout's.
-
-Each output is first held equal to the other's and to the plain
-version's (K4 also on the genesis row around its winner, at the genesis
-target's cap). Each pair is then timed in ``paired_ms``'s interleaved
-rounds (``--rounds``, alternating order, medians), and each kernel's
-static SASS instructions and registers are read from both builds
-(``kernels.sass``).
+- ``30c4a81``: K4 and S2. Its C interface:
+  ``tm_search_candidates_hdr(mid8, tail3, base, n, hw1_cap, handle,
+  grid, device, stream)``, launched on 8 blocks an SM, and
+  ``tm_scrypt_back(hd, tg, nonces, x, digest, handle, partial, count,
+  device, stream)`` with 9 partial words a block. K4 on 2^27 nonces of a
+  roll row (a seeded mainnet-shaped template's extranonce 0, rolled on
+  the card; ``hw1_cap`` 0, so no early exit): before, and this
+  checkout's, also on 1, 2 and 8 whole waves of its resident blocks
+  beside its ``HDR_WAVES`` (K4 is also held equal on the genesis row
+  around its winner, at the genesis target's cap); S2 on 2^16 and 2^15
+  hashes of seeded X at the batch's 5th-smallest hash as the target.
+- ``0a4d045``: R and 11. Its C interface:
+  ``tm_extranonce_roll(job, n_blocks, n_pos, depth, en_hi, en_lo, mids,
+  tails, rows, device, stream)`` on an int64 job buffer (midstate, tail
+  blocks, byte positions, branch, header words), and
+  ``tm_row_gather(v, rows, idx, out, count, reps, device, stream)``. R
+  on a seeded mainnet-shaped template (250-byte coinbase, 4-byte
+  extranonce, 12-deep branch) at 2 and 10 rows, beside R's serial floor
+  (``kernels.sha256.serial_floor``) for that template's chain; 11 at the
+  probe's shapes (8192 lanes of a 256 MiB V) at 32 and 256 passes, its
+  time a pass the slope between them.
 
 Run on the card::
 
-    git archive 30c4a81 | tar -x -C build/before_src
-    python -m tpuminter_torch.probes.before_after --before build/before_src
+    git archive 30c4a81 | tar -x -C build/before_30c4a81
+    git archive 0a4d045 | tar -x -C build/before_0a4d045
+    python -m tpuminter_torch.probes.before_after \\
+        --before 30c4a81=build/before_30c4a81 --before 0a4d045=build/before_0a4d045
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ import argparse
 import ctypes
 import json
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -53,16 +65,12 @@ from tpuminter_torch.ops import scrypt as S
 from tpuminter_torch.ops import sha256 as ops
 from tpuminter_torch.probes._common import paired_ms, resolve
 
-__all__ = ["load_before", "run", "main"]
+__all__ = ["Comparison", "COMPARISONS", "load_before", "run", "main"]
 
 ROUNDS = 6
 #: K4's nonces a launch on the rolled path, and S2's hashes a batch
 K4_N = 1 << 27
 S2_COUNTS = (1 << 16, 1 << 15)
-#: the kernels compared, by library: (SASS name after, SASS names before)
-KERNELS = {"sha256": ("search_candidates_hdr_kernel", ("search_candidates_hdr_kernel",)),
-           "scrypt": ("scrypt_back_kernel", ("init_handle_kernel", "scrypt_back_kernel",
-                                             "scrypt_fold_kernel"))}
 #: K4's whole waves this checkout's kernel is also timed on, beside
 #: ``kernels.sha256.HDR_WAVES``
 WAVES = (1, 2, 4, 8)
@@ -70,17 +78,38 @@ WAVES = (1, 2, 4, 8)
 BEFORE_BLOCKS_PER_SM = 8
 #: u32 words of an S2 block's partial at commit 30c4a81
 BEFORE_PARTIAL = 9
+#: R's rows a launch: a window's two (its extranonce and the padding
+#: rows' 0), and a batched window's roll_batch + 2
+ROLL_ROWS = (2, 10)
+#: 11's shapes (scripts/romix_pallas_probe.py): rows, lanes, and the two
+#: pass counts whose difference gives the time a pass
+GATHER_ROWS, GATHER_B, GATHER_REPS = 256 * 8192, 8192, (32, 256)
 
 
-def load_before(checkout: Path) -> dict:
-    """``checkout``'s ``sha256.cu`` and ``scrypt.cu`` built with
-    ``kernels.build``'s flags and loaded, with the C interface of commit
-    30c4a81 declared: ``{"sha256": lib, "scrypt": lib}``."""
+@dataclass(frozen=True)
+class Comparison:
+    """One row: the libraries an old commit's sources build, how its C
+    interface is declared, the kernels whose SASS is read (this
+    checkout's names, the old build's names), and the measurement."""
+
+    what: str
+    sources: Tuple[str, ...]
+    declare: Callable[[dict], None]
+    kernels: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]]
+    measure: Callable[[dict, torch.device, int], dict]
+    report: Callable[[dict], list]
+
+
+def load_before(checkout: Path, commit: str) -> dict:
+    """``checkout``'s sources of ``COMPARISONS[commit]`` built with
+    ``kernels.build``'s flags into ``build/before/COMMIT/`` and loaded,
+    with that commit's C interface declared: ``{name: lib}``."""
+    row = COMPARISONS[commit]
     csrc = Path(checkout) / "tpuminter_torch" / "kernels" / "csrc"
-    out_dir = build.BUILD_DIR.parent / "before"
+    out_dir = build.BUILD_DIR.parent / "before" / commit
     out_dir.mkdir(parents=True, exist_ok=True)
     running = {}
-    for name in KERNELS:
+    for name in row.sources:
         src = csrc / f"{name}.cu"
         if not src.is_file():
             raise FileNotFoundError(f"no {src.name} under {checkout}")
@@ -95,13 +124,7 @@ def load_before(checkout: Path) -> dict:
             raise RuntimeError(f"nvcc failed on {name}.cu of {checkout}:\n{log}")
         libs[name] = ctypes.CDLL(str(out))
         libs[name].path = str(out)
-    ptr, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
-    k4 = libs["sha256"].tm_search_candidates_hdr
-    k4.argtypes = [ptr, ptr, u32, u32, u32, ptr, i32, i32, ptr]
-    s2 = libs["scrypt"].tm_scrypt_back
-    s2.argtypes = [ctypes.POINTER(build.TmScryptHeader), ctypes.POINTER(build.TmTarget), ptr,
-                   ptr, ptr, ptr, ptr, i32, i32, ptr]
-    k4.restype = s2.restype = i32
+    row.declare(libs)
     return libs
 
 
@@ -121,26 +144,44 @@ def _equal(outs: dict, what: str) -> None:
             raise RuntimeError(f"{what}: {name} differs from {first}")
 
 
-def _sass(path: str, kernels) -> dict:
-    """Static SASS instructions and registers of ``kernels`` in a build,
-    or None without ``cuobjdump``."""
+def _sass(path: str, prefixes) -> dict:
+    """Static SASS instructions and registers of the kernels of a build
+    whose names start with one of ``prefixes``, or None without
+    ``cuobjdump``."""
     counts, usage = sass.sass_summary(path), sass.resource_usage(path)
     if counts is None:
         return None
     return {k: {"instructions": sum(counts[k].values()), "registers": usage[k]["REG"]}
-            for k in kernels}
+            for k in counts if k.startswith(tuple(prefixes))}
+
+
+def _mainnet_job(seed: int) -> merkle.RollJob:
+    """A seeded mainnet-shaped template on the genesis header: a 250-byte
+    coinbase with a 4-byte extranonce, and a 12-deep Merkle branch."""
+    rng = np.random.default_rng(seed)
+    return merkle.build_roll(chain.GENESIS_HEADER.pack(), rng.bytes(120), rng.bytes(126), 4,
+                             tuple(rng.bytes(32) for _ in range(12)))
+
+
+# ---- 30c4a81: K4 and S2 --------------------------------------------------------------
+
+def _declare_30c4a81(libs: dict) -> None:
+    ptr, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+    k4 = libs["sha256"].tm_search_candidates_hdr
+    k4.argtypes = [ptr, ptr, u32, u32, u32, ptr, i32, i32, ptr]
+    s2 = libs["scrypt"].tm_scrypt_back
+    s2.argtypes = [ctypes.POINTER(build.TmScryptHeader), ctypes.POINTER(build.TmTarget), ptr,
+                   ptr, ptr, ptr, ptr, i32, i32, ptr]
+    k4.restype = s2.restype = i32
 
 
 def _k4_rows(device) -> tuple:
     """A seeded mainnet-shaped template's extranonce-0 row, rolled on the
     card, and the genesis header's row."""
-    rng = np.random.default_rng(10)
-    genesis = chain.GENESIS_HEADER.pack()
-    job = merkle.build_roll(genesis, rng.bytes(120), rng.bytes(126), 4,
-                            tuple(rng.bytes(32) for _ in range(12)))
+    job = _mainnet_job(10)
     zero = torch.zeros(1, dtype=torch.int64, device=device)
     mids, tails = K.extranonce_roll(job, zero, zero)
-    tmpl = ops.header_template(genesis)
+    tmpl = ops.header_template(chain.GENESIS_HEADER.pack())
     g_mid = torch.tensor(list(tmpl.midstate), dtype=torch.int64, device=device)
     g_tail = torch.tensor(list(tmpl.tail[0][:3]), dtype=torch.int64, device=device)
     return (mids[0], tails[0]), (g_mid, g_tail)
@@ -229,44 +270,208 @@ def _s2(lib, device, rounds: int) -> dict:
     return {"by_count": out, "resident_after": blocks, "registers_after": regs}
 
 
-def run(before: Path, rounds: int = ROUNDS, device="cuda") -> dict:
+def _measure_30c4a81(libs: dict, device, rounds: int) -> dict:
+    return {"k4": _k4(libs["sha256"], device, rounds), "s2": _s2(libs["scrypt"], device, rounds)}
+
+
+def _report_30c4a81(result: dict) -> list:
+    k4 = result["k4"]
+    ms = k4["paired_ms"]
+    lines = [f"K4 on {k4['n']} nonces: before {ms['before']:.4f} (grid {k4['grid']['before']}), "
+             f"after {ms['after']:.4f} (grid {k4['grid']['after']}: {k4['waves_after']} waves of "
+             f"{k4['resident_after']} blocks an SM): {ms['after'] / ms['before']:.3f}x; "
+             + ", ".join(f"{name} {t:.4f}" for name, t in ms.items() if "waves" in name)]
+    for count, row in result["s2"]["by_count"].items():
+        ms = row["paired_ms"]
+        lines.append(f"S2 on {count} hashes: before {ms['before']:.4f}, after {ms['after']:.4f}: "
+                     f"{ms['after'] / ms['before']:.3f}x")
+    return lines
+
+
+# ---- 0a4d045: R and 11 -----------------------------------------------------------------
+
+def _declare_0a4d045(libs: dict) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    roll = libs["sha256"].tm_extranonce_roll
+    roll.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr]
+    gather = libs["scrypt"].tm_row_gather
+    gather.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, ptr]
+    roll.restype = gather.restype = i32
+
+
+def _old_roll_words(job: merkle.RollJob) -> list:
+    """The job as commit 0a4d045's roll read it: int64 words of the
+    midstate, the tail blocks, the byte positions (block, word, word
+    shift, extranonce shift), the branch, header words 0-8, time, bits."""
+    cb = job.coinbase
+    out = list(cb.midstate)
+    for block in cb.tail:
+        out += block
+    for pos in cb.positions:
+        out += pos
+    for sib in job.branch:
+        out += sib
+    return out + list(job.head9) + list(job.time_bits)
+
+
+def _roll(lib, device, rounds: int) -> dict:
+    job = _mainnet_job(13)
+    old_job = torch.tensor(_old_roll_words(job), dtype=torch.int64, device=device)
+    cb = job.coinbase
+    n_blocks, depth = len(cb.tail), len(job.branch)
+
+    def before(hi, lo):
+        b = hi.shape[0]
+        mids = torch.empty((b, 8), dtype=torch.int64, device=device)
+        tails = torch.empty((b, 3), dtype=torch.int64, device=device)
+        _check(lib.tm_extranonce_roll(old_job.data_ptr(), len(cb.tail), len(cb.positions),
+                                      len(job.branch), hi.data_ptr(), lo.data_ptr(),
+                                      mids.data_ptr(), tails.data_ptr(), b, device.index,
+                                      _stream(device)), "tm_extranonce_roll (before)")
+        return mids, tails
+
+    out = {"compressions": n_blocks + 1 + 3 * depth + 1}
+    for rows in ROLL_ROWS:
+        hi = torch.zeros(rows, dtype=torch.int64, device=device)
+        lo = torch.arange(rows, dtype=torch.int64, device=device)
+        _equal({"plain": K.extranonce_roll_plain(job, hi, lo), "before": before(hi, lo),
+                "after": K.extranonce_roll(job, hi, lo)}, f"R on {rows} rows")
+        fns = {"before": lambda: before(hi, lo), "after": lambda: K.extranonce_roll(job, hi, lo)}
+        if rows == ROLL_ROWS[0]:
+            floor = K.serial_floor(n_blocks, depth, device)
+            if floor.tolist() != K.serial_floor_plain(n_blocks, depth):
+                raise RuntimeError("R's serial floor differs from its plain version")
+            fns["serial floor"] = lambda: K.serial_floor(n_blocks, depth, device)
+        out[rows] = {"paired_ms": paired_ms(fns, device, rounds)}
+    return out
+
+
+def _gather(lib, device, rounds: int) -> dict:
+    rng = np.random.default_rng(14)
+    i = torch.arange(GATHER_ROWS, dtype=torch.int64, device=device)[:, None]
+    v = (i * 2654435761 + torch.arange(32, dtype=torch.int64, device=device)[None]) & ops.M32
+    del i
+    v = torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+    idx = torch.tensor(rng.integers(0, GATHER_ROWS, GATHER_B, dtype=np.int64), device=device)
+    sms = _sm_count(device.index)
+
+    def before(reps):
+        out = torch.empty(GATHER_B, dtype=torch.int64, device=device)
+        _check(lib.tm_row_gather(v.data_ptr(), GATHER_ROWS, idx.data_ptr(), out.data_ptr(),
+                                 GATHER_B, reps, device.index, _stream(device)),
+               "tm_row_gather (before)")
+        return out
+
+    lo, hi = GATHER_REPS
+    for reps in GATHER_REPS:
+        _equal({"plain": KS.row_gather_plain(v, idx, reps), "before": before(reps),
+                "after": KS.row_gather(v, idx, reps)}, f"11 at {reps} passes")
+    g = KS.gather_geometry(GATHER_B, hi, sms)
+    fns = {}
+    for reps in GATHER_REPS:
+        fns[f"before @{reps}"] = lambda reps=reps: before(reps)
+        fns[f"after @{reps}"] = lambda reps=reps: KS.row_gather(v, idx, reps)
+    ms = paired_ms(fns, device, rounds)
+    per_pass = {name: (ms[f"{name} @{hi}"] - ms[f"{name} @{lo}"]) / (hi - lo)
+                for name in ("before", "after")}
+    del v
+    torch.cuda.empty_cache()
+    return {"rows": GATHER_ROWS, "lanes": GATHER_B, "paired_ms": ms, "ms_a_pass": per_pass,
+            "ns_a_row": {name: t * 1e6 / GATHER_B for name, t in per_pass.items()},
+            "geometry": {"slices": g.slices, "per": g.per, "grid": g.grid}}
+
+
+def _measure_0a4d045(libs: dict, device, rounds: int) -> dict:
+    return {"roll": _roll(libs["sha256"], device, rounds),
+            "gather": _gather(libs["scrypt"], device, rounds)}
+
+
+def _report_0a4d045(result: dict) -> list:
+    roll = result["roll"]
+    lines = []
+    for rows in ROLL_ROWS:
+        ms = roll[rows]["paired_ms"]
+        floor = (f"; serial floor ({roll['compressions']} compressions) {ms['serial floor']:.4f}"
+                 if "serial floor" in ms else "")
+        lines.append(f"R on {rows} rows: before {ms['before']:.4f}, after {ms['after']:.4f}: "
+                     f"{ms['after'] / ms['before']:.3f}x{floor}")
+    g = result["gather"]
+    per = g["ms_a_pass"]
+    lines.append(f"11 a pass ({g['lanes']} rows of {g['rows']}; slope {GATHER_REPS[0]} -> "
+                 f"{GATHER_REPS[1]} passes): before {per['before']:.6f} ms, after "
+                 f"{per['after']:.6f} ({g['geometry']}): {per['after'] / per['before']:.3f}x")
+    return lines
+
+
+#: the comparisons, one for each old C interface, by the commit whose
+#: sources it builds
+COMPARISONS = {
+    "30c4a81": Comparison(
+        "K4 and S2", ("sha256", "scrypt"), _declare_30c4a81,
+        {"sha256": (("search_candidates_hdr_kernel",), ("search_candidates_hdr_kernel",)),
+         "scrypt": (("scrypt_back_kernel",), ("init_handle_kernel", "scrypt_back_kernel",
+                                               "scrypt_fold_kernel"))},
+        _measure_30c4a81, _report_30c4a81),
+    "0a4d045": Comparison(
+        "R and 11", ("sha256", "scrypt"), _declare_0a4d045,
+        {"sha256": (("extranonce_roll_kernel", "serial_floor_kernel"),
+                    ("extranonce_roll_kernel",)),
+         "scrypt": (("row_gather_kernel",), ("row_gather_kernel",))},
+        _measure_0a4d045, _report_0a4d045),
+}
+
+
+def run(befores, rounds: int = ROUNDS, device="cuda") -> dict:
+    """Each comparison of ``befores`` (commit → unpacked checkout of it),
+    in the table's order: ``{commit: {"what", "result", "sass"}}``."""
     device = resolve(device)
     if device.type != "cuda":
         raise RuntimeError("the comparison times kernels on the card; the CPU has none")
-    libs = load_before(before)
+    unknown = set(befores) - set(COMPARISONS)
+    if unknown:
+        raise ValueError(f"no comparison for {sorted(unknown)}; known: {sorted(COMPARISONS)}")
     infos = build.build()
-    code = {}
-    for name, (after_kernel, before_kernels) in KERNELS.items():
-        code[name] = {"before": _sass(libs[name].path, before_kernels),
-                      "after": _sass(str(infos[name].path), (after_kernel,))}
-    return {"device": torch.cuda.get_device_name(device), "rounds": rounds,
-            "k4": _k4(libs["sha256"], device, rounds),
-            "s2": _s2(libs["scrypt"], device, rounds), "sass": code}
+    out = {"device": torch.cuda.get_device_name(device), "rounds": rounds}
+    for commit, row in COMPARISONS.items():
+        if commit not in befores:
+            continue
+        libs = load_before(befores[commit], commit)
+        code = {name: {"before": _sass(libs[name].path, old),
+                       "after": _sass(str(infos[name].path), new)}
+                for name, (new, old) in row.kernels.items()}
+        out[commit] = {"what": row.what, "result": row.measure(libs, device, rounds),
+                       "sass": code}
+    return out
+
+
+def _before_arg(text: str) -> Tuple[str, Path]:
+    commit, sep, path = text.partition("=")
+    if not sep or commit not in COMPARISONS:
+        raise argparse.ArgumentTypeError(
+            f"expected COMMIT=DIR with COMMIT one of {', '.join(COMPARISONS)}")
+    return commit, Path(path)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--before", type=Path, required=True,
-                    help="an unpacked checkout of commit 30c4a81")
+    ap.add_argument("--before", type=_before_arg, action="append", required=True,
+                    metavar="COMMIT=DIR",
+                    help="an unpacked checkout of a commit of the table (repeat for each row)")
     ap.add_argument("--rounds", type=int, default=ROUNDS,
                     help=f"paired_ms's interleaved rounds (default {ROUNDS})")
     args = ap.parse_args(argv)
-    result = run(args.before, args.rounds)
+    result = run(dict(args.before), args.rounds)
     print(f"before / after on {result['device']}, ms a launch, median of {args.rounds} "
           "interleaved rounds")
-    k4 = result["k4"]
-    ms = k4["paired_ms"]
-    print(f"K4 on {k4['n']} nonces: before {ms['before']:.4f} (grid {k4['grid']['before']}), "
-          f"after {ms['after']:.4f} (grid {k4['grid']['after']}: {k4['waves_after']} waves of "
-          f"{k4['resident_after']} blocks an SM): {ms['after'] / ms['before']:.3f}x; "
-          + ", ".join(f"{name} {t:.4f}" for name, t in ms.items() if "waves" in name))
-    for count, row in result["s2"]["by_count"].items():
-        ms = row["paired_ms"]
-        print(f"S2 on {count} hashes: before {ms['before']:.4f}, after {ms['after']:.4f}: "
-              f"{ms['after'] / ms['before']:.3f}x")
-    for name, both in result["sass"].items():
-        print(f"SASS {name}: before {both['before']}, after {both['after']}")
+    for commit, row in COMPARISONS.items():
+        if commit not in result:
+            continue
+        print(f"-- against {commit}: {row.what}")
+        for line in row.report(result[commit]["result"]):
+            print(line)
+        for name, both in result[commit]["sass"].items():
+            print(f"SASS {name}: before {both['before']}, after {both['after']}")
     print(json.dumps({"before_after": result}))
     return 0
 
