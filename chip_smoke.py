@@ -61,7 +61,9 @@ caught), and without a CUDA device the script exits non-zero at once:
    fifteen remaining ``pallas_call`` sites on the kernels P1-P3 of
    ``csrc/probes.cu``): each kernel against its plain version off the
    probes' shapes (ragged, misaligned, off the tile, one block, other
-   grids), then every probe module's ``run()`` on one V at the scripts'
+   grids; P2's vector arm on the probes' shapes with and without a
+   carry, its scalar arm on odd sides and on views one word off their
+   storage), then every probe module's ``run()`` on one V at the scripts'
    sizes (B = 16384, N = 1024), which holds its kernels against their
    plain versions and each per-step walk chain against ``romix_walk``,
    and times them beside the fused walk (and each site beside its one
@@ -72,7 +74,10 @@ caught), and without a CUDA device the script exits non-zero at once:
    (K3's header arm), a regtest-difficulty window and an exhausted
    exact-min window (K2's header arm), and a 2^30-nonce MIN chunk (K6's
    toy arm), after K1's self-check; the generic K2, K3 and K6 must not
-   launch there; (b) rolled jobs: the genesis block as a rolled
+   launch there; (a') the same genesis window through
+   ``ProfiledMiner(CudaMiner())`` (the worker's ``--profile``): its
+   Result must equal the unwrapped miner's and it must write a trace
+   (phase 5 reads the worker process's trace); (b) rolled jobs: the genesis block as a rolled
    job over a 2^30-index window, a mainnet-shaped block template (250-byte
    coinbase, 12-deep Merkle branch) at difficulty 1 over four whole
    extranonces, three times (batched with and without the shared
@@ -93,16 +98,29 @@ caught), and without a CUDA device the script exits non-zero at once:
    block, and a rolled SCRYPT job, every Result checked with
    hashlib.scrypt;
 5. end to end: the unchanged ``python -m tpuminter.coordinator`` (with a
-   roll budget), the port's ``python -m tpuminter_torch.worker`` and the
-   unchanged ``python -m tpuminter.client`` as separate processes: a
-   genesis TARGET job, a MIN job and a rolled job (the genesis coinbase,
+   roll budget and a journal), the port's worker and the unchanged
+   ``python -m tpuminter.client`` as separate processes. A MIN job runs
+   on ``python -m tpuminter_torch.worker ADDR --codec json``, which is
+   then stopped (its session must have sent every Result in JSON); every
+   other job on ``python -m tpuminter_torch.worker --coordinator ADDR
+   --reconnect --profile DIR`` (at its default codec, binary), whose
+   ``torch.profiler`` trace of its first chunk (the genesis job's) must
+   hold K3's header arm's kernel events (each kernel of the window is
+   printed with its launches and device time): a
+   genesis TARGET job, a rolled job (the genesis coinbase,
    extranonces 0-4) and a SCRYPT job (phase 4d's range at its planted
    bits), each Result checked with hashlib; hashcore jobs (fmin and
    top-k over 2^32 indices, equal to phase 4c's; sum and a planted
    first-match over 2^20, checked with numpy); a dict job (top-k over
    6000 candidates, the catalog past the coordinator's window budget,
-   checked with hashlib); the coordinator's log must show the worker
-   advertising dict and hashcore, and neither log a refused chunk.
+   checked with hashlib); a crash drill (a MIN job over 2^36 nonces
+   through a client with ``--reconnect``, the coordinator killed 1.5 s
+   in and restarted from its journal: the worker redials by itself and
+   the client prints exactly one Result, equal to ``CudaMiner()``'s);
+   each coordinator's log must show the binary worker joining with the
+   binary codec and advertising dict and hashcore, the worker's log that
+   its session before the crash sent every Result in binary, and no log
+   a refused chunk.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
@@ -114,6 +132,8 @@ import hashlib
 import json
 import os
 import re
+import shutil
+import signal
 import socket
 import struct
 import subprocess
@@ -154,7 +174,6 @@ ROWS = 8  # rows of the batched rolled kernel at the main path's shape
 #: nonces per full row of the plan that holds the batched rolled kernel
 #: against its plain version (K4's plain version sweeps ROWS rows' worth)
 PLAIN_ROW_N = 1 << 23
-MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 #: integer instructions an SM can issue per clock: 4 schedulers x 32 lanes,
 #: shared by the INT32 pipe (64 lanes) and IMAD on the FMA pipe, where
 #: ptxas places part of the adds; the INT32 pipe alone is reported beside
@@ -448,6 +467,7 @@ def phase_kernels(dev, rng):
     from tpuminter_torch.cuda_worker import DEFAULT_SLAB
     from tpuminter_torch.kernels import sha256 as K
     from tpuminter_torch.ops import sha256 as ops
+    from tpuminter_torch.probes._common import MEM_BYTES_PER_S
 
     stats = {
         "sha256_batch": KernelStats("sha256_batch", "tpuminter/kernels/sha256.py:87"),
@@ -768,6 +788,8 @@ def record(st, n, plain_n, ms, plain_ms, nbytes, per_unit, ops_total, int_rate,
     """A kernel's timing row: its time beside its plain version's and
     its bound, the larger of its bytes over the memory rate and its
     counted instructions over the integer issue rate."""
+    from tpuminter_torch.probes._common import MEM_BYTES_PER_S
+
     ops_ms = ops_total / int_rate * 1e3
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     st.timing = dict(
@@ -1096,6 +1118,90 @@ def phase_main_path(card: str):
     say(f"  MIN 2^30: nonce {res.nonce} fold {res.hash_value:#018x}, toy_hash-checked; "
         f"{rates['min']:.3f} GH/s on {card}")
     return read_launches(kernels, FIXED_PATH_KERNELS, "fixed-header", FIXED_PATH_GENERIC), rates
+
+
+def kernel_label(name: str) -> str:
+    """A traced kernel's demangled name without its return type, its
+    anonymous namespace and its parameter list: ``void (anonymous
+    namespace)::k<true>(TmHeader, unsigned int)`` → ``k<true>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    return name[5:] if name.startswith("void ") else name
+
+
+def phase_profiled_chunk():
+    """One fast-path chunk (phase 4a's genesis window) through
+    ``ProfiledMiner(CudaMiner())``, stepped and closed on this thread:
+    its Result must equal the unwrapped miner's, and it must write a
+    trace. Phase 5 reads the trace of the worker process's own
+    ``--profile`` run. Returns the launches."""
+    import tempfile
+
+    from tpuminter_torch import chain, kernels
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.protocol import PowMode, Request
+    from tpuminter_torch.worker import ProfiledMiner
+
+    genesis = chain.GENESIS_HEADER
+    req = Request(1, PowMode.TARGET, GENESIS_NONCE - (1 << 30) + 1, GENESIS_NONCE + 4095,
+                  header=genesis.pack(), target=chain.bits_to_target(genesis.bits))
+    want = drain(CudaMiner().mine(req))
+    reset_launches(kernels)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as trace_dir:
+        miner = ProfiledMiner(CudaMiner(), trace_dir)
+        results = [item for item in miner.mine(req) if item is not None]
+        miner.close()
+        launches = read_launches(kernels, ("search_candidates_header",), "profiled fast-path")
+        if results != [want]:
+            fail(f"the profiled chunk's Result {results} differs from the unwrapped miner's "
+                 f"{want}")
+        if miner.trace_path is None:
+            fail("ProfiledMiner wrote no trace")
+    say("  profiled genesis chunk: Result equal to the unwrapped miner's, trace written")
+    return launches
+
+
+def worker_trace(log_path: str, trace_dir: str, card: str) -> dict:
+    """The trace a ``--profile`` worker process wrote into ``trace_dir``
+    (its log says when): it must hold 3h's kernel events. Prints each
+    kernel of the window with its launches and summed device time;
+    returns them with the window's span."""
+    deadline = time.time() + 60
+    while "wrote the trace" not in open(log_path).read():
+        if time.time() > deadline:
+            fail(f"the --profile worker wrote no trace into {trace_dir}")
+        time.sleep(0.2)
+    paths = [name for name in os.listdir(trace_dir) if name.endswith(".pt.trace.json")]
+    if len(paths) != 1:
+        fail(f"the --profile worker wrote {paths} into {trace_dir}, not one trace")
+    with open(os.path.join(trace_dir, paths[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels_us: dict = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            name = kernel_label(ev["name"])
+            n, us = kernels_us.get(name, (0, 0.0))
+            kernels_us[name] = (n + 1, us + float(ev.get("dur", 0)))
+    if not any("search_candidates_header_kernel" in k for k in kernels_us):
+        fail(f"the worker's trace holds no 3h kernel event: {sorted(kernels_us)}")
+    busy = sum(us for _, us in kernels_us.values())
+    spans = [(float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0))) for ev in events
+             if ev.get("ph") == "X"]
+    window_us = max(end for _, end in spans) - min(start for start, _ in spans)
+    say(f"  worker --profile trace {paths[0]} ({len(events)} events) of its first chunk's "
+        f"steps 1-3 on {card}: the card busy {busy:.1f} us of the window's {window_us:.1f} "
+        f"({busy / window_us:.1%})")
+    for name, (n, us) in sorted(kernels_us.items(), key=lambda kv: -kv[1][1]):
+        say(f"    {name}: {n} launches, {us:.1f} us ({us / busy:.1%} of the window's device "
+            "time)")
+    return {"window_us": window_us, "kernels": {
+        name: {"launches": n, "us": us} for name, (n, us) in kernels_us.items()}}
 
 
 #: the SASS kernel behind each row of K1-K6, S1 and 19, for its pipe mix
@@ -1853,7 +1959,7 @@ def scrypt_kernel_checks(dev, rng, stats, int_rate):
     from tpuminter_torch.ops import scrypt as S
     from tpuminter_torch.ops import sha256 as ops
     from tpuminter_torch.ops.walk_layouts import to_bits
-    from tpuminter_torch.probes._common import probe_v, time_ms
+    from tpuminter_torch.probes._common import MEM_BYTES_PER_S, probe_v, time_ms
 
     s1, s19, s2, s11 = (stats[k] for k in ("scrypt_front", "romix_walk", "scrypt_back",
                                            "row_gather"))
@@ -2063,6 +2169,11 @@ def probe_stats() -> dict:
 #: 0-3 words
 P1_SMALL_N = tuple(range(1, 10))
 P1_EDGE_N = ((1 << 21) - 5, (1 << 21) - 1, (1 << 21) + 1, (1 << 21) + 5)
+#: P2's shapes: the probes' (``_common.to_wm``, ``from_wm``; 15 and 21's
+#: ``(B/4, 128)``) and sides that are multiples of 4 but not of a tile,
+#: on the vector arm; sides that are not multiples of 4, on the scalar arm
+P2_VECTOR_SHAPES = ((16_384, 32), (32, 16_384), (4096, 128), (1000, 36), (36, 1000))
+P2_SCALAR_SHAPES = ((1000, 37), (37, 1000), (33, 1))
 #: P3's (batch, blocks): the probes' B at one pass and on grids of 3 and
 #: 133 blocks (fewer and more blocks than the quad form's 128 groups),
 #: one block, three bitcast blocks, and the smallest batch
@@ -2074,8 +2185,11 @@ def probe_edge_checks(dev, rng, stats) -> int:
     """P1-P3 against their plain versions where the probes' shapes do not
     reach: P1 at 1-9 words at word offsets 0-3 (the offsets take its
     scalar arm) and at 2^21 - 5, - 1, + 1 and + 5 words aligned and
-    misaligned, and in place; P2 on shapes that are no multiple of its
-    32 x 32 tile, with and without a carry; every P3 instantiation on
+    misaligned, and in place; P2 on the probes' shapes and on sides that
+    are multiples of 4 but not of a tile (its vector arm), on sides that
+    are not multiples of 4 (its scalar arm), each with and without a
+    carry, and on views one word off their storage (the scalar arm);
+    every P3 instantiation on
     random words at each of ``P3_EDGE``'s batches and grids. Each check
     is recorded on the sites that use it."""
     from tpuminter_torch.kernels import probes as KP
@@ -2110,11 +2224,22 @@ def probe_edge_checks(dev, rng, stats) -> int:
     KP.xor_const(shifted, 1, out=shifted)
     agree(P1_SITES, shifted, x[1:] ^ 1, "in place, misaligned by one")
     checks += 2
-    for r, c in ((1000, 37), (37, 1000), (33, 1)):
+    for r, c in P2_SCALAR_SHAPES + P2_VECTOR_SHAPES:
         a, carry = words(r, c), words(c, r)
-        agree(P2_SITES, KP.transpose(W.to_bits(a)), KP.transpose_plain(a), f"({r}, {c})")
+        arm = "vector" if (r, c) in P2_VECTOR_SHAPES else "scalar"
+        agree(P2_SITES, KP.transpose(W.to_bits(a)), KP.transpose_plain(a), f"({r}, {c}), {arm}")
         agree(P2_SITES, KP.transpose(W.to_bits(a), W.to_bits(carry)),
-              KP.transpose_plain(a, carry), f"({r}, {c}) into a carry")
+              KP.transpose_plain(a, carry), f"({r}, {c}) into a carry, {arm}")
+        checks += 2
+    for r, c in P2_VECTOR_SHAPES[:3]:
+        # a view one word into its storage (and a carry so) takes the scalar arm
+        a, carry = words(r * c + 1), words(c * r + 1)
+        ab, cb = W.to_bits(a), W.to_bits(carry)
+        agree(P2_SITES, KP.transpose(ab[1:].view(r, c)), KP.transpose_plain(a[1:].view(r, c)),
+              f"({r}, {c}) one word off its storage")
+        agree(P2_SITES, KP.transpose(ab[:-1].view(r, c), cb[1:].view(c, r)),
+              KP.transpose_plain(a[:-1].view(r, c), carry[1:].view(c, r)),
+              f"({r}, {c}) into a carry one word off its storage")
         checks += 2
     for (layout, body), sites in P3_SITES.items():
         for b, blocks in P3_EDGE:
@@ -2132,6 +2257,8 @@ def record_site(st, site: dict, int_rate: float) -> None:
     the work its function needs (each input read once, each output
     written once; the operations counted in ``probes._common``); its
     ``n`` is the words the function moves."""
+    from tpuminter_torch.probes._common import MEM_BYTES_PER_S
+
     def bound(s):
         ops_ms = s["ops"] / int_rate * 1e3
         bytes_ms = s["bytes"] / MEM_BYTES_PER_S * 1e3
@@ -2181,7 +2308,8 @@ def phase_probes(dev, rng, int_rate) -> dict:
     stats = probe_stats()
     checks = probe_edge_checks(dev, rng, stats)
     say(f"  P1-P3: {checks} edge checks equal to their plain versions (P1 at 1-9 words at "
-        "every word offset, around 2^21 words aligned and not, in place; P2 off its tile; "
+        "every word offset, around 2^21 words aligned and not, in place; P2 on both arms, "
+        "with and without a carry, and one word off its storage; "
         "every P3 instantiation at B = 16384 on 128, 3 and 133 blocks, 2048 in one block, "
         "6144 over three bitcast blocks, 128 at one pass and on 3 blocks)")
     torch.cuda.empty_cache()
@@ -2387,6 +2515,10 @@ def scrypt_dispatch(header80, b, dev):
 #: phase 5's dict job: candidates (past the coordinator's 32 KiB window
 #: budget), top-k slots and seed
 DICT_N, DICT_K, DICT_SEED = 6000, 8, 42
+#: phase 5's crash drill: a MIN job of 2^36 nonces (~4 s of the card, 128
+#: of the coordinator's chunks), and how long it runs before the
+#: coordinator is killed
+CRASH_DATA, CRASH_N, CRASH_AFTER_S = b"tpuminter_torch crash drill", 1 << 36, 1.5
 
 
 def free_udp_port() -> int:
@@ -2395,13 +2527,24 @@ def free_udp_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_end_to_end(hc_expect, scrypt_job):
+def phase_end_to_end(hc_expect, scrypt_job, card: str):
     """The process-level phase; ``hc_expect`` holds phase 4c's
     ``(searched, acc)`` of fmin and top-k over [0, 2^32) under its
-    ``"seed"``, ``scrypt_job`` phase 4d's planted SCRYPT job. Returns each
-    hashcore job's seconds through the client, the SCRYPT job's and the
-    dict job's."""
+    ``"seed"``, ``scrypt_job`` phase 4d's planted SCRYPT job. A port
+    worker pinned to ``--codec json`` answers the MIN job against a
+    journaled coordinator and is stopped; then the port worker at its
+    default codec (binary) with ``--reconnect`` and ``--profile`` runs
+    every other job (its trace, of the genesis job's first chunk, is
+    read back by :func:`worker_trace`), and :func:`crash_drill` kills
+    and restarts the coordinator under it. Returns each hashcore job's
+    seconds through the client, the SCRYPT job's, the dict job's, the
+    crash drill's and the worker's trace window."""
     from tpuminter_torch import chain
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.protocol import PowMode, Request
+
+    crash_expect = drain(CudaMiner().mine(Request(9, PowMode.MIN, 0, CRASH_N - 1,
+                                                  data=CRASH_DATA)))
 
     log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
     os.makedirs(log_dir, exist_ok=True)
@@ -2426,14 +2569,59 @@ def phase_end_to_end(hc_expect, scrypt_job):
             fail(f"client {args[:2]} failed (rc {out.returncode}): {out.stdout}{out.stderr}")
         return lines[0].split()
 
-    try:
-        start("coordinator", ["tpuminter.coordinator", str(port), "--roll-budget", "2"])
-        deadline = time.time() + 60
-        while "listening" not in open(os.path.join(log_dir, "e2e_coordinator.log")).read():
-            if procs[0].poll() is not None or time.time() > deadline:
-                fail("the coordinator did not start")
+    journal = os.path.join(log_dir, "e2e_coordinator.wal")
+    if os.path.exists(journal):
+        os.remove(journal)
+    coordinator = ["tpuminter.coordinator", str(port), "--roll-budget", "2", "--journal", journal]
+
+    def start_coordinator(name):
+        start(name, coordinator)
+        proc, deadline = procs[-1], time.time() + 60
+        while "listening" not in open(os.path.join(log_dir, f"e2e_{name}.log")).read():
+            if proc.poll() is not None or time.time() > deadline:
+                fail(f"the coordinator ({name}) did not start")
             time.sleep(0.2)
-        start("worker", ["tpuminter_torch.worker", addr])
+        return proc
+
+    def log_text(name):
+        with open(os.path.join(log_dir, f"e2e_{name}.log")) as fh:
+            return fh.read()
+
+    trace_dir = os.path.join(log_dir, "e2e_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    try:
+        coordinator_proc = start_coordinator("coordinator")
+        # a worker pinned to JSON (what it speaks to a coordinator that
+        # never sends binary), for the MIN job only
+        start("worker_json", ["tpuminter_torch.worker", addr, "--codec", "json"])
+        json_worker = procs[-1]
+        data = "hello bitcoin"
+        _, fold, nonce = client([data, str((1 << 30) - 1)])
+        if int(fold) != chain.toy_hash(data.encode(), int(nonce)):
+            fail(f"e2e MIN Result {fold} {nonce} fails the toy_hash check")
+        say(f"  e2e MIN: Result {fold} {nonce} (toy_hash-checked) from the --codec json worker")
+        json_worker.send_signal(signal.SIGINT)  # ends its session, which logs what it sent
+        json_worker.wait(timeout=30)
+        sessions = re.findall(r"(\d+) Results sent, (\d+) of them binary", log_text("worker_json"))
+        if len(sessions) != 1 or int(sessions[0][0]) == 0 or int(sessions[0][1]) != 0:
+            fail(f"the --codec json worker's session sent no Results or some in binary: "
+                 f"{sessions}")
+        joined = re.search(r"miner (\d+) joined \(backend=cuda[^)]*codec=json",
+                           log_text("coordinator"))
+        if joined is None:
+            fail("the coordinator's log shows no cuda worker joining with codec=json")
+        deadline = time.time() + 30
+        while f"miner {joined.group(1)} died" not in log_text("coordinator"):
+            if time.time() > deadline:
+                fail("the coordinator did not see the --codec json worker go")
+            time.sleep(0.2)
+        say(f"  --codec json worker: joined with codec=json, sent {sessions[0][0]} Results, all "
+            "in JSON; stopped")
+        # the port worker at its defaults (the binary codec), redialing a
+        # lost coordinator, tracing its first chunk
+        start("worker", ["tpuminter_torch.worker", "--coordinator", addr, "--reconnect",
+                         "--profile", trace_dir])
+        worker = procs[-1]
         genesis = chain.GENESIS_HEADER
         _, hash_hex, nonce = client(["--header", genesis.pack().hex(), "--bits", "0x1d00ffff",
                                      "--max-nonce", str(GENESIS_NONCE + 4095)])
@@ -2443,11 +2631,7 @@ def phase_end_to_end(hc_expect, scrypt_job):
                 chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
             fail(f"e2e genesis Result {hash_hex} {nonce} fails the hashlib check")
         say(f"  e2e TARGET: Result {hash_hex} {nonce} (hashlib-checked)")
-        data = "hello bitcoin"
-        _, fold, nonce = client([data, str((1 << 30) - 1)])
-        if int(fold) != chain.toy_hash(data.encode(), int(nonce)):
-            fail(f"e2e MIN Result {fold} {nonce} fails the toy_hash check")
-        say(f"  e2e MIN: Result {fold} {nonce} (toy_hash-checked)")
+        window = worker_trace(os.path.join(log_dir, "e2e_worker.log"), trace_dir, card)
         cb = bytes.fromhex(GENESIS_COINBASE_HEX)
         t0 = time.perf_counter()
         _, hash_hex, en_arg, nonce_arg = client([
@@ -2482,20 +2666,33 @@ def phase_end_to_end(hc_expect, scrypt_job):
             f"first winner {first.nonce}; {scrypt_seconds:.1f} s through the client)")
         hc_seconds = phase_end_to_end_hashcore(addr, env, hc_expect)
         dict_seconds = phase_end_to_end_dict(addr, env, log_dir)
-        coord_log = open(os.path.join(log_dir, "e2e_coordinator.log")).read()
-        joins = [ln for ln in coord_log.splitlines() if "joined (backend=cuda" in ln]
-        if not joins or "workloads=dict,hashcore" not in joins[0]:
-            fail(f"the coordinator's log shows no cuda worker advertising dict,hashcore: {joins}")
-        say(f"  coordinator log: {joins[0].split('INFO')[-1].strip()}")
+        crash_seconds = crash_drill(addr, env, coordinator_proc, start_coordinator, crash_expect)
+        coord_log = log_text("coordinator") + log_text("coordinator2")
+        joins = {name: [ln for ln in log_text(name).splitlines()
+                        if "joined (backend=cuda" in ln and "codec=bin" in ln]
+                 for name in ("coordinator", "coordinator2")}
+        if not all(joins.values()) or not all("workloads=dict,hashcore" in ln
+                                              for lns in joins.values() for ln in lns):
+            fail(f"the coordinators' logs show no cuda worker advertising the binary codec "
+                 f"and dict,hashcore in each incarnation: {joins}")
+        say(f"  coordinator log: {joins['coordinator'][0].split('INFO')[-1].strip()}")
+        sessions = [ln for ln in log_text("worker").splitlines() if "Results sent" in ln]
+        sent = [tuple(map(int, re.search(r"(\d+) Results sent, (\d+) of them binary",
+                                         ln).groups())) for ln in sessions]
+        if not sent or not all(n > 0 and b == n for n, b in sent):
+            fail(f"the worker's session before the crash sent no Results or some in JSON: "
+                 f"{sessions}")
+        say(f"  worker log: the session before the crash sent {sent[0][0]} Results, all in "
+            "the binary codec, to a coordinator that answered every job")
         refusals = [ln for ln in coord_log.splitlines() if "refused chunk" in ln]
-        refusals += [ln for ln in open(os.path.join(log_dir, "e2e_worker.log")).read()
-                     .splitlines() if "refusing chunk" in ln]
+        refusals += [ln for name in ("worker_json", "worker") for ln in
+                     log_text(name).splitlines() if "refusing chunk" in ln]
         if refusals:
             fail(f"the port worker refused chunks: {refusals[:4]}")
         say("  coordinator and worker logs: no refused chunk")
-        if procs[1].poll() is not None:
+        if worker.poll() is not None:
             fail("the worker exited early")
-        return hc_seconds, scrypt_seconds, dict_seconds
+        return hc_seconds, scrypt_seconds, dict_seconds, crash_seconds, window
     except BaseException:
         for name, log in logs:
             log.flush()
@@ -2513,6 +2710,44 @@ def phase_end_to_end(hc_expect, scrypt_job):
                 p.wait()
         for _, log in logs:
             log.close()
+
+
+def crash_drill(addr, env, coordinator, restart, expect) -> float:
+    """A MIN job (``CRASH_DATA`` over ``CRASH_N`` nonces) through a
+    client with ``--reconnect``: ``CRASH_AFTER_S`` into it the
+    coordinator is killed (SIGKILL) and restarted from its journal on
+    the same port; the port worker redials by itself. The client must
+    print exactly one Result, equal to ``expect`` (the same job through
+    ``CudaMiner()`` in this process). Returns the job's seconds."""
+    t0 = time.perf_counter()
+    client = subprocess.Popen(
+        [sys.executable, "-m", "tpuminter.client", addr, CRASH_DATA.decode(), str(CRASH_N - 1),
+         "--reconnect", "--client-key", "chip-smoke-crash", "--timeout", "300"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        time.sleep(CRASH_AFTER_S)
+        if client.poll() is not None:
+            fail("crash drill: the job ended before the coordinator was killed")
+        coordinator.kill()
+        coordinator.wait()
+        restart("coordinator2")
+        out, err = client.communicate(timeout=400)
+    finally:
+        if client.poll() is None:
+            client.kill()
+            client.wait()
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("Result ")]
+    if client.returncode != 0 or len(lines) != 1:
+        fail(f"crash drill: client rc {client.returncode}: {out}{err}")
+    _, fold, nonce = lines[0].split()
+    if (int(fold), int(nonce)) != (expect.hash_value, expect.nonce):
+        fail(f"crash drill: Result {fold} {nonce} != CudaMiner's {expect.hash_value} "
+             f"{expect.nonce}")
+    say(f"  e2e crash drill: MIN over 2^{CRASH_N.bit_length() - 1} nonces, the coordinator "
+        f"killed {CRASH_AFTER_S} s in and restarted from its journal: one Result {fold} "
+        f"{nonce}, equal to CudaMiner's ({seconds:.1f} s through the client)")
+    return seconds
 
 
 def dict_score(seed: int, candidate: bytes) -> int:
@@ -2648,6 +2883,8 @@ def main() -> int:
 
     phase("4a. main path, fixed headers (CudaMiner defaults)")
     fixed, fixed_rates = phase_main_path(card_tag)
+    phase("4a'. the fixed-header path through ProfiledMiner (--profile)")
+    profiled = phase_profiled_chunk()
     phase("4b. main path, rolled jobs")
     rolled, rates = phase_rolled_path(card_tag, np.random.default_rng(SEED + 1))
 
@@ -2665,10 +2902,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("5. end to end: coordinator + port worker + client processes")
-    hc_e2e_seconds, scrypt_rates["e2e_seconds"], dict_seconds = phase_end_to_end(
-        hc_expect, scrypt_job)
+    hc_e2e_seconds, scrypt_rates["e2e_seconds"], dict_seconds, crash_seconds, window = \
+        phase_end_to_end(hc_expect, scrypt_job, card_tag)
 
-    paths = {"fixed": fixed, "rolled": rolled, "hashcore": hashcore, "scrypt": scrypt}
+    paths = {"fixed": fixed, "profiled": profiled, "rolled": rolled, "hashcore": hashcore,
+             "scrypt": scrypt}
     rows = []
     for name, st in stats.items():
         t = st.timing
@@ -2696,8 +2934,10 @@ def main() -> int:
                                  "window_breakdown": breakdown,
                                  "e2e_seconds": hc_e2e_seconds}}))
     say(json.dumps({"fixed_ghs": fixed_rates}))
+    say(json.dumps({"profiled_window": window}))
     say(json.dumps({"rolled_ghs": rates}))
     say(json.dumps({"dict": {"e2e_seconds": dict_seconds, "candidates": DICT_N}}))
+    say(json.dumps({"crash_drill": {"e2e_seconds": crash_seconds, "nonces": CRASH_N}}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
         k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")

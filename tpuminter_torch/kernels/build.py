@@ -208,7 +208,7 @@ def library(name: str) -> ctypes.CDLL:
         },
         "probes": {
             "tm_xor_const": [ptr, ptr, i64, u32, i32, i32, i32, ptr],
-            "tm_transpose_u32": [ptr, ptr, ptr, i32, i32, i32, ptr],
+            "tm_transpose_u32": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr],
             "tm_walk_step": [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
         },
     }

@@ -37,11 +37,28 @@
 // designs keep every thread's instructions few and its loads in flight.
 //
 // The launch geometry (each kernel's grid) is computed on the Python side
-// (kernels/probes.py: xor_const_geometry, walk_step_geometry, which also
-// document how threads map to words) and passed in; the C functions only
+// (kernels/probes.py: xor_const_geometry, transpose_geometry,
+// walk_step_geometry, which also document how threads map to words) and
+// passed in; the C functions only
 // pick the instantiation. The TPU's BLOCK_B, BLOCK_RB and grids are VMEM
 // tiling and mean nothing here. Blocks and vectors a thread are the
 // fastest exact ones of a sweep on the card (PERF.md §6):
+//   * P2: a 32 x 32-word tile (128 bytes a row), 256 threads, one
+//     16-byte vector a thread on both sides: thread t loads words 4q ..
+//     4q + 3 (q = t % 8) of tile row t / 8 into a shared tile swizzled by
+//     16-byte chunk (chunk q of row r at q ^ ((r / 4) % 8)), then, after
+//     one barrier, reads back 4 words of one column from 4 consecutive
+//     rows and stores them as one vector of the output (xored with the
+//     carry's vector, when there is one). Warp w, lane l stores column
+//     4w + l / 8 of rows 4 (l % 8) .. + 3, so a warp's stores are 4 runs
+//     of 128 bytes and its 4-byte reads hit 32 distinct banks, as the
+//     loads' 16-byte writes do in each quarter-warp. The grid is an exact
+//     cover of tiles, (rows / 32, cols / 32) rounded up; the edges are
+//     masked by whole vectors. It takes rows and cols that are multiples
+//     of 4 and 16-byte aligned pointers; any other call takes the scalar
+//     arm, the textbook 32 x 33 padded tile with 32 x 8 threads, four
+//     words each way a thread. A 64-row tile (512 threads) read slower
+//     at every probe shape (PERF.md §6).
 //   * P1: 512 threads a block, one 16-byte vector a thread, the grid
 //     exactly the vectors' blocks (no grid-stride loop); the n % 4 tail
 //     words are taken by the first block's first lanes. A pointer that is
@@ -82,8 +99,9 @@ namespace {
 
 constexpr int kXorThreads = 512;  // P1's block
 constexpr int kWalkThreads = 256;  // the elementwise P3's block
-constexpr int kTile = 32;
-constexpr int kTileRows = 8;  // threads along a tile's rows; each does 4
+constexpr int kTile = 32;  // P2's tile: kTile x kTile words
+constexpr int kTileRows = 8;  // the scalar arm's threads along a tile's rows; each does 4
+constexpr int kChunks = kTile / 4;  // 16-byte chunks of a tile row; the vector arm's warps
 constexpr int kQuadLanes = 128;  // lanes a block of the full body covers
 constexpr int kQuadThreads = 4 * kQuadLanes;
 
@@ -127,6 +145,39 @@ xor_const_kernel(const uint32_t* in, uint32_t* out, uint32_t n, uint32_t c) {
 
 // ---- P2: (rows, cols) -> (cols, rows), optionally ^ xin ------------------------
 
+// The vector arm (kernels/probes.py transpose_geometry, transpose_vector_map):
+// rows and cols are multiples of 4 and every pointer is 16-byte aligned.
+template <bool Xor>
+__global__ void __launch_bounds__(kTile * kChunks)
+transpose_vec_kernel(const uint4* __restrict__ in, const uint4* __restrict__ xin,
+                     uint4* __restrict__ out, uint32_t rows, uint32_t cols) {
+  __shared__ uint4 tile[kTile * kChunks];
+  const uint32_t t = threadIdx.x;
+  const uint32_t r0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  {
+    const uint32_t lr = t / kChunks, q = t % kChunks;
+    const uint32_t r = r0 + lr, c = c0 + 4 * q;
+    if (r < rows && c < cols) {
+      tile[lr * kChunks + (q ^ ((lr >> 2) & 7))] = in[((size_t)r * cols + c) >> 2];
+    }
+  }
+  __syncthreads();
+  const uint32_t w = t >> 5, l = t & 31;
+  const uint32_t lc = 4 * w + (l >> 3), rq = l & 7;
+  const uint32_t c = c0 + lc, r = r0 + 4 * rq;
+  if (c < cols && r < rows) {
+    // word (4 rq + i, lc) lies in chunk w ^ rq of its row
+    const uint32_t* s =
+        reinterpret_cast<const uint32_t*>(tile) + 4 * rq * kTile + 4 * (w ^ rq) + (l >> 3);
+    uint4 v = make_uint4(s[0], s[kTile], s[2 * kTile], s[3 * kTile]);
+    const size_t o = ((size_t)c * rows + r) >> 2;
+    if (Xor) v = xor4(v, xin[o]);
+    out[o] = v;
+  }
+}
+
+// The scalar arm: the textbook padded tile, for shapes and pointers the
+// vector arm does not take.
 template <bool Xor>
 __global__ void __launch_bounds__(kTile * kTileRows)
 transpose_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ xin,
@@ -304,13 +355,31 @@ int tm_xor_const(const void* in, void* out, long long n, uint32_t c, int grid, i
   return finish();
 }
 
-// in (rows, cols) -> out (cols, rows); xin (cols, rows) or null.
-int tm_transpose_u32(const void* in, const void* xin, void* out, int rows, int cols, int device,
-                     void* stream) {
+// in (rows, cols) -> out (cols, rows); xin (cols, rows) or null; the vector
+// arm when `vector`, else the scalar arm, on the (grid_x, grid_y) grid of
+// 32 x 32 tiles from kernels/probes.py transpose_geometry.
+int tm_transpose_u32(const void* in, const void* xin, void* out, int rows, int cols, int vector,
+                     int grid_x, int grid_y, int device, void* stream) {
+  if (rows < 1 || cols < 1 || grid_x < 1 || grid_y < 1 || (long long)grid_x * kTile < rows ||
+      (long long)grid_y * kTile < cols ||
+      (vector && (rows % 4 || cols % 4 ||
+                  ((uintptr_t)in | (uintptr_t)xin | (uintptr_t)out) % 16)))
+    return invalid();
   cudaSetDevice(device);
-  const dim3 grid((rows + kTile - 1) / kTile, (cols + kTile - 1) / kTile);
-  const dim3 threads(kTile, kTileRows);
   const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(grid_x, grid_y);
+  if (vector) {
+    const uint4* i4 = (const uint4*)in;
+    uint4* o4 = (uint4*)out;
+    if (xin) {
+      transpose_vec_kernel<true><<<grid, kTile * kChunks, 0, s>>>(i4, (const uint4*)xin, o4,
+                                                                  rows, cols);
+    } else {
+      transpose_vec_kernel<false><<<grid, kTile * kChunks, 0, s>>>(i4, nullptr, o4, rows, cols);
+    }
+    return finish();
+  }
+  const dim3 threads(kTile, kTileRows);
   if (xin) {
     transpose_kernel<true><<<grid, threads, 0, s>>>((const uint32_t*)in, (const uint32_t*)xin,
                                                    (uint32_t*)out, rows, cols);

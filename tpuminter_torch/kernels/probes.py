@@ -15,10 +15,10 @@ u32 arrays) and ``int64`` lanes holding ``[0, 2^32)`` on the CPU; each
 wrapper refuses the other. Each wrapper's ``launches`` attribute counts
 its kernel launches (plain runs are not counted).
 
-P1's and P3's launch geometry is computed here, by plain functions
-(:func:`xor_const_geometry`, :func:`walk_step_geometry`, whose
-docstrings say how each thread maps to words and lanes), and passed to
-the kernels.
+The launch geometry is computed here, by plain functions
+(:func:`xor_const_geometry`, :func:`transpose_geometry`,
+:func:`walk_step_geometry`, whose docstrings say how each thread maps to
+words and lanes), and passed to the kernels.
 """
 
 from __future__ import annotations
@@ -36,8 +36,9 @@ from tpuminter_torch.ops import walk_layouts as ops
 __all__ = [
     "xor_const", "transpose", "walk_step", "xor_const_plain", "transpose_plain",
     "walk_step_plain", "INSTANTIATIONS", "KERNELS", "word_dtype", "XorGeometry",
-    "WalkGeometry", "xor_const_geometry", "walk_step_geometry", "xor_const_words",
-    "walk_step_pairs", "quad_words", "XOR_THREADS", "WALK_THREADS", "QUAD_LANES", "FULL_FORM",
+    "TransposeGeometry", "WalkGeometry", "xor_const_geometry", "transpose_geometry",
+    "walk_step_geometry", "xor_const_words", "vector_aligned", "walk_step_pairs",
+    "quad_words", "XOR_THREADS", "WALK_THREADS", "QUAD_LANES", "FULL_FORM", "TILE",
 ]
 
 #: the (layout, body) pairs of P3 that the probes use, and the kernel's
@@ -56,6 +57,9 @@ _MAX_WORDS = 1 << 31
 #: ``kXorThreads`` and ``kWalkThreads`` in ``csrc/probes.cu``, the
 #: fastest exact launch of a sweep on the card (PERF.md §6)
 XOR_THREADS, WALK_THREADS = 512, 256
+#: P2's tile, ``TILE`` × ``TILE`` words in both arms (``kTile`` in
+#: ``csrc/probes.cu``; a 64-row tile read slower, PERF.md §6)
+TILE = 32
 #: lanes a block of P3's ``full`` body covers
 QUAD_LANES = 128
 #: the form each layout's ``full`` body takes in ``csrc/probes.cu``: one
@@ -180,9 +184,47 @@ def xor_const(x: torch.Tensor, c: int, out: Optional[torch.Tensor] = None) -> to
 transpose_plain = ops.transpose
 
 
+@dataclass(frozen=True)
+class TransposeGeometry:
+    """P2's launch: the ``vector`` arm (256 threads, one a 16-byte chunk
+    of the tile) or the scalar one (32 × 8 threads), on a ``grid`` of
+    :data:`TILE` × :data:`TILE` tiles."""
+
+    vector: bool
+    grid: tuple
+
+
+def transpose_geometry(rows: int, cols: int, aligned: bool) -> TransposeGeometry:
+    """P2's launch for ``(rows, cols)`` words whose pointers are all
+    16-byte ``aligned`` or not.
+
+    The vector arm takes rows and cols that are multiples of 4 with
+    aligned pointers: thread ``t`` of block ``(bx, by)`` loads words
+    ``4q .. 4q + 3`` (``q = t % 8``) of input row ``32·bx + t // 8``,
+    column ``32·by + 4q`` on; warp ``w``, lane ``l`` then stores words
+    ``4·(l % 8) .. + 3`` of output row ``32·by + 4w + l // 8`` (an
+    input column), column ``32·bx`` on, read from the shared tile.
+    Either arm's grid is an exact cover of the tiles, its
+    edges masked (by whole vectors in the vector arm); no launch reads
+    the card's SM count. Any other call takes the scalar arm."""
+    if not (1 <= rows < _MAX_WORDS and 1 <= cols <= 65535 * TILE):
+        raise ValueError(f"(rows, cols) must be in [1, 2^31) x [1, {65535 * TILE}], "
+                         f"got {(rows, cols)}")
+    vector = aligned and rows % 4 == 0 and cols % 4 == 0
+    return TransposeGeometry(vector, (_cdiv(rows, TILE), _cdiv(cols, TILE)))
+
+
+def vector_aligned(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when every tensor given (None skipped) starts on a 16-byte
+    boundary, as P2's vector arm needs."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
 def transpose(x: torch.Tensor, xor_into: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(R, C)`` → ``(C, R)``; xored into ``xor_into`` (``(C, R)``)
-    when given."""
+    when given. On the card the arm follows :func:`transpose_geometry`:
+    the vector arm for sides that are multiples of 4 and pointers on a
+    16-byte boundary, else the scalar arm."""
     if x.dim() != 2 or not 1 <= x.shape[0] < _MAX_WORDS or not 1 <= x.shape[1] <= 65535 * 32:
         raise ValueError(f"x must be (R, C) with R < 2^31 and C <= {65535 * 32}, "
                          f"got {tuple(x.shape)}")
@@ -195,8 +237,10 @@ def transpose(x: torch.Tensor, xor_into: Optional[torch.Tensor] = None) -> torch
         return transpose_plain(x, xor_into)
     device = _cuda_device(device)
     out = torch.empty((cols, rows), dtype=x.dtype, device=device)
+    g = transpose_geometry(rows, cols, vector_aligned(x, out, xor_into))
     _launch("tm_transpose_u32", x.data_ptr(), None if xor_into is None else xor_into.data_ptr(),
-            out.data_ptr(), rows, cols, device.index, _stream(device))
+            out.data_ptr(), rows, cols, int(g.vector), g.grid[0], g.grid[1], device.index,
+            _stream(device))
     transpose.launches += 1
     return out
 

@@ -26,6 +26,7 @@ __all__ = ["kernel_name", "sass_summary", "sass_text", "resource_usage", "pipe_o
 TEMPLATE_ARGS = {
     "search_candidates_hdr_batch_kernel": (("", "sched"),),
     "transpose_kernel": (("", "xor"),),
+    "transpose_vec_kernel": (("", "xor"),),
     "walk_step_kernel": (("row", "word", "grouped", "bitcast"),
                          ("null", "one_extract", "xor_only", "full")),
     "walk_lane_kernel": (("row", "word", "grouped", "bitcast"),),

@@ -65,10 +65,15 @@ class LspClient:
 
     @classmethod
     async def connect(
-        cls, host: str, port: int, params: Optional[Params] = None,
+        cls, host: str, port: int, params: Optional[Params] = None, *,
+        connect_epochs: Optional[int] = None,
     ) -> "LspClient":
         """Dial the server; raises :class:`LspConnectError` after
-        ``epoch_limit`` epochs without a connect-ack."""
+        ``epoch_limit`` epochs without a connect-ack, or after
+        ``connect_epochs`` when given: a worker rotating through an
+        address list wants a dead address to fail fast, while the
+        session keeps ``params.epoch_limit`` for its liveness."""
+        dials = connect_epochs or (params or Params()).epoch_limit
         self = cls()
         self._params = params or Params()
         self._server_addr = (host, port)
@@ -76,7 +81,7 @@ class LspClient:
         self._connect_waiter = asyncio.get_running_loop().create_future()
         connect_frame = encode(Frame(MsgType.CONNECT, 0, 0))
         try:
-            for _ in range(self._params.epoch_limit):
+            for _ in range(dials):
                 self._endpoint.send(connect_frame, self._server_addr)
                 # asyncio.wait, not wait_for: it never swallows a
                 # cancellation that races the ack
@@ -88,8 +93,7 @@ class LspClient:
                     break
             else:
                 raise LspConnectError(
-                    f"no connect-ack from {host}:{port} after "
-                    f"{self._params.epoch_limit} epochs"
+                    f"no connect-ack from {host}:{port} after {dials} epochs"
                 )
         except BaseException:
             self._endpoint.close()  # a failed or cancelled dial releases the socket

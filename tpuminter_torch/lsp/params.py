@@ -1,10 +1,11 @@
-"""LSP tunables. Counterpart of ``tpuminter.lsp.params`` (``Params`` and
-the ``FAST`` settings the mining roles use)."""
+"""LSP tunables. Counterpart of ``tpuminter.lsp.params`` (``Params``, the
+``FAST`` settings the mining roles use, and the redial backoff)."""
 
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 
 @dataclass(frozen=True)
@@ -34,6 +35,19 @@ class Params:
     @property
     def epoch_seconds(self) -> float:
         return self.epoch_millis / 1000.0
+
+
+def jittered_backoff(base: float, cap: float,
+                     rng: Optional[random.Random] = None) -> Iterator[float]:
+    """Redial delays: ``base · 2^k`` capped at ``cap``, each scaled by a
+    uniform [0.5, 1.5) jitter, so a fleet that lost one coordinator does
+    not redial in lockstep. One generator an episode of failed dials;
+    start a fresh one after a session that served."""
+    rng = rng or random.Random()
+    delay = base
+    while True:
+        yield delay * (0.5 + rng.random())
+        delay = min(delay * 2, cap)
 
 
 #: Settings of the mining roles (the coordinator's default too).

@@ -38,12 +38,14 @@ __all__ = [
     "from_wm", "rows", "word_rows", "transposed_rows", "grouped_rows", "check_chain",
     "time_ms", "once_ms", "chain_us", "graph_chain_us", "measure", "shipping_us",
     "time_design", "design_lines", "parser", "cli", "where", "words", "lanes", "step_measure",
-    "CHECK_STEPS", "resolve", "library_call", "paired_ms", "ROUNDS",
+    "CHECK_STEPS", "resolve", "library_call", "paired_ms", "ROUNDS", "MEM_BYTES_PER_S",
 ]
 
 #: the scripts' constants: lanes, ROMix's N, lanes of a word plane's row
 B, N, LANES = 16384, 1024, ops.LANES
 M32 = 0xFFFFFFFF
+#: H100 SXM device memory rate (NVIDIA data sheet), for bytes bounds
+MEM_BYTES_PER_S = 3.35e12
 #: the steps of stage 1's data-dependent chain
 CHECK_STEPS = 4
 #: back-to-back launches a device time averages over

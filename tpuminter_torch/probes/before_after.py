@@ -33,13 +33,22 @@ registers from both builds (``kernels.sass``). The rows:
   (``kernels.sha256.serial_floor``) for that template's chain; 11 at the
   probe's shapes (8192 lanes of a 256 MiB V) at 32 and 256 passes, its
   time a pass the slope between them.
+- ``fb7f061``: P2. Its C interface: ``tm_transpose_u32(in, xin, out,
+  rows, cols, device, stream)``, the padded 32 x 33 tile on 32 x 8
+  threads for every shape. P2 at the probes' shapes (B = 16384): ``(B,
+  32)`` (sites 14, 18, 20's ``tr_only``, 24), ``(32, B)`` (the probes'
+  ``from_wm``), ``(B/4, 128)`` (15) and the same into a carry (21):
+  before and this checkout's vector arm, beside ``t().contiguous()``
+  (and ``bitwise_xor(carry, x.t())`` for the carry).
 
 Run on the card::
 
     git archive 30c4a81 | tar -x -C build/before_30c4a81
     git archive 0a4d045 | tar -x -C build/before_0a4d045
+    git archive fb7f061 | tar -x -C build/before_fb7f061
     python -m tpuminter_torch.probes.before_after \\
-        --before 30c4a81=build/before_30c4a81 --before 0a4d045=build/before_0a4d045
+        --before 30c4a81=build/before_30c4a81 --before 0a4d045=build/before_0a4d045 \\
+        --before fb7f061=build/before_fb7f061
 """
 
 from __future__ import annotations
@@ -57,13 +66,15 @@ import torch
 
 from tpuminter_torch import chain
 from tpuminter_torch.kernels import build, sass
+from tpuminter_torch.kernels import probes as KP
 from tpuminter_torch.kernels import scrypt as KS
 from tpuminter_torch.kernels import sha256 as K
 from tpuminter_torch.kernels.sha256 import _sm_count, _stream
 from tpuminter_torch.ops import merkle
 from tpuminter_torch.ops import scrypt as S
 from tpuminter_torch.ops import sha256 as ops
-from tpuminter_torch.probes._common import paired_ms, resolve
+from tpuminter_torch.ops import walk_layouts as W
+from tpuminter_torch.probes._common import MEM_BYTES_PER_S, paired_ms, resolve
 
 __all__ = ["Comparison", "COMPARISONS", "load_before", "run", "main"]
 
@@ -84,6 +95,10 @@ ROLL_ROWS = (2, 10)
 #: 11's shapes (scripts/romix_pallas_probe.py): rows, lanes, and the two
 #: pass counts whose difference gives the time a pass
 GATHER_ROWS, GATHER_B, GATHER_REPS = 256 * 8192, 8192, (32, 256)
+#: P2's shapes (the probes' at B = 16384), by name, and whether a carry
+#: is xored in
+P2_SHAPES = {"(B, 32)": ((16384, 32), False), "(32, B)": ((32, 16384), False),
+             "(B/4, 128)": ((4096, 128), False), "(B/4, 128) into a carry": ((4096, 128), True)}
 
 
 @dataclass(frozen=True)
@@ -403,6 +418,57 @@ def _report_0a4d045(result: dict) -> list:
     return lines
 
 
+# ---- fb7f061: P2 -------------------------------------------------------------------------
+
+def _declare_fb7f061(libs: dict) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tr = libs["probes"].tm_transpose_u32
+    tr.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    tr.restype = i32
+
+
+def _measure_fb7f061(libs: dict, device, rounds: int) -> dict:
+    lib = libs["probes"]
+    rng = np.random.default_rng(15)
+    out = {}
+    for name, ((rows, cols), carry) in P2_SHAPES.items():
+        x = torch.tensor(rng.integers(-(1 << 31), 1 << 31, (rows, cols), dtype=np.int64),
+                         dtype=torch.int32, device=device)
+        c = (torch.tensor(rng.integers(-(1 << 31), 1 << 31, (cols, rows), dtype=np.int64),
+                          dtype=torch.int32, device=device) if carry else None)
+
+        def before(x=x, c=c):
+            o = torch.empty((x.shape[1], x.shape[0]), dtype=x.dtype, device=device)
+            _check(lib.tm_transpose_u32(x.data_ptr(), None if c is None else c.data_ptr(),
+                                        o.data_ptr(), x.shape[0], x.shape[1], device.index,
+                                        _stream(device)), "tm_transpose_u32 (before)")
+            return o
+
+        fns = {"before": before, "after": lambda x=x, c=c: KP.transpose(x, c)}
+        plain = KP.transpose_plain(W.to_lanes(x), None if c is None else W.to_lanes(c))
+        outs = {"plain": W.to_bits(plain)}
+        outs.update({k: fn() for k, fn in fns.items()})
+        _equal(outs, f"P2 on {name}")
+        fns["torch"] = ((lambda x=x, c=c: torch.bitwise_xor(c, x.t())) if carry
+                        else (lambda x=x: x.t().contiguous()))
+        out[name] = {"shape": [rows, cols], "carry": carry,
+                     "paired_ms": paired_ms(fns, device, rounds),
+                     "bytes": (3 if carry else 2) * rows * cols * 4}
+    return {"p2": out}
+
+
+def _report_fb7f061(result: dict) -> list:
+    lines = []
+    for name, row in result["p2"].items():
+        ms = row["paired_ms"]
+        bound = row["bytes"] / MEM_BYTES_PER_S * 1e3
+        lines.append(f"P2 on {name}: before {ms['before'] * 1e3:.3f} us ({bound / ms['before']:.1%} "
+                     f"of its bytes bound), after {ms['after'] * 1e3:.3f} us "
+                     f"({bound / ms['after']:.1%}): {ms['after'] / ms['before']:.3f}x; torch "
+                     f"{ms['torch'] * 1e3:.3f} us")
+    return lines
+
+
 #: the comparisons, one for each old C interface, by the commit whose
 #: sources it builds
 COMPARISONS = {
@@ -418,6 +484,10 @@ COMPARISONS = {
                     ("extranonce_roll_kernel",)),
          "scrypt": (("row_gather_kernel",), ("row_gather_kernel",))},
         _measure_0a4d045, _report_0a4d045),
+    "fb7f061": Comparison(
+        "P2", ("probes",), _declare_fb7f061,
+        {"probes": (("transpose_vec_kernel", "transpose_kernel"), ("transpose_kernel",))},
+        _measure_fb7f061, _report_fb7f061),
 }
 
 

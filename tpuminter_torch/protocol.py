@@ -1,24 +1,45 @@
-"""The wire messages a JSON worker speaks.
+"""The wire messages a worker speaks, in both of the reference's codecs.
 
-Counterpart of ``tpuminter.protocol``, reduced to the JSON codec of the
-kinds a JSON worker sends and receives: ``Join``, ``Request``,
-``Result``, ``Setup``, ``Assign``, ``Refuse``, ``Cancel``, the
-roll-budget dialect's ``RollAssign`` and ``Beacon``, and the workload
-answer ``WorkResult``. The JSON shapes are the reference's exactly, so
+Counterpart of ``tpuminter.protocol``, reduced to the kinds a worker
+sends and receives: ``Join``, ``Request``, ``Result``, ``Setup``,
+``Assign``, ``Refuse``, ``Cancel``, the roll-budget dialect's
+``RollAssign`` and ``Beacon``, and the workload answer ``WorkResult``.
+The JSON shapes and the binary layouts are the reference's exactly, so
 this module and ``tpuminter.protocol`` decode each other's payloads;
 that wire is the port's only contact with the JAX package.
 
-A worker that joins with ``codec="json"`` is sent only JSON
-``Setup``/``Assign``/``Cancel``, plus ``RollAssign`` when it advertises
-``roll`` and workload jobs' ``Setup``/``Assign`` for the workloads it
-advertises (the reference protocol's "No flag day" negotiation), so the
-binary codec and the coordinator-internal kinds are not copied. Any other payload raises :class:`ProtocolError`, which
-the worker logs and drops.
+**The binary codec** (the reference's codec v1 and its later tags):
+``tag:u8 ‖ fields… ‖ crc32:u32``, little-endian, for Assign ``0xB1``,
+Result ``0xB2``, Refuse ``0xB3``, Cancel ``0xB4``, Join ``0xB5``,
+RollAssign ``0xB9``, Beacon ``0xBA`` and WorkResult ``0xBB`` (a
+variable-length kind: a fold payload follows its head). JSON payloads
+start with ``{``, which is no tag, so :func:`decode_msg` takes both. A
+corrupted or truncated binary payload fails its length or CRC check and
+raises :class:`ProtocolError`. ``encode_msg(msg, binary=True)`` packs a
+kind that has a layout when its fields fit, else falls back to JSON
+(Request and Setup are JSON only, as is a Join that names workloads).
+
+**Negotiation** (the reference's "No flag day"): a worker advertises
+``codec="bin"`` in its Join, and the coordinator then sends it binary
+Assigns; the worker answers in binary only once it has seen a binary
+payload from the coordinator (:func:`payload_is_binary`). A worker that
+joins with ``codec="json"`` is sent only JSON, plus ``RollAssign`` when
+it advertises ``roll`` and workload jobs' ``Setup``/``Assign`` for the
+workloads it advertises.
+
+A worker never receives the reference's coordinator-internal kinds, the
+admission ``Refuse`` (``0xB6``), the federation's lease-epoch variants
+(``0xBC``/``0xBD``: the reference stamps lease epochs only toward peers
+that sent the aggregator hello, so a plain worker always sees the
+epoch-free layouts) or any other tag; the decoder raises
+:class:`ProtocolError` on them, which the worker logs and drops.
 """
 
 from __future__ import annotations
 
 import json
+import struct
+import zlib
 from dataclasses import dataclass
 from enum import Enum
 from typing import Optional, Tuple, Union
@@ -40,6 +61,7 @@ __all__ = [
     "MIN_UNTRACKED",
     "encode_msg",
     "decode_msg",
+    "payload_is_binary",
 ]
 
 #: ``hash_value`` of an exhausted TARGET Result from a worker that does
@@ -69,8 +91,9 @@ class Join:
     """Worker → coordinator: I am a miner. ``lanes`` is a relative
     throughput hint, ``span`` the worker's pipeline-stage size in nonces;
     ``codec``/``roll``/``workloads``/``agg`` are capability
-    advertisements (this port's worker sends JSON, ``roll`` unless told
-    not to, and the workloads it computes)."""
+    advertisements (this port's worker sends ``codec="bin"`` unless told
+    to speak JSON, ``roll`` unless told not to, and the workloads it
+    computes)."""
 
     backend: str = "cpu"
     lanes: int = 1
@@ -234,6 +257,176 @@ Message = Union[Join, Request, Result, Setup, Assign, Refuse, Cancel, RollAssign
 
 _JSON_OPEN = 0x7B  # ord("{")
 
+# ---------------------------------------------------------------------------
+# the binary codec (the reference's layouts, tag for tag)
+# ---------------------------------------------------------------------------
+
+_TAG_ASSIGN = 0xB1
+_TAG_RESULT = 0xB2
+_TAG_REFUSE = 0xB3
+_TAG_CANCEL = 0xB4
+_TAG_JOIN = 0xB5
+_TAG_ASSIGN_ROLL = 0xB9
+_TAG_BEACON = 0xBA
+_TAG_WRESULT = 0xBB
+
+_BIN_ASSIGN = struct.Struct("<BQQQQ")        # tag, job, chunk, lo, hi
+_BIN_RESULT = struct.Struct("<BBQQ32sBQQ")   # tag, mode, job, nonce, hash (u256 LE),
+#                                              found, searched, chunk
+_BIN_REFUSE = struct.Struct("<BQQ")          # tag, job, chunk
+_BIN_CANCEL = struct.Struct("<BQ")           # tag, job
+_BIN_JOIN = struct.Struct("<BBIQ16s")        # tag, flags, lanes, span, backend (NUL-padded)
+_BIN_ASSIGN_ROLL = struct.Struct("<BQQQI")   # tag, job, chunk, extranonce0, count
+_BIN_BEACON = struct.Struct("<BQQQQ32s")     # tag, job, chunk, high_water, nonce, hash
+_BIN_WRESULT_HEAD = struct.Struct("<BQQBQ")  # tag, job, chunk, wid, searched (payload follows)
+_CRC = struct.Struct("<I")
+
+#: the fixed-size layouts, by tag (WorkResult is variable-length)
+_BIN_BY_TAG = {
+    _TAG_ASSIGN: _BIN_ASSIGN,
+    _TAG_RESULT: _BIN_RESULT,
+    _TAG_REFUSE: _BIN_REFUSE,
+    _TAG_CANCEL: _BIN_CANCEL,
+    _TAG_JOIN: _BIN_JOIN,
+    _TAG_ASSIGN_ROLL: _BIN_ASSIGN_ROLL,
+    _TAG_BEACON: _BIN_BEACON,
+}
+
+_JOIN_FLAG_BIN = 0x01   # Join.codec == "bin"
+_JOIN_FLAG_ROLL = 0x02  # Join.roll
+
+_MODE_TO_WIRE = {PowMode.MIN: 0, PowMode.TARGET: 1, PowMode.SCRYPT: 2}
+_MODE_FROM_WIRE = {v: k for k, v in _MODE_TO_WIRE.items()}
+
+_U32 = 1 << 32
+_U64 = 1 << 64
+_U256 = 1 << 256
+
+
+def payload_is_binary(raw) -> bool:
+    """True when a payload uses the binary codec (its first byte is a
+    tag, not JSON's ``{``): the worker's negotiation hook, since one
+    binary payload from the coordinator proves it decodes them."""
+    return len(raw) > 0 and raw[0] != _JSON_OPEN
+
+
+def _seal(body: bytes) -> bytes:
+    return body + _CRC.pack(zlib.crc32(body))
+
+
+def _u64(*values: int) -> bool:
+    return all(0 <= v < _U64 for v in values)
+
+
+def _encode_binary(msg: Message) -> Optional[bytes]:
+    """One message in its binary layout, or None when it has none or a
+    field does not fit it (the caller then writes JSON)."""
+    if isinstance(msg, Assign):
+        if not _u64(msg.job_id, msg.chunk_id, msg.lower, msg.upper):
+            return None
+        return _seal(_BIN_ASSIGN.pack(_TAG_ASSIGN, msg.job_id, msg.chunk_id, msg.lower,
+                                      msg.upper))
+    if isinstance(msg, RollAssign):
+        # a lease epoch has its own tag, which a worker never sends or receives
+        if msg.lease_epoch or not (_u64(msg.job_id, msg.chunk_id, msg.extranonce0)
+                                   and 0 < msg.count < _U32):
+            return None
+        return _seal(_BIN_ASSIGN_ROLL.pack(_TAG_ASSIGN_ROLL, msg.job_id, msg.chunk_id,
+                                           msg.extranonce0, msg.count))
+    if isinstance(msg, Beacon):
+        if msg.lease_epoch or not (_u64(msg.job_id, msg.chunk_id, msg.high_water, msg.nonce)
+                                   and 0 <= msg.hash_value < _U256):
+            return None
+        return _seal(_BIN_BEACON.pack(_TAG_BEACON, msg.job_id, msg.chunk_id, msg.high_water,
+                                      msg.nonce, msg.hash_value.to_bytes(32, "little")))
+    if isinstance(msg, Result):
+        if not (_u64(msg.job_id, msg.nonce, msg.searched, msg.chunk_id)
+                and 0 <= msg.hash_value < _U256):
+            return None
+        return _seal(_BIN_RESULT.pack(_TAG_RESULT, _MODE_TO_WIRE[msg.mode], msg.job_id,
+                                      msg.nonce, msg.hash_value.to_bytes(32, "little"),
+                                      1 if msg.found else 0, msg.searched, msg.chunk_id))
+    if isinstance(msg, Refuse):
+        # an admission Refuse (retry_after_ms) goes coordinator -> client only
+        if msg.retry_after_ms or not _u64(msg.job_id, msg.chunk_id):
+            return None
+        return _seal(_BIN_REFUSE.pack(_TAG_REFUSE, msg.job_id, msg.chunk_id))
+    if isinstance(msg, Cancel):
+        if not _u64(msg.job_id):
+            return None
+        return _seal(_BIN_CANCEL.pack(_TAG_CANCEL, msg.job_id))
+    if isinstance(msg, Join):
+        backend = msg.backend.encode("utf-8", "strict")
+        if (len(backend) > 16 or b"\x00" in backend or not 0 <= msg.lanes < _U32
+                or not _u64(msg.span) or msg.codec not in ("json", "bin")
+                or msg.workloads or msg.agg):  # the layout predates both: JSON
+            return None
+        flags = (_JOIN_FLAG_BIN if msg.codec == "bin" else 0) | (
+            _JOIN_FLAG_ROLL if msg.roll else 0)
+        return _seal(_BIN_JOIN.pack(_TAG_JOIN, flags, msg.lanes, msg.span, backend))
+    if isinstance(msg, WorkResult):
+        if not (_u64(msg.job_id, msg.chunk_id, msg.searched) and 0 <= msg.wid < 256):
+            return None
+        return _seal(_BIN_WRESULT_HEAD.pack(_TAG_WRESULT, msg.job_id, msg.chunk_id, msg.wid,
+                                            msg.searched) + bytes(msg.payload))
+    return None
+
+
+def _checked(raw, body: int) -> memoryview:
+    """``raw`` as a view once its CRC over the first ``body`` bytes holds."""
+    view = memoryview(raw)
+    if zlib.crc32(view[:body]) != _CRC.unpack_from(raw, body)[0]:
+        raise ProtocolError("binary payload failed its checksum")
+    return view
+
+
+def _decode_binary(raw) -> Message:
+    n, tag = len(raw), raw[0]
+    if tag == _TAG_WRESULT:
+        head = _BIN_WRESULT_HEAD.size
+        if n < head + _CRC.size:
+            raise ProtocolError(f"wresult payload truncated: {n} bytes")
+        view = _checked(raw, n - _CRC.size)
+        _, job_id, chunk_id, wid, searched = _BIN_WRESULT_HEAD.unpack_from(raw)
+        return WorkResult(job_id, chunk_id, wid, searched, bytes(view[head:n - _CRC.size]))
+    layout = _BIN_BY_TAG.get(tag)
+    if layout is None:
+        raise ProtocolError(f"binary tag {tag:#04x} is not one a worker receives")
+    if n != layout.size + _CRC.size:
+        raise ProtocolError(f"binary payload for tag {tag:#04x} is {n} bytes, "
+                            f"expected {layout.size + _CRC.size}")
+    _checked(raw, layout.size)
+    try:
+        if tag == _TAG_RESULT:
+            _, mode, job_id, nonce, digest, found, searched, chunk_id = _BIN_RESULT.unpack_from(raw)
+            if mode not in _MODE_FROM_WIRE or found not in (0, 1):
+                raise ProtocolError("malformed binary result fields")
+            return Result(job_id, _MODE_FROM_WIRE[mode], nonce, int.from_bytes(digest, "little"),
+                          bool(found), searched=searched, chunk_id=chunk_id)
+        if tag == _TAG_ASSIGN:
+            _, job_id, chunk_id, lower, upper = _BIN_ASSIGN.unpack_from(raw)
+            return Assign(job_id, chunk_id, lower, upper)
+        if tag == _TAG_ASSIGN_ROLL:
+            _, job_id, chunk_id, extranonce0, count = _BIN_ASSIGN_ROLL.unpack_from(raw)
+            if count < 1:
+                raise ProtocolError("roll assign must cover >= 1 extranonce")
+            return RollAssign(job_id, chunk_id, extranonce0, count)
+        if tag == _TAG_BEACON:
+            _, job_id, chunk_id, high_water, nonce, digest = _BIN_BEACON.unpack_from(raw)
+            return Beacon(job_id, chunk_id, high_water, nonce, int.from_bytes(digest, "little"))
+        if tag == _TAG_REFUSE:
+            _, job_id, chunk_id = _BIN_REFUSE.unpack_from(raw)
+            return Refuse(job_id, chunk_id)
+        if tag == _TAG_CANCEL:
+            return Cancel(_BIN_CANCEL.unpack_from(raw)[1])
+        _, flags, lanes, span, backend = _BIN_JOIN.unpack_from(raw)
+        return Join(backend=backend.rstrip(b"\x00").decode("utf-8"), lanes=lanes, span=span,
+                    codec="bin" if flags & _JOIN_FLAG_BIN else "json",
+                    roll=bool(flags & _JOIN_FLAG_ROLL))
+    except (struct.error, UnicodeDecodeError) as exc:
+        raise ProtocolError(f"malformed binary message: {exc}") from exc
+
+
 
 def _request_obj(msg: Request) -> dict:
     obj = {
@@ -288,8 +481,13 @@ def _request_from_obj(obj: dict) -> Request:
     )
 
 
-def encode_msg(msg: Message) -> bytes:
-    """Serialize a message to a JSON LSP payload."""
+def encode_msg(msg: Message, *, binary: bool = False) -> bytes:
+    """Serialize a message to an LSP payload: its binary layout when
+    ``binary`` and it has one that its fields fit, else JSON."""
+    if binary:
+        raw = _encode_binary(msg)
+        if raw is not None:
+            return raw
     if isinstance(msg, Join):
         obj = {"kind": "join", "backend": msg.backend, "lanes": msg.lanes,
                "span": msg.span}
@@ -366,12 +564,13 @@ def encode_msg(msg: Message) -> bytes:
 
 
 def decode_msg(raw) -> Message:
-    """Parse a JSON LSP payload (``bytes`` or ``memoryview``). A binary
-    payload or an unknown kind raises :class:`ProtocolError`."""
+    """Parse an LSP payload (``bytes`` or ``memoryview``) of either
+    codec. A malformed payload, a tag or kind a worker never receives
+    raises :class:`ProtocolError`."""
     if len(raw) == 0:
         raise ProtocolError("empty payload")
     if raw[0] != _JSON_OPEN:
-        raise ProtocolError("binary payload: this worker speaks the JSON codec only")
+        return _decode_binary(raw)
     try:
         obj = json.loads(
             raw if isinstance(raw, (bytes, bytearray, str)) else bytes(raw)

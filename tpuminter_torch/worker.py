@@ -1,16 +1,21 @@
 """Worker role: the Miner interface, the LSP role loop and the CLI.
 
-Counterpart of ``tpuminter.worker`` (``Miner``, ``run_miner``, ``main``)
-for a worker that joins with the JSON codec, so an unchanged
-``tpuminter`` coordinator sends it JSON ``Setup``, ``Assign`` and
-``Cancel`` messages, and, since it advertises the roll-budget dialect
-unless told not to, ``RollAssign`` chunks of whole extranonces, on which
-it reports progress with ``Beacon`` messages. It advertises the
-registered workloads (``tpuminter_torch.workloads``: dict and hashcore), whose
-chunks it computes on the miner's device and answers with
-``WorkResult``s. It mines every dialect: TARGET, rolled TARGET, MIN and
-SCRYPT (plain or rolled). A chunk of a workload it did not register is
-answered with a ``Refuse``, which makes the coordinator requeue it.
+Counterpart of ``tpuminter.worker`` (``Miner``, ``ProfiledMiner``,
+``run_miner``, ``run_miner_reconnect``, ``main``). The worker joins an
+unchanged ``tpuminter`` coordinator advertising the binary codec (unless
+told to speak JSON), the roll-budget dialect (unless told not to) and
+the registered workloads (``tpuminter_torch.workloads``: dict and
+hashcore), so the coordinator sends it ``Setup``, ``Assign``,
+``Cancel`` and ``RollAssign`` messages, binary ones once it has seen the
+Join; the worker answers in binary once it has seen a binary payload.
+On ``RollAssign`` chunks it reports progress with ``Beacon`` messages,
+and it computes workload chunks on the miner's device and answers them
+with ``WorkResult``s. It mines every dialect: TARGET, rolled TARGET, MIN
+and SCRYPT (plain or rolled). A chunk of a workload it did not register
+is answered with a ``Refuse``, which makes the coordinator requeue it.
+With ``--reconnect`` it survives a coordinator restart or a failover to
+a standby (``--coordinator HOST:PORT,HOST:PORT``); with ``--profile
+DIR`` it writes one ``torch.profiler`` trace of a warm window.
 
 Run it as ``python -m tpuminter_torch.worker HOST:PORT``.
 """
@@ -19,12 +24,16 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
+import random
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace as dc_replace
-from typing import Callable, Iterator, Optional, Union
+from typing import Callable, Iterator, List, Optional, Tuple, Union
 
 from tpuminter_torch import chain, workloads
-from tpuminter_torch.lsp import FAST, LspClient, LspConnectionLost, Params
+from tpuminter_torch.lsp import FAST, LspClient, LspConnectError, LspConnectionLost, Params
+from tpuminter_torch.lsp.params import jittered_backoff
 from tpuminter_torch.protocol import (
     Assign,
     Beacon,
@@ -40,9 +49,11 @@ from tpuminter_torch.protocol import (
     WorkResult,
     decode_msg,
     encode_msg,
+    payload_is_binary,
 )
 
-__all__ = ["Miner", "run_miner", "main"]
+__all__ = ["Miner", "ProfiledMiner", "run_miner", "run_miner_reconnect", "parse_addr_list",
+           "dial_patience", "main"]
 
 log = logging.getLogger("tpuminter_torch.worker")
 
@@ -80,6 +91,101 @@ class Miner:
         raise NotImplementedError
 
 
+class ProfiledMiner(Miner):
+    """A Miner that records one ``torch.profiler`` trace of a warm window
+    into ``log_dir``: the work between generator steps 1 and 3 of the
+    first chunk that yields a step before its Result, so the kernels'
+    first build (before a device miner's first yield) stays out of it.
+    CPU activity always, CUDA activity when the miner's device is
+    ``cuda``; shapes not recorded; one Chrome-trace JSON (Perfetto or
+    ``chrome://tracing`` open it), whose path :attr:`trace_path` holds.
+
+    The trace closes at step 3, before a Result that ends the chunk
+    inside the window, or on an exception (which is re-raised). The role
+    loop may abandon the generator (a Cancel), so a trace left open is
+    closed at the start of the next :meth:`mine` call, or by
+    :meth:`close` at shutdown, which also closes the inner miner.
+
+    ``torch.profiler`` records CPU ops on the thread that starts it and
+    must be stopped on that thread: :func:`run_miner` runs every
+    generator step of a session, and the miner's :meth:`close`, on one
+    thread of its own. An abandoned generator is never closed here, so
+    the garbage collector's thread never stops a trace.
+    """
+
+    _START_STEP, _STOP_STEP = 1, 3
+
+    def __init__(self, inner: Miner, log_dir: str):
+        self._inner = inner
+        self._log_dir = log_dir
+        self._profiler = None
+        self._traced = False
+        #: the trace file, once written
+        self.trace_path: Optional[str] = None
+        self.backend = inner.backend
+        self.lanes = inner.lanes
+        self.span = inner.span
+        self.device = inner.device
+
+    def unsupported(self, request: Request) -> Optional[str]:
+        return self._inner.unsupported(request)
+
+    def _start_trace(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.device(self.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        log.info("profiling a steady-state window to %s", self._log_dir)
+        self._profiler = profile(activities=activities, record_shapes=False)
+        self._profiler.start()
+        self._traced = True
+
+    def _stop_trace(self) -> None:
+        profiler, self._profiler = self._profiler, None
+        profiler.stop()
+        os.makedirs(self._log_dir, exist_ok=True)
+        path = os.path.join(self._log_dir, f"worker.{os.getpid()}.{time.time_ns()}.pt.trace.json")
+        profiler.export_chrome_trace(path)
+        self.trace_path = path
+        log.info("wrote the trace %s", path)
+
+    def mine(self, request: Request) -> Iterator[Optional[Result]]:
+        if self._profiler is not None:
+            log.info("closing the trace a cancelled chunk left open")
+            self._stop_trace()
+        # the role loop installs progress_cb on this wrapper each chunk;
+        # the inner miner is the one that calls it
+        self._inner.progress_cb = self.progress_cb
+        if self._traced:
+            yield from self._inner.mine(request)
+            return
+        step = 0
+        try:
+            for item in self._inner.mine(request):
+                step += 1
+                if step == self._START_STEP and item is None:
+                    self._start_trace()
+                elif self._profiler is not None and (step == self._STOP_STEP or item is not None):
+                    self._stop_trace()
+                yield item
+        except Exception:
+            if self._profiler is not None:
+                self._stop_trace()
+            raise
+
+    def close(self) -> None:
+        """Write a trace still open at shutdown, then close the inner
+        miner (when it has a ``close``)."""
+        if self._profiler is not None:
+            log.info("writing the trace left open at shutdown")
+            self._stop_trace()
+        closer = getattr(self._inner, "close", None)
+        if callable(closer):
+            closer()
+
+
 def _safe_decode(raw) -> Optional[Message]:
     try:
         return decode_msg(raw)
@@ -90,29 +196,57 @@ def _safe_decode(raw) -> Optional[Message]:
 
 async def run_miner(
     host: str, port: int, miner: Miner, *, params: Optional[Params] = None,
-    roll: bool = True, beacon_interval: float = 2.0,
+    binary: bool = True, connect_epochs: Optional[int] = None, roll: bool = True,
+    beacon_interval: float = 2.0,
 ) -> None:
     """Worker role main loop; returns when the coordinator is lost.
 
-    Generator steps run in an executor thread, so a step that waits on
-    the device or builds the kernels never stalls the event loop and the
-    LSP heartbeats keep flowing. While a chunk is mined one read stays in
-    flight, so a ``Cancel`` for the active job abandons it at the next
-    step; any other message read meanwhile is queued and handled after.
+    Generator steps run on one executor thread of the session's own, so
+    a step that waits on the device or builds the kernels never stalls
+    the event loop and the LSP heartbeats keep flowing, and every step
+    of the session (and the miner's ``close`` at its end) runs on the
+    same thread, as ``torch.profiler`` needs (:class:`ProfiledMiner`).
+    While a chunk is mined one read stays in flight, so a ``Cancel`` for
+    the active job abandons it at the next step; any other message read
+    meanwhile is queued and handled after.
 
-    ``roll`` advertises the roll-budget dialect: the coordinator may then
-    send ``RollAssign`` chunks, and for exactly those the loop sends a
-    ``Beacon`` (settled high-water and running minimum, from the miner's
-    ``progress_cb``) at most every ``beacon_interval`` seconds (``<= 0``
-    sends none).
+    ``binary`` advertises the binary codec in the Join: Results,
+    Refuses and Beacons switch to binary only after the coordinator has
+    sent a binary payload, proof that it decodes them; ``False`` pins
+    the worker to JSON. ``connect_epochs`` bounds the dial
+    (:meth:`LspClient.connect`). ``roll`` advertises the roll-budget
+    dialect: the coordinator may then send ``RollAssign`` chunks, and
+    for exactly those the loop sends a ``Beacon`` (settled high-water
+    and running minimum, from the miner's ``progress_cb``) at most every
+    ``beacon_interval`` seconds (``<= 0`` sends none).
     """
-    client = await LspClient.connect(host, port, params or FAST)
+    client = await LspClient.connect(host, port, params or FAST, connect_epochs=connect_epochs)
     client.write(encode_msg(Join(backend=miner.backend, lanes=miner.lanes, span=miner.span,
-                                 roll=roll, workloads=workloads.names())))
+                                 codec="bin" if binary else "json", roll=roll,
+                                 workloads=workloads.names())))
+    speak_binary = False
+    sent = {"results": 0, "binary": 0}
+
+    def note_codec(raw) -> None:
+        # one binary payload from the coordinator flips our side, for
+        # the rest of the session
+        nonlocal speak_binary
+        if binary and not speak_binary and payload_is_binary(raw):
+            speak_binary = True
+            log.info("worker: the coordinator speaks the binary codec; answering in binary")
+
+    def send(msg: Message) -> None:
+        raw = encode_msg(msg, binary=speak_binary)
+        if isinstance(msg, (Result, WorkResult)):
+            sent["results"] += 1
+            sent["binary"] += payload_is_binary(raw)
+        client.write(raw)
+
     pending: "asyncio.Queue[Message]" = asyncio.Queue()
     read_task: Optional[asyncio.Task] = None
     templates: dict = {}  # job_id -> template Request from a Setup
     loop = asyncio.get_running_loop()
+    steps = ThreadPoolExecutor(1, thread_name_prefix="tpuminter-steps")
     try:
         while True:
             if not pending.empty():
@@ -122,6 +256,7 @@ async def run_miner(
                     read_task = asyncio.ensure_future(client.read())
                 raw = await read_task
                 read_task = None
+                note_codec(raw)
                 msg = _safe_decode(raw)
                 if msg is None:
                     continue
@@ -140,7 +275,7 @@ async def run_miner(
                     # the coordinator requeues the chunk and re-ships the Setup
                     log.warning("worker: no template for job %d; refusing chunk %d",
                                 msg.job_id, msg.chunk_id)
-                    client.write(encode_msg(Refuse(msg.job_id, msg.chunk_id)))
+                    send(Refuse(msg.job_id, msg.chunk_id))
                     continue
                 if isinstance(msg, RollAssign):
                     # whole extranonces, each over its full nonce space
@@ -158,13 +293,13 @@ async def run_miner(
                 # worker that computes it
                 log.warning("worker: unregistered workload %r for job %d; refusing chunk %d",
                             msg.workload, msg.job_id, msg.chunk_id)
-                client.write(encode_msg(Refuse(msg.job_id, msg.chunk_id)))
+                send(Refuse(msg.job_id, msg.chunk_id))
                 continue
             reason = miner.unsupported(msg)
             if reason is not None:
                 log.warning("worker: refusing chunk %d of job %d: %s",
                             msg.chunk_id, msg.job_id, reason)
-                client.write(encode_msg(Refuse(msg.job_id, msg.chunk_id)))
+                send(Refuse(msg.job_id, msg.chunk_id))
                 continue
 
             # a latest-value cell the mining thread writes (one tuple
@@ -178,8 +313,8 @@ async def run_miner(
             last_beacon = time.monotonic()
             beacon_hw = -1
             if msg.workload:
-                # the workload's compute generator, in the same executor
-                # loop with the same Cancel window
+                # the workload's compute generator, on the same thread
+                # with the same Cancel window
                 gen = workloads.compute(msg, device=miner.device)
             else:
                 gen = miner.mine(msg)
@@ -187,7 +322,7 @@ async def run_miner(
             cancelled = False
             done = object()
             while True:
-                item = await loop.run_in_executor(None, next, gen, done)
+                item = await loop.run_in_executor(steps, next, gen, done)
                 if item is done:
                     break  # generator ended without a Result
                 if item is not None:
@@ -199,7 +334,7 @@ async def run_miner(
                     hw = min(hw, msg.upper)
                     # hw == upper: the chunk is done and its Result settles it
                     if msg.lower <= hw < msg.upper and hw > beacon_hw:
-                        client.write(encode_msg(Beacon(msg.job_id, msg.chunk_id, hw, bn, bh)))
+                        send(Beacon(msg.job_id, msg.chunk_id, hw, bn, bh))
                         last_beacon = time.monotonic()
                         beacon_hw = hw
                 if read_task is None:
@@ -207,6 +342,7 @@ async def run_miner(
                 if read_task.done():
                     raw = read_task.result()  # raises here if the conn is lost
                     read_task = None
+                    note_codec(raw)
                     inner = _safe_decode(raw)
                     if isinstance(inner, Cancel) and inner.job_id == msg.job_id:
                         # consumed here, so evict the template here too:
@@ -220,28 +356,106 @@ async def run_miner(
             if cancelled or result is None:
                 log.info("worker: job %d cancelled mid-chunk", msg.job_id)
                 continue
-            client.write(encode_msg(result))
+            send(result)
     except LspConnectionLost:
-        log.info("worker: coordinator lost, exiting")
+        log.info("worker: coordinator lost")
     finally:
         if read_task is not None:
             read_task.cancel()
-        await client.close(drain_timeout=2.0)
+        log.info("worker: session with %s:%d ended; %d Results sent, %d of them binary",
+                 host, port, sent["results"], sent["binary"])
+        closer = getattr(miner, "close", None)
+        try:
+            if callable(closer):
+                # on the steps' thread, after any step still running
+                # there (a ProfiledMiner writes a trace left open)
+                await loop.run_in_executor(steps, closer)
+        finally:
+            steps.shutdown(wait=False)
+            await client.close(drain_timeout=2.0)
 
 
-def _parse_hostport(value: str):
-    host, sep, port = value.rpartition(":")
-    if not sep or not host or not port.isdigit():
-        raise ValueError(f"expected HOST:PORT, got {value!r}")
-    return host, int(port)
+async def run_miner_reconnect(
+    host: str, port: int, miner: Miner, *, params: Optional[Params] = None,
+    base_backoff: float = 0.2, max_backoff: float = 5.0, max_dials: Optional[int] = None,
+    rng: Optional[random.Random] = None, binary: bool = True,
+    addrs: Optional[List[Tuple[str, int]]] = None, roll: bool = True,
+    beacon_interval: float = 2.0,
+) -> None:
+    """:func:`run_miner` that survives coordinator restarts: when the
+    coordinator is lost, or a dial fails, it redials with jittered
+    exponential backoff (``base_backoff · 2^k`` capped at
+    ``max_backoff``, each wait scaled by [0.5, 1.5)) and re-Joins. A
+    restarted coordinator re-ships its jobs' templates through Setups,
+    so the worker keeps no state across sessions.
+
+    ``addrs`` (the CLI's ``--coordinator HOST:PORT,HOST:PORT``) lists
+    every coordinator address, primary first: each failed dial or lost
+    session rotates to the next, so a fleet reaches a promoted standby
+    by itself; when given it supersedes ``host``/``port``. A session
+    that was established resets the backoff. ``max_dials`` bounds the
+    loop for tests; the CLI runs it unbounded.
+    """
+    targets = list(addrs) if addrs else [(host, port)]
+    connect_epochs = dial_patience(targets)
+    delays = jittered_backoff(base_backoff, max_backoff, rng)
+    dials = 0
+    while True:
+        h, p = targets[dials % len(targets)]
+        dials += 1
+        try:
+            await run_miner(h, p, miner, params=params, binary=binary,
+                            connect_epochs=connect_epochs, roll=roll,
+                            beacon_interval=beacon_interval)
+            delays = jittered_backoff(base_backoff, max_backoff, rng)  # it served
+        except LspConnectError:
+            pass  # the dial failed: keep backing off
+        if max_dials is not None and dials >= max_dials:
+            return
+        wait = next(delays)
+        log.info("worker: coordinator gone; redialing %s:%d in %.2f s (attempt %d)",
+                 *targets[dials % len(targets)], wait, dials + 1)
+        await asyncio.sleep(wait)
 
 
-def main(argv: Optional[list] = None) -> None:
-    """CLI: ``python -m tpuminter_torch.worker HOST:PORT [--device cuda]``."""
+def dial_patience(targets) -> Optional[int]:
+    """Connect epochs a dial waits: 2 when there is another address to
+    rotate to (a dead primary must cost a fraction of the loss horizon;
+    each epoch resends the CONNECT, so 2 still survives one lost
+    datagram), else None (the session's own ``epoch_limit``)."""
+    return 2 if len(targets) > 1 else None
+
+
+def parse_addr_list(spec: str) -> List[Tuple[str, int]]:
+    """``HOST:PORT[,HOST:PORT...]`` → ``[(host, port), ...]``; a bare
+    ``:PORT`` is localhost. Raises ValueError on an empty list or a port
+    that is not a number."""
+    addrs = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, _, port = part.rpartition(":")
+        addrs.append((host or "127.0.0.1", int(port)))
+    if not addrs:
+        raise ValueError(f"no coordinator addresses in {spec!r}")
+    return addrs
+
+
+def _parse_args(argv: Optional[list] = None):
+    """The CLI's arguments and its coordinator address list; refuses
+    (``SystemExit``) what the reference's worker refuses."""
     import argparse
 
     parser = argparse.ArgumentParser(description="tpuminter_torch worker (CUDA miner role)")
-    parser.add_argument("hostport", help="coordinator address, HOST:PORT")
+    parser.add_argument("hostport", nargs="?", default=None,
+                        help="coordinator address, HOST:PORT (or use --coordinator)")
+    parser.add_argument(
+        "--coordinator", metavar="LIST", default=None,
+        help="coordinator address list, HOST:PORT[,HOST:PORT...], primary first, hot "
+        "standbys after; with --reconnect each failure rotates to the next address, so "
+        "the worker lands on a promoted standby by itself",
+    )
     parser.add_argument(
         "--exact-min", action="store_true",
         help="track the exact exhausted-range minimum of TARGET chunks "
@@ -262,6 +476,12 @@ def main(argv: Optional[list] = None) -> None:
         "one extranonce segment at a time",
     )
     parser.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="record a torch.profiler trace (CPU, and CUDA on the card) of a warm window "
+        "of the first mined chunk into DIR, as Chrome-trace JSON (open it in Perfetto "
+        "or chrome://tracing)",
+    )
+    parser.add_argument(
         "--beacon-interval", type=float, default=2.0, metavar="SECS",
         help="minimum seconds between progress beacons on a roll-budget chunk "
         "(default 2.0; <= 0 sends none)",
@@ -270,11 +490,38 @@ def main(argv: Optional[list] = None) -> None:
         "--no-roll", action="store_true",
         help="do not advertise the roll-budget dialect: only classic Assigns arrive",
     )
+    parser.add_argument(
+        "--codec", choices=("binary", "json"), default="binary",
+        help="wire codec advertised to the coordinator (binary, the default, is "
+        "negotiated: a coordinator that never sends binary still gets JSON; json pins "
+        "this worker to JSON)",
+    )
+    parser.add_argument(
+        "--reconnect", action="store_true",
+        help="survive coordinator restarts: when the coordinator is lost, redial with "
+        "jittered exponential backoff and re-Join instead of exiting",
+    )
     args = parser.parse_args(argv)
     try:
-        host, port = _parse_hostport(args.hostport)
+        if args.coordinator is not None:
+            addrs = parse_addr_list(args.coordinator)
+        elif args.hostport is not None:
+            addrs = parse_addr_list(args.hostport)
+        else:
+            parser.error("need a coordinator address (positional or --coordinator)")
     except ValueError as exc:
-        parser.error(str(exc))
+        parser.error(f"expected HOST:PORT[,HOST:PORT...]: {exc}")
+    if len(addrs) > 1 and not args.reconnect:
+        parser.error("an address list only makes sense with --reconnect (the rotation "
+                     "happens on redial)")
+    return args, addrs
+
+
+def main(argv: Optional[list] = None) -> None:
+    """CLI: ``python -m tpuminter_torch.worker HOST:PORT [--device cuda]``,
+    or ``--coordinator HOST:PORT,HOST:PORT --reconnect``."""
+    args, addrs = _parse_args(argv)
+    host, port = addrs[0]
     logging.basicConfig(level=logging.INFO)
     from tpuminter_torch.cuda_worker import CudaMiner
 
@@ -285,8 +532,15 @@ def main(argv: Optional[list] = None) -> None:
         kwargs["depth"] = args.depth
     if args.roll_batch is not None:
         kwargs["roll_batch"] = args.roll_batch
-    asyncio.run(run_miner(host, port, CudaMiner(**kwargs), roll=not args.no_roll,
-                          beacon_interval=args.beacon_interval))
+    miner: Miner = CudaMiner(**kwargs)
+    if args.profile:
+        miner = ProfiledMiner(miner, args.profile)
+    options = dict(binary=args.codec == "binary", roll=not args.no_roll,
+                   beacon_interval=args.beacon_interval)
+    if args.reconnect:
+        asyncio.run(run_miner_reconnect(host, port, miner, addrs=addrs, **options))
+    else:
+        asyncio.run(run_miner(host, port, miner, **options))
 
 
 if __name__ == "__main__":
