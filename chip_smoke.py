@@ -97,6 +97,27 @@ caught), and without a CUDA device the script exits non-zero at once:
    range and the same range at a planted target, the Litecoin genesis
    block, and a rolled SCRYPT job, every Result checked with
    hashlib.scrypt;
+4e. the pod worker (``tpuminter_torch.pod_worker``, one process a card):
+   (a) one rank on NCCL in this process, ``PodMiner()`` at its defaults,
+   every launch count 0 just before its jobs and read just after: the
+   genesis header over a 2^30-nonce window (3h), a MIN chunk of 2^30 +
+   12,345 nonces (6t; the ragged tail on the rank's card), the genesis
+   coinbase rolled over a 2^30-index window at ``roll_batch`` 8 (R and
+   K5's sched arm) and 1 (K4), an exhausted exact-min window of 2^29 +
+   12,345 nonces (2h) and two SCRYPT ranges of a batch and 333 nonces
+   (S1, 19, S2; the Litecoin genesis nonce in the ragged tail of one),
+   each Result equal to ``CudaMiner()``'s (run before and after,
+   uncounted) on the fields both fix, checked with hashlib,
+   ``hashlib.scrypt`` or ``toy_hash``, and its rate printed beside
+   ``CudaMiner()``'s; one collective round timed; (b) the same jobs on
+   two ranks sharing the card over gloo, as two processes
+   (``chip_smoke.py --pod-rank OUT`` with the ``TPUMINTER_*`` triple):
+   Results equal to (a)'s, every pod kernel launched on both ranks, no
+   JAX module loaded; (c) ``python -m tpuminter_torch.worker ADDR
+   --backend pod`` as two such ranks against the unchanged coordinator
+   and client: a genesis TARGET job and a MIN job, checked, the
+   coordinator's log showing one worker joining, with backend pod, and
+   the follower exiting 0 once the leader's session ends;
 5. end to end: the unchanged ``python -m tpuminter.coordinator`` (with a
    roll budget and a journal), the port's worker and the unchanged
    ``python -m tpuminter.client`` as separate processes. A MIN job runs
@@ -2512,6 +2533,373 @@ def scrypt_dispatch(header80, b, dev):
     return kernels.scrypt_back(words, nonces, x, [0] * 8)[1]
 
 
+# ---- the pod worker (PodMiner, one process a card) --------------------------
+
+#: every kernel the pod's jobs launch, on every rank: K1 (the self-check),
+#: 3h (TARGET), 2h (exact-min), 6t (MIN), R and K5's sched arm (rolled,
+#: roll_batch 8), K4 (rolled, roll_batch 1), S1, 19 and S2 (SCRYPT)
+POD_PATH_KERNELS = ("sha256_batch", "search_candidates_header", "search_target_header",
+                    "min_toy_toy", "extranonce_roll", "search_candidates_hdr_batch_sched",
+                    "search_candidates_hdr", "scrypt_front", "romix_walk", "scrypt_back")
+#: nonces past the pod's whole spans in the exact-min and MIN jobs, which
+#: the rank's own card sweeps (the ragged tails)
+POD_RAGGED = 12_345
+#: collective rounds timed a layout (one int64, the candidate sweep's
+#: all_reduce(MIN) and its host read)
+POD_ROUNDS = 2000
+
+
+def pod_jobs():
+    """``[(miner kwargs, [(label, request), ...]), ...]``: the pod phase's
+    jobs, grouped by miner, in the order every rank runs them."""
+    from tpuminter_torch import chain
+    from tpuminter_torch.protocol import PowMode, Request
+
+    genesis = chain.GENESIS_HEADER
+    target = chain.bits_to_target(genesis.bits)
+    cb = bytes.fromhex(GENESIS_COINBASE_HEX)
+    rolled = Request(11, PowMode.TARGET, GENESIS_ROLLED - (1 << 30) + 1, GENESIS_ROLLED + 4095,
+                     header=genesis.pack(), target=target, coinbase_prefix=cb[:48],
+                     coinbase_suffix=cb[49:], extranonce_size=1, nonce_bits=32)
+    ltc = ltc_genesis()
+    scrypt_n = (1 << 16) + SCRYPT_RAGGED  # a batch and a ragged tail
+    return [
+        ({}, [
+            ("genesis", Request(1, PowMode.TARGET, GENESIS_NONCE - (1 << 30) + 1,
+                                GENESIS_NONCE + 4095, header=genesis.pack(), target=target)),
+            ("min", Request(4, PowMode.MIN, 0, (1 << 30) + POD_RAGGED - 1, data=MIN_DATA)),
+            ("rolled_rb8", rolled),
+            ("scrypt_exhausted", Request(21, PowMode.SCRYPT, ltc.nonce + 1,
+                                         ltc.nonce + scrypt_n, header=ltc.pack(), target=1)),
+            # the Litecoin genesis nonce 100 nonces into the ragged tail
+            ("scrypt_window", Request(22, PowMode.SCRYPT, ltc.nonce - (1 << 16) - 100,
+                                      ltc.nonce - (1 << 16) - 101 + scrypt_n, header=ltc.pack(),
+                                      target=chain.bits_to_target(ltc.bits))),
+        ]),
+        ({"exact_min": True}, [
+            ("exact_exhausted", Request(3, PowMode.TARGET, GENESIS_NONCE - (1 << 29) - POD_RAGGED,
+                                        GENESIS_NONCE - 1, header=genesis.pack(),
+                                        target=target)),
+        ]),
+        ({"roll_batch": 1}, [("rolled_rb1", rolled)]),
+    ]
+
+
+def timed_mine(miner, req):
+    """A Result and its seconds, up to the end of the device work it
+    queued."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = drain(miner.mine(req))
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def collective_us(pod) -> float:
+    """µs of one round of the candidate sweep's collective on ``pod``: an
+    ``all_reduce(MIN)`` of one int64 on the rank's card and its host read."""
+    t = torch.ones(1, dtype=torch.int64, device=pod.device)
+    int(pod.all_reduce_min(t)[0])
+    t0 = time.perf_counter()
+    for _ in range(POD_ROUNDS):
+        int(pod.all_reduce_min(t)[0])
+    return (time.perf_counter() - t0) / POD_ROUNDS * 1e6
+
+
+def run_pod_jobs(pod, passes: int = 2) -> dict:
+    """Every pod job on this rank (:func:`pod_jobs`), ``passes`` times: the
+    leader mines them through ``PodMiner(pod=pod)`` at its defaults but
+    the group's kwargs, a follower replays them. Returns the leader's
+    ``{label: [found, nonce, hash, searched, [seconds a pass]]}`` (empty
+    on a follower); every pass must give the same Result. The first pass
+    pays the first uses (the collectives' set-up, V, the self-check)."""
+    from tpuminter_torch.pod_worker import PodMiner, follower_loop
+
+    out = {}
+    for kwargs, jobs in pod_jobs():
+        miner = PodMiner(pod=pod, spmd_leader=pod.is_leader and pod.world > 1, **kwargs)
+        if pod.is_leader:
+            for _ in range(passes):
+                for label, req in jobs:
+                    res, dt = timed_mine(miner, req)
+                    got = [res.found, res.nonce, res.hash_value, res.searched]
+                    if label in out and out[label][:4] != got:
+                        fail(f"pod {label}: a second pass gave {got}, not {out[label][:4]}")
+                    out.setdefault(label, got + [[]])[4].append(dt)
+            miner.close()
+        else:
+            follower_loop(miner)
+        del miner
+        torch.cuda.empty_cache()
+    return out
+
+
+def pod_rank_main(out_path: str) -> int:
+    """``chip_smoke.py --pod-rank OUT``: one rank of phase 4e (b)'s pod, from
+    the ``TPUMINTER_*`` triple; writes its Results, launch counts and
+    collective round to OUT as JSON."""
+    sys.path.insert(0, ROOT)
+    from tpuminter_torch import kernels
+    from tpuminter_torch.parallel import distributed
+
+    pod = distributed.init_from_env("cuda")
+    if pod is None:
+        fail("--pod-rank needs TPUMINTER_COORD_ADDR, TPUMINTER_NUM_PROCS and TPUMINTER_PROC_ID")
+    reset_launches(kernels)
+    results = run_pod_jobs(pod)
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    round_us = collective_us(pod)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpuminter"))
+    out = dict(rank=pod.rank, world=pod.world, backend=pod.backend, device=str(pod.device),
+               results=results, launches=launches, collective_us=round_us, loaded=loaded)
+    pod.close()
+    if loaded:
+        fail(f"a pod rank loaded {loaded}")
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def free_tcp_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def repo_env(**extra) -> dict:
+    """This environment with the repository on ``PYTHONPATH``, and ``extra``."""
+    env = dict(os.environ, **extra)
+    env["PYTHONPATH"] = ROOT + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def pod_env(store: str, world: int, rank: int) -> dict:
+    """A pod rank's environment: the ``TPUMINTER_*`` rendezvous triple."""
+    return repo_env(TPUMINTER_COORD_ADDR=store, TPUMINTER_NUM_PROCS=str(world),
+                    TPUMINTER_PROC_ID=str(rank))
+
+
+def check_pod_result(label: str, req, got) -> None:
+    """Hold a pod Result ``[found, nonce, hash, ...]`` to hashlib (the
+    double SHA of its header, re-rolled for a rolled job),
+    ``hashlib.scrypt`` or ``toy_hash``."""
+    from tpuminter_torch import chain
+    from tpuminter_torch.protocol import MIN_UNTRACKED, PowMode
+
+    found, nonce, value = got[:3]
+    if req.mode == PowMode.MIN:
+        ok = value == chain.toy_hash(req.data, nonce)
+    elif value == MIN_UNTRACKED:
+        ok = not found
+    else:
+        header = chain.BlockHeader.unpack(req.header)
+        if req.rolled:
+            en, nonce = chain.split_global(nonce, req.nonce_bits)
+            tmpl = chain.CoinbaseTemplate(req.coinbase_prefix, req.coinbase_suffix,
+                                          req.extranonce_size)
+            header = chain.rolled_header(req.header, tmpl, req.branch, en)
+        packed = header.with_nonce(nonce).pack()
+        digest = chain.scrypt_hash(packed) if req.mode == PowMode.SCRYPT else chain.dsha256(packed)
+        ok = value == chain.hash_to_int(digest) and found == (value <= req.target)
+    if not ok:
+        fail(f"pod {label}: the Result {got[:4]} fails its hashlib check")
+
+
+def phase_pod(card: str):
+    """Phase 4e: the pod worker. (a) one rank on NCCL in this process,
+    ``PodMiner()`` at its defaults, every job beside ``CudaMiner()``'s
+    (run before and after it, uncounted), each miner over the jobs twice
+    (the second pass warm); (b) two ranks sharing the card
+    over gloo, as two processes, equal to (a); (c) the worker CLI at
+    ``--backend pod`` as two ranks against the unchanged coordinator and
+    client. Returns (a)'s launch counts and the phase's numbers."""
+    from tpuminter_torch import kernels
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.parallel import distributed
+
+    groups = pod_jobs()
+    reqs = {label: req for _, jobs in groups for label, req in jobs}
+    cuda = {label: [] for label in reqs}
+
+    def run_cuda():  # two passes a miner, as the pod's
+        for kwargs, jobs in groups:
+            miner = CudaMiner(**kwargs)
+            for _ in range(2):
+                for label, req in jobs:
+                    cuda[label].append(timed_mine(miner, req))
+            del miner
+            torch.cuda.empty_cache()
+
+    run_cuda()
+    pod = distributed.init_pod(f"127.0.0.1:{free_tcp_port()}", 1, 0, device="cuda")
+    if pod.backend != "nccl":
+        fail(f"one rank on one card took {pod.backend}, not nccl")
+    reset_launches(kernels)
+    one = run_pod_jobs(pod)
+    launches = read_launches(kernels, POD_PATH_KERNELS, "pod (one rank, NCCL)")
+    rounds = {"nccl_one_rank": collective_us(pod)}
+    pod.close()
+    run_cuda()
+    rates = {}
+    for label, req in reqs.items():
+        got, want = one[label], cuda[label][0][0]
+        check_pod_result(label, req, got)
+        fixed = 4 if (req.mode.value == "min" or not want.found) else 3
+        if got[:fixed] != [want.found, want.nonce, want.hash_value, want.searched][:fixed]:
+            fail(f"pod {label}: {got[:4]} != CudaMiner()'s {want}")
+        unit, scale = ("MH/s", 1e6) if req.mode.value == "scrypt" else ("GH/s", 1e9)
+        rates[label] = {"pod_one_rank": [got[3] / dt / scale for dt in got[4]],
+                        "cuda": [r.searched / dt / scale for r, dt in cuda[label]], "unit": unit}
+    say(f"  (a) one rank on NCCL, PodMiner() defaults: every Result equal to CudaMiner()'s on "
+        f"the fields both fix and hashlib-checked; a collective round (all_reduce MIN, one "
+        f"int64, and its host read) {rounds['nccl_one_rank']:.1f} µs")
+
+    # (b) two ranks sharing the one card, over gloo
+    log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
+    os.makedirs(log_dir, exist_ok=True)
+    store = f"127.0.0.1:{free_tcp_port()}"
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = pod_env(store, 2, rank)
+        log = open(os.path.join(log_dir, f"pod_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--pod-rank",
+             os.path.join(log_dir, f"pod_rank{rank}.json")], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=300)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(log_dir, f"pod_rank{rank}.log")) as fh:
+                print(fh.read()[-4000:], file=sys.stderr)
+            fail(f"two-rank pod: rank {rank} exited with {proc.returncode}")
+    two = []
+    for rank in range(2):
+        with open(os.path.join(log_dir, f"pod_rank{rank}.json")) as fh:
+            two.append(json.load(fh))
+    if [r["backend"] for r in two] != ["gloo", "gloo"] or any(r["loaded"] for r in two):
+        fail(f"two-rank pod: backends {[r['backend'] for r in two]}, loaded "
+             f"{[r['loaded'] for r in two]}")
+    for r in two:
+        missing = [k for k in POD_PATH_KERNELS if r["launches"][k] < 1]
+        if missing:
+            fail(f"two-rank pod: rank {r['rank']} never launched {missing}")
+    for label in reqs:
+        got = two[0]["results"][label]
+        if got[:4] != one[label][:4]:
+            fail(f"two-rank pod {label}: {got[:4]} != one rank's {one[label][:4]}")
+        unit_scale = 1e6 if rates[label]["unit"] == "MH/s" else 1e9
+        rates[label]["pod_two_ranks_one_card"] = [got[3] / dt / unit_scale for dt in got[4]]
+    rounds["gloo_two_ranks"] = [r["collective_us"] for r in two]
+    say(f"  (b) two ranks sharing the card over gloo ({time.perf_counter() - t0:.1f} s with "
+        f"their start): every Result equal to (a)'s, every pod kernel launched on both ranks; "
+        f"a collective round {rounds['gloo_two_ranks'][0]:.1f} / "
+        f"{rounds['gloo_two_ranks'][1]:.1f} µs; rank launches {[r['launches'] for r in two]}")
+    for label, r in rates.items():
+        one_r, two_r, cuda_r = r["pod_one_rank"], r["pod_two_ranks_one_card"], r["cuda"]
+        say(f"  pod {label}: {one_r[1]:.4f} {r['unit']} one rank (NCCL), {two_r[1]:.4f} two ranks "
+            f"sharing the card (gloo), beside CudaMiner() {cuda_r[1]:.4f} / {cuda_r[3]:.4f} "
+            f"(before / after), second passes, on {card}; first passes {one_r[0]:.4f}, "
+            f"{two_r[0]:.4f}, {cuda_r[0]:.4f} / {cuda_r[2]:.4f}")
+    e2e_seconds = phase_pod_end_to_end(log_dir)
+    return launches, {"rates": rates, "collective_us": rounds, "e2e_seconds": e2e_seconds}
+
+
+def phase_pod_end_to_end(log_dir: str) -> float:
+    """(c): ``python -m tpuminter_torch.worker ADDR --backend pod`` as two
+    ranks sharing the card, against the unchanged coordinator; the
+    unchanged client sends a genesis TARGET job and a MIN job. The
+    coordinator must see one worker join, with backend pod; SIGINT to the
+    leader ends its session, whose close releases the follower."""
+    from tpuminter_torch import chain
+
+    t0 = time.perf_counter()
+    addr = f"127.0.0.1:{free_udp_port()}"
+    store = f"127.0.0.1:{free_tcp_port()}"
+    procs, logs = [], []
+
+    def start(name, args, env):
+        log = open(os.path.join(log_dir, f"pod_e2e_{name}.log"), "w")
+        logs.append((name, log))
+        procs.append(subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                                      stdout=log, stderr=subprocess.STDOUT))
+        return procs[-1]
+
+    def log_text(name):
+        with open(os.path.join(log_dir, f"pod_e2e_{name}.log")) as fh:
+            return fh.read()
+
+    def client(args):
+        out = subprocess.run([sys.executable, "-m", "tpuminter.client", addr, *args,
+                              "--timeout", "120"], cwd=ROOT, env=repo_env(),
+                             capture_output=True, text=True, timeout=180)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("Result ")]
+        if out.returncode != 0 or len(lines) != 1:
+            fail(f"pod client {args[:2]} failed (rc {out.returncode}): {out.stdout}{out.stderr}")
+        return lines[0].split()
+
+    try:
+        coordinator = start("coordinator", ["tpuminter.coordinator", addr.split(":")[1]],
+                            repo_env())
+        deadline = time.time() + 60
+        while "listening" not in log_text("coordinator"):
+            if coordinator.poll() is not None or time.time() > deadline:
+                fail("the pod phase's coordinator did not start")
+            time.sleep(0.2)
+        workers = [start(f"rank{r}", ["tpuminter_torch.worker", addr, "--backend", "pod"],
+                         pod_env(store, 2, r)) for r in range(2)]
+        genesis = chain.GENESIS_HEADER
+        _, hash_hex, nonce = client(["--header", genesis.pack().hex(), "--bits", "0x1d00ffff",
+                                     "--max-nonce", str(GENESIS_NONCE + 4095)])
+        digest = genesis.with_nonce(int(nonce)).block_hash()
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
+            fail(f"pod e2e genesis Result {hash_hex} {nonce} fails the hashlib check")
+        data = "hello bitcoin"
+        _, fold, min_nonce = client([data, str((1 << 30) - 1)])
+        if int(fold) != chain.toy_hash(data.encode(), int(min_nonce)):
+            fail(f"pod e2e MIN Result {fold} {min_nonce} fails the toy_hash check")
+        joins = [ln for ln in log_text("coordinator").splitlines() if " joined (backend=" in ln]
+        if len(joins) != 1 or "backend=pod" not in joins[0]:
+            fail(f"the coordinator's joins are not one pod worker: {joins}")
+        say(f"  (c) --backend pod, two ranks sharing the card: e2e TARGET Result {hash_hex} "
+            f"{nonce} (hashlib-checked), MIN Result {fold} {min_nonce} (toy_hash-checked); "
+            f"coordinator log: {joins[0].split('INFO')[-1].strip()}")
+        workers[0].send_signal(signal.SIGINT)  # the leader's session ends; close() stops rank 1
+        for w in workers:
+            w.wait(timeout=60)
+        if workers[1].returncode != 0:
+            fail(f"the follower rank exited with {workers[1].returncode}")
+        seconds = time.perf_counter() - t0
+        say(f"  (c) the leader's SIGINT released the follower, which exited 0; {seconds:.1f} s")
+        return seconds
+    except BaseException:
+        for name, log in logs:
+            log.flush()
+            print(f"--- pod {name} log tail ---\n{log_text(name)[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for _, log in logs:
+            log.close()
+
+
 #: phase 5's dict job: candidates (past the coordinator's 32 KiB window
 #: budget), top-k slots and seed
 DICT_N, DICT_K, DICT_SEED = 6000, 8, 42
@@ -2840,6 +3228,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to test", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--pod-rank"]:
+        return pod_rank_main(sys.argv[2])
     sys.path.insert(0, ROOT)
     from tpuminter_torch.kernels import build, sass
 
@@ -2901,12 +3291,17 @@ def main() -> int:
         dev, card_tag, np.random.default_rng(SEED + 3), scrypt_info)
     torch.cuda.empty_cache()
 
+    phase("4e. the pod worker: one rank on NCCL, two ranks sharing the card over gloo, "
+          "--backend pod end to end")
+    pod_launches, pod_info = phase_pod(card_tag)
+    torch.cuda.empty_cache()
+
     phase("5. end to end: coordinator + port worker + client processes")
     hc_e2e_seconds, scrypt_rates["e2e_seconds"], dict_seconds, crash_seconds, window = \
         phase_end_to_end(hc_expect, scrypt_job, card_tag)
 
     paths = {"fixed": fixed, "profiled": profiled, "rolled": rolled, "hashcore": hashcore,
-             "scrypt": scrypt}
+             "scrypt": scrypt, "pod": pod_launches}
     rows = []
     for name, st in stats.items():
         t = st.timing
@@ -2938,6 +3333,7 @@ def main() -> int:
     say(json.dumps({"rolled_ghs": rates}))
     say(json.dumps({"dict": {"e2e_seconds": dict_seconds, "candidates": DICT_N}}))
     say(json.dumps({"crash_drill": {"e2e_seconds": crash_seconds, "nonces": CRASH_N}}))
+    say(json.dumps({"pod": pod_info}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
         k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -35,6 +35,11 @@ Module counterparts (each module's docstring names its own):
 - ``cuda_worker`` ← ``tpuminter.tpu_worker`` (its SCRYPT dialect ←
   ``tpuminter.jax_worker.JaxMiner._mine_scrypt``)
 - ``worker`` ← ``tpuminter.worker``
+- ``parallel`` ← ``tpuminter.parallel`` (``distributed``: the rendezvous
+  and the leader's channel on ``torch.distributed``; ``mesh``: the pod
+  sweeps)
+- ``pod_worker`` ← ``tpuminter.pod_worker`` (``--backend pod``: one
+  process a card)
 """
 
 __version__ = "0.1.0"

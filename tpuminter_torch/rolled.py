@@ -31,9 +31,10 @@ jnp) is the device of the tensors here, and its ``cand_bits`` test
 seam is not copied: the candidate test is always the production one
 (top 32 hash bits zero and hash word 1 under the target's). Its
 batched tracking sweep (a jnp program, no Pallas kernel) is the
-per-segment loop its ``TpuMiner`` runs at ``roll_batch=1``; ``width``
-autotuning and the ``interleave`` row layout for sharded sweeps wait
-for later slices.
+per-segment loop its ``TpuMiner`` runs at ``roll_batch=1``; its
+``width`` autotuning is not ported. :func:`plan_tiles`' ``interleave``
+lays rows out device-major for the pod's sharded window
+(``parallel.mesh.rolled_sweep``).
 """
 
 from __future__ import annotations
@@ -100,13 +101,20 @@ class TilePlan(NamedTuple):
 
 
 def plan_tiles(start: int, n: int, nonce_bits: int, width: int, rows: int,
-               hard_end: Optional[int] = None) -> TilePlan:
+               hard_end: Optional[int] = None, interleave: int = 1) -> TilePlan:
     """Cut the window ``[start, start + n)``, clamped at ``hard_end``
     (the index domain's end), into at most ``rows`` tiles, padded to
-    exactly ``rows``."""
+    exactly ``rows``.
+
+    ``interleave=k`` lays the rows out device-major for a window sharded
+    over ``k`` ranks: rank ``d``'s contiguous block of ``rows / k`` rows
+    holds the global-order rows ``s·k + d``, so a rank's block is one
+    row of each stripe ``s`` (``parallel.mesh.rolled_sweep``)."""
     end = start + n - 1
     if hard_end is not None:
         end = min(end, hard_end)
+    if interleave < 1 or rows % interleave:
+        raise ValueError("rows must be a positive multiple of interleave")
     tiles = list(chain.rolled_tiles(start, end, nonce_bits, width))
     if len(tiles) > rows:
         raise ValueError(
@@ -116,7 +124,9 @@ def plan_tiles(start: int, n: int, nonce_bits: int, width: int, rows: int,
     plan = np.zeros((5, rows), np.int64)
     for i, (en, base, take, gbase) in enumerate(tiles):
         plan[:, i] = (en >> 32, en & 0xFFFFFFFF, base, take, gbase - start)
-    return TilePlan(*plan)
+    # device-major: new[d·(rows/k) + s] = old[s·k + d]
+    perm = np.arange(rows).reshape(rows // interleave, interleave).T.reshape(-1)
+    return TilePlan(*plan[:, perm])
 
 
 def rolled_verifier(req: Request):

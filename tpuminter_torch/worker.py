@@ -15,7 +15,10 @@ and SCRYPT (plain or rolled). A chunk of a workload it did not register
 is answered with a ``Refuse``, which makes the coordinator requeue it.
 With ``--reconnect`` it survives a coordinator restart or a failover to
 a standby (``--coordinator HOST:PORT,HOST:PORT``); with ``--profile
-DIR`` it writes one ``torch.profiler`` trace of a warm window.
+DIR`` it writes one ``torch.profiler`` trace of a warm window. With
+``--backend pod`` it is one process of a pod, a card a process
+(``tpuminter_torch.pod_worker``): rank 0 joins the coordinator, the
+other ranks replay its chunks.
 
 Run it as ``python -m tpuminter_torch.worker HOST:PORT``.
 """
@@ -461,8 +464,15 @@ def _parse_args(argv: Optional[list] = None):
         help="track the exact exhausted-range minimum of TARGET chunks "
         "(the CPU miner's output) at reduced throughput",
     )
+    parser.add_argument(
+        "--backend", choices=("cuda", "pod"), default="cuda",
+        help="cuda (default): one card; pod: one process of a pod, a card a process, its "
+        "rank and rendezvous from TPUMINTER_COORD_ADDR, TPUMINTER_NUM_PROCS and "
+        "TPUMINTER_PROC_ID (rank 0 joins the coordinator, the others replay its chunks)",
+    )
     parser.add_argument("--slab", type=int, default=None,
-                        help="nonces per kernel launch (default 2^27)")
+                        help="nonces per kernel launch (default 2^27; under --backend pod, "
+                        "a rank's slab a stripe)")
     parser.add_argument("--depth", type=int, default=None,
                         help="kernel launches kept in flight (default 2)")
     parser.add_argument(
@@ -514,6 +524,9 @@ def _parse_args(argv: Optional[list] = None):
     if len(addrs) > 1 and not args.reconnect:
         parser.error("an address list only makes sense with --reconnect (the rotation "
                      "happens on redial)")
+    if args.backend == "pod" and args.reconnect:
+        # the leader's session close ends its followers' replay
+        parser.error("--backend pod does not redial: restart the pod's processes instead")
     return args, addrs
 
 
@@ -521,18 +534,46 @@ def main(argv: Optional[list] = None) -> None:
     """CLI: ``python -m tpuminter_torch.worker HOST:PORT [--device cuda]``,
     or ``--coordinator HOST:PORT,HOST:PORT --reconnect``."""
     args, addrs = _parse_args(argv)
-    host, port = addrs[0]
     logging.basicConfig(level=logging.INFO)
-    from tpuminter_torch.cuda_worker import CudaMiner
-
     kwargs = {"exact_min": args.exact_min, "device": args.device}
-    if args.slab is not None:
-        kwargs["slab"] = args.slab
     if args.depth is not None:
         kwargs["depth"] = args.depth
     if args.roll_batch is not None:
         kwargs["roll_batch"] = args.roll_batch
-    miner: Miner = CudaMiner(**kwargs)
+    if args.backend == "pod":
+        _main_pod(args, addrs, kwargs)
+        return
+    from tpuminter_torch.cuda_worker import CudaMiner
+
+    if args.slab is not None:
+        kwargs["slab"] = args.slab
+    _serve(args, addrs, CudaMiner(**kwargs))
+
+
+def _main_pod(args, addrs, kwargs) -> None:
+    """``--backend pod``: join the pod the environment describes (a pod of
+    one process without it); rank 0 serves the coordinator, every other
+    rank replays its chunks until it closes."""
+    from tpuminter_torch.parallel import distributed
+    from tpuminter_torch.pod_worker import PodMiner, follower_loop
+
+    if args.slab is not None:
+        kwargs["slab_per_device"] = args.slab
+    pod = distributed.init_from_env(args.device)
+    try:
+        if pod is not None and not pod.is_leader:
+            follower_loop(PodMiner(pod=pod, **kwargs))
+            return
+        _serve(args, addrs, PodMiner(pod=pod, spmd_leader=pod is not None, **kwargs))
+    finally:
+        if pod is not None:
+            pod.close()
+
+
+def _serve(args, addrs, miner: Miner) -> None:
+    """Run the worker role with ``miner`` until the coordinator is lost (or,
+    with ``--reconnect``, for good)."""
+    host, port = addrs[0]
     if args.profile:
         miner = ProfiledMiner(miner, args.profile)
     options = dict(binary=args.codec == "binary", roll=not args.no_roll,
