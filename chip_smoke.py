@@ -141,11 +141,27 @@ caught), and without a CUDA device the script exits non-zero at once:
    each coordinator's log must show the binary worker joining with the
    binary codec and advertising dict and hashcore, the worker's log that
    its session before the crash sent every Result in binary, and no log
-   a refused chunk.
+   a refused chunk; each job's seconds through the client are kept;
+5b. end to end on the port alone: ``python -m tpuminter_torch.coordinator``
+   (roll budget 2, a journal), ``python -m tpuminter_torch.worker
+   --coordinator ADDR --reconnect`` on the card and ``python -m
+   tpuminter_torch.client``, each started with ``python -X importtime``:
+   phase 5's genesis job (under a client key), its rolled, MIN and
+   SCRYPT jobs, hashcore fmin over 2^32 (equal to phase 4c's), the dict
+   top-k and the crash drill (the port's coordinator killed and
+   restarted from its journal), each checked as in phase 5 and its
+   seconds printed beside phase 5's; then the port's coordinator and
+   worker stop, the unchanged ``python -m tpuminter.coordinator`` starts
+   on the port's journal with no worker, and the genesis job
+   re-submitted under its key must print the identical Result from the
+   journal's winner table. No import log of the three may name a
+   ``jax``, ``jaxlib`` or ``tpuminter`` module, nor the coordinator's
+   or the client's a ``torch`` one.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
-phase 5 only starts that package's coordinator and client as processes.
+phase 5 starts that package's coordinator and client as processes, and
+phase 5b its coordinator on the port's journal.
 """
 
 import dataclasses
@@ -2924,9 +2940,10 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
     default codec (binary) with ``--reconnect`` and ``--profile`` runs
     every other job (its trace, of the genesis job's first chunk, is
     read back by :func:`worker_trace`), and :func:`crash_drill` kills
-    and restarts the coordinator under it. Returns each hashcore job's
-    seconds through the client, the SCRYPT job's, the dict job's, the
-    crash drill's and the worker's trace window."""
+    and restarts the coordinator under it. Returns each job's seconds
+    through the client (``seconds``, by job; the hashcore jobs under
+    ``"hashcore"``), the worker's trace window and the crash drill's
+    Result through ``CudaMiner()``."""
     from tpuminter_torch import chain
     from tpuminter_torch.cuda_worker import CudaMiner
     from tpuminter_torch.protocol import PowMode, Request
@@ -2984,10 +3001,13 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
         start("worker_json", ["tpuminter_torch.worker", addr, "--codec", "json"])
         json_worker = procs[-1]
         data = "hello bitcoin"
+        t0 = time.perf_counter()
         _, fold, nonce = client([data, str((1 << 30) - 1)])
+        seconds = {"min": time.perf_counter() - t0}
         if int(fold) != chain.toy_hash(data.encode(), int(nonce)):
             fail(f"e2e MIN Result {fold} {nonce} fails the toy_hash check")
-        say(f"  e2e MIN: Result {fold} {nonce} (toy_hash-checked) from the --codec json worker")
+        say(f"  e2e MIN: Result {fold} {nonce} (toy_hash-checked) from the --codec json worker "
+            f"({seconds['min']:.1f} s through the client)")
         json_worker.send_signal(signal.SIGINT)  # ends its session, which logs what it sent
         json_worker.wait(timeout=30)
         sessions = re.findall(r"(\d+) Results sent, (\d+) of them binary", log_text("worker_json"))
@@ -3011,14 +3031,17 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
                          "--profile", trace_dir])
         worker = procs[-1]
         genesis = chain.GENESIS_HEADER
+        t0 = time.perf_counter()
         _, hash_hex, nonce = client(["--header", genesis.pack().hex(), "--bits", "0x1d00ffff",
                                      "--max-nonce", str(GENESIS_NONCE + 4095)])
+        seconds["genesis"] = time.perf_counter() - t0
         nonce = int(nonce)
         digest = genesis.with_nonce(nonce).block_hash()
         if chain.hash_to_hex(digest) != hash_hex or \
                 chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
             fail(f"e2e genesis Result {hash_hex} {nonce} fails the hashlib check")
-        say(f"  e2e TARGET: Result {hash_hex} {nonce} (hashlib-checked)")
+        say(f"  e2e TARGET: Result {hash_hex} {nonce} (hashlib-checked; "
+            f"{seconds['genesis']:.1f} s through the client, the worker's first chunk)")
         window = worker_trace(os.path.join(log_dir, "e2e_worker.log"), trace_dir, card)
         cb = bytes.fromhex(GENESIS_COINBASE_HEX)
         t0 = time.perf_counter()
@@ -3026,7 +3049,7 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
             "--header", genesis.pack().hex(), "--bits", "0x1d00ffff",
             "--coinbase-prefix", cb[:48].hex(), "--coinbase-suffix", cb[49:].hex(),
             "--extranonce-size", "1", "--max-extranonce", "4"])
-        dt = time.perf_counter() - t0
+        dt = seconds["rolled"] = time.perf_counter() - t0
         en, nonce = int(en_arg.split("=")[1]), int(nonce_arg.split("=")[1])
         hdr = chain.rolled_header(genesis.pack(), chain.CoinbaseTemplate(cb[:48], cb[49:], 1),
                                   (), en).with_nonce(nonce)
@@ -3042,7 +3065,7 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
         _, hash_hex, nonce = client([
             "--header", scrypt_job["header"].hex(), "--bits", hex(scrypt_job["bits"]),
             "--scrypt", "--max-nonce", str(scrypt_job["max_nonce"])])
-        scrypt_seconds = time.perf_counter() - t0
+        scrypt_seconds = seconds["scrypt"] = time.perf_counter() - t0
         hdr = chain.BlockHeader.unpack(scrypt_job["header"]).with_nonce(int(nonce)).pack()
         digest = chain.scrypt_hash(hdr)
         if chain.hash_to_hex(digest) != hash_hex or \
@@ -3052,9 +3075,10 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
         same = "equal to" if int(nonce) == first.nonce else "not"
         say(f"  e2e SCRYPT: Result {hash_hex} {nonce} (hashlib.scrypt-checked; {same} phase 4d's "
             f"first winner {first.nonce}; {scrypt_seconds:.1f} s through the client)")
-        hc_seconds = phase_end_to_end_hashcore(addr, env, hc_expect)
-        dict_seconds = phase_end_to_end_dict(addr, env, log_dir)
-        crash_seconds = crash_drill(addr, env, coordinator_proc, start_coordinator, crash_expect)
+        seconds["hashcore"] = phase_end_to_end_hashcore(addr, env, hc_expect)
+        seconds["dict"] = phase_end_to_end_dict(addr, env, log_dir)
+        seconds["crash"] = crash_drill(addr, env, coordinator_proc, start_coordinator,
+                                       crash_expect)
         coord_log = log_text("coordinator") + log_text("coordinator2")
         joins = {name: [ln for ln in log_text(name).splitlines()
                         if "joined (backend=cuda" in ln and "codec=bin" in ln]
@@ -3080,7 +3104,7 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
         say("  coordinator and worker logs: no refused chunk")
         if worker.poll() is not None:
             fail("the worker exited early")
-        return hc_seconds, scrypt_seconds, dict_seconds, crash_seconds, window
+        return seconds, window, crash_expect
     except BaseException:
         for name, log in logs:
             log.flush()
@@ -3100,17 +3124,19 @@ def phase_end_to_end(hc_expect, scrypt_job, card: str):
             log.close()
 
 
-def crash_drill(addr, env, coordinator, restart, expect) -> float:
+def crash_drill(addr, env, coordinator, restart, expect, client=("-m", "tpuminter.client"),
+                label="e2e") -> float:
     """A MIN job (``CRASH_DATA`` over ``CRASH_N`` nonces) through a
-    client with ``--reconnect``: ``CRASH_AFTER_S`` into it the
-    coordinator is killed (SIGKILL) and restarted from its journal on
-    the same port; the port worker redials by itself. The client must
-    print exactly one Result, equal to ``expect`` (the same job through
-    ``CudaMiner()`` in this process). Returns the job's seconds."""
+    client with ``--reconnect`` (``client``: the interpreter arguments
+    that start it): ``CRASH_AFTER_S`` into it the coordinator is killed
+    (SIGKILL) and restarted from its journal on the same port; the port
+    worker redials by itself. The client must print exactly one Result,
+    equal to ``expect`` (the same job through ``CudaMiner()`` in this
+    process). Returns the job's seconds."""
     t0 = time.perf_counter()
     client = subprocess.Popen(
-        [sys.executable, "-m", "tpuminter.client", addr, CRASH_DATA.decode(), str(CRASH_N - 1),
-         "--reconnect", "--client-key", "chip-smoke-crash", "--timeout", "300"],
+        [sys.executable, *client, addr, CRASH_DATA.decode(), str(CRASH_N - 1),
+         "--reconnect", "--client-key", f"chip-smoke-crash-{label}", "--timeout", "300"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         time.sleep(CRASH_AFTER_S)
@@ -3120,6 +3146,8 @@ def crash_drill(addr, env, coordinator, restart, expect) -> float:
         coordinator.wait()
         restart("coordinator2")
         out, err = client.communicate(timeout=400)
+        if label != "e2e":
+            check_imports(f"{label} crash-drill client", err, torch_too=True)
     finally:
         if client.poll() is None:
             client.kill()
@@ -3132,7 +3160,7 @@ def crash_drill(addr, env, coordinator, restart, expect) -> float:
     if (int(fold), int(nonce)) != (expect.hash_value, expect.nonce):
         fail(f"crash drill: Result {fold} {nonce} != CudaMiner's {expect.hash_value} "
              f"{expect.nonce}")
-    say(f"  e2e crash drill: MIN over 2^{CRASH_N.bit_length() - 1} nonces, the coordinator "
+    say(f"  {label} crash drill: MIN over 2^{CRASH_N.bit_length() - 1} nonces, the coordinator "
         f"killed {CRASH_AFTER_S} s in and restarted from its journal: one Result {fold} "
         f"{nonce}, equal to CudaMiner's ({seconds:.1f} s through the client)")
     return seconds
@@ -3145,22 +3173,27 @@ def dict_score(seed: int, candidate: bytes) -> int:
     return int.from_bytes(digest[:8], "little")
 
 
-def phase_end_to_end_dict(addr, env, log_dir) -> float:
-    """A dict job through the unchanged client: top-k (k = 8) over a
-    seeded catalog of DICT_N candidates, past the coordinator's 32 KiB
-    window budget (its chunks ride window Setups), answered by the port
-    worker alone and checked with hashlib. Returns its seconds."""
+def phase_end_to_end_dict(addr, env, log_dir, client=("-m", "tpuminter.client"),
+                          label="e2e") -> float:
+    """A dict job through a client (``client``: the interpreter
+    arguments that start it; the unchanged one by default): top-k (k =
+    8) over a seeded catalog of DICT_N candidates, past the
+    coordinator's 32 KiB window budget (its chunks ride window Setups),
+    answered by the port worker alone and checked with hashlib. Returns
+    its seconds."""
     rng = np.random.default_rng(SEED + 5)
     cands = [b"candidate-%05d-%s" % (i, rng.bytes(6).hex().encode()) for i in range(DICT_N)]
     path = os.path.join(log_dir, "e2e_dict_candidates.txt")
     with open(path, "wb") as fh:
         fh.write(b"\n".join(cands) + b"\n")
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "tpuminter.client", addr, "--workload", "dict",
+    out = subprocess.run([sys.executable, *client, addr, "--workload", "dict",
                           "--variant", "topk", "--k", str(DICT_K), "--seed", str(DICT_SEED),
                           "--candidates", path, "--timeout", "300"], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=400)
     seconds = time.perf_counter() - t0
+    if label != "e2e":
+        check_imports(f"{label} dict client", out.stderr, torch_too=True)
     if out.returncode != 0 or "Result [dict] topk" not in out.stdout:
         fail(f"client dict job failed (rc {out.returncode}): {out.stdout}{out.stderr}")
     searched = int(re.search(r"searched=(\d+)", out.stdout).group(1))
@@ -3168,7 +3201,7 @@ def phase_end_to_end_dict(addr, env, log_dir) -> float:
     want = sorted([dict_score(DICT_SEED, c), i] for i, c in enumerate(cands))[:DICT_K]
     if (searched, pairs) != (DICT_N, want):
         fail(f"e2e dict topk: searched={searched} {pairs} != hashlib's {want}")
-    say(f"  e2e dict topk (k = {DICT_K}) over {DICT_N} candidates: {pairs[0]} ... "
+    say(f"  {label} dict topk (k = {DICT_K}) over {DICT_N} candidates: {pairs[0]} ... "
         f"searched={searched}, equal to hashlib ({seconds:.1f} s through the client)")
     return seconds
 
@@ -3222,6 +3255,209 @@ def phase_end_to_end_hashcore(addr, env, hc_expect) -> dict:
     say(f"  e2e hashcore fmatch over 2^20: index={got[0]} value={got[1]} probes={got[2]}, "
         f"equal to numpy ({seconds['fmatch']:.1f} s)")
     return seconds
+
+#: the roots no port process may import: the JAX stack and the JAX package
+#: (the port's coordinator and client add torch: a coordinator host needs
+#: no CUDA stack)
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "tpuminter")
+#: ``python -X importtime``'s line for one imported module
+IMPORTTIME = re.compile(r"^import time:\s+\d+\s+\|\s+\d+\s+\|\s+(\S+)", re.M)
+
+
+def check_imports(name: str, text: str, torch_too: bool) -> list:
+    """The modules ``python -X importtime`` logged in ``text``; fails on
+    none (the flag was lost) or on a forbidden root among them."""
+    mods = [m.strip() for m in IMPORTTIME.findall(text)]
+    if not mods:
+        fail(f"{name}: no python -X importtime lines in its log")
+    roots = FORBIDDEN_ROOTS + (("torch",) if torch_too else ())
+    bad = sorted({m for m in mods if m.split(".")[0] in roots})
+    if bad:
+        fail(f"{name} imported {bad[:8]}")
+    return mods
+
+
+def phase_port_control_plane(hc_expect, scrypt_job, crash_expect, phase5, card: str) -> dict:
+    """Phase 5b: the port's three roles as processes, each started with
+    ``python -X importtime``: ``tpuminter_torch.coordinator`` (roll
+    budget 2, a journal), ``tpuminter_torch.worker --coordinator ADDR
+    --reconnect`` on the card and ``tpuminter_torch.client``. Jobs:
+    phase 5's genesis TARGET job (under a client key), its rolled job,
+    its MIN job, its SCRYPT job, hashcore fmin over 2^32 (equal to phase
+    4c's), the dict top-k and the crash drill. Then the port's
+    coordinator and worker stop, the unchanged ``tpuminter.coordinator``
+    starts on the port's journal with no worker, and the genesis job
+    re-submitted under its key must print the identical Result, answered
+    from the journal's winner table. No process may import JAX or the
+    JAX package, nor the coordinator or the client torch. Prints each
+    job's seconds beside phase 5's (``phase5``) and returns them."""
+    from tpuminter_torch import chain
+
+    log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
+    os.makedirs(log_dir, exist_ok=True)
+    env = repo_env()
+    port = free_udp_port()
+    addr = f"127.0.0.1:{port}"
+    journal = os.path.join(log_dir, "e2e5b_coordinator.wal")
+    if os.path.exists(journal):
+        os.remove(journal)
+    procs, logs = [], []
+    importtime = (sys.executable, "-X", "importtime", "-m")
+
+    def log_text(name):
+        with open(os.path.join(log_dir, f"e2e5b_{name}.log")) as fh:
+            return fh.read()
+
+    def start(name, args, python=importtime):
+        log = open(os.path.join(log_dir, f"e2e5b_{name}.log"), "w")
+        logs.append((name, log))
+        procs.append(subprocess.Popen([*python, *args], cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+        return procs[-1]
+
+    def start_coordinator(name, module="tpuminter_torch.coordinator", extra=("--roll-budget", "2"),
+                          python=importtime):
+        proc = start(name, [module, str(port), *extra, "--journal", journal], python)
+        deadline = time.time() + 60
+        while "listening" not in log_text(name):
+            if proc.poll() is not None or time.time() > deadline:
+                fail(f"phase 5b: the coordinator ({name}) did not start")
+            time.sleep(0.2)
+        return proc
+
+    seconds = {}
+
+    def client(job, args):
+        t0 = time.perf_counter()
+        out = subprocess.run([*importtime, "tpuminter_torch.client", addr, *args,
+                              "--timeout", "300"], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=400)
+        seconds[job] = time.perf_counter() - t0
+        check_imports(f"the {job} job's client", out.stderr, torch_too=True)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("Result ")]
+        if out.returncode != 0 or len(lines) != 1:
+            fail(f"phase 5b client {job} failed (rc {out.returncode}): {out.stdout}"
+                 f"{out.stderr[-2000:]}")
+        return out.stdout, lines
+
+    def beside(job, text):
+        p5 = phase5["hashcore"]["fmin"] if job == "hashcore fmin" else phase5[job]
+        say(f"  5b {job}: {text} ({seconds[job]:.1f} s through the port's client; phase 5 "
+            f"{p5:.1f} s; {card})")
+
+    try:
+        coordinator = start_coordinator("coordinator")
+        worker = start("worker", ["tpuminter_torch.worker", "--coordinator", addr,
+                                  "--reconnect"])
+        genesis = chain.GENESIS_HEADER
+        genesis_args = ["--header", genesis.pack().hex(), "--bits", hex(genesis.bits),
+                        "--max-nonce", str(GENESIS_NONCE + 4095), "--client-key",
+                        "chip-smoke-5b-genesis"]
+        _, lines = client("genesis", genesis_args)
+        genesis_line = lines[0]
+        _, hash_hex, nonce = genesis_line.split()
+        digest = genesis.with_nonce(int(nonce)).block_hash()
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
+            fail(f"5b genesis Result {hash_hex} {nonce} fails the hashlib check")
+        beside("genesis", f"Result {hash_hex} {nonce} (hashlib-checked)")
+        cb = bytes.fromhex(GENESIS_COINBASE_HEX)
+        _, lines = client("rolled", [
+            "--header", genesis.pack().hex(), "--bits", hex(genesis.bits),
+            "--coinbase-prefix", cb[:48].hex(), "--coinbase-suffix", cb[49:].hex(),
+            "--extranonce-size", "1", "--max-extranonce", "4"])
+        _, hash_hex, en_arg, nonce_arg = lines[0].split()
+        en, nonce = int(en_arg.split("=")[1]), int(nonce_arg.split("=")[1])
+        digest = chain.rolled_header(genesis.pack(), chain.CoinbaseTemplate(cb[:48], cb[49:], 1),
+                                     (), en).with_nonce(nonce).block_hash()
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
+            fail(f"5b rolled Result {hash_hex} extranonce={en} nonce={nonce} fails hashlib")
+        beside("rolled", f"Result {hash_hex} extranonce={en} nonce={nonce} (re-rolled and "
+               "hashlib-checked)")
+        data = "hello bitcoin"
+        _, lines = client("min", [data, str((1 << 30) - 1)])
+        _, fold, nonce = lines[0].split()
+        if int(fold) != chain.toy_hash(data.encode(), int(nonce)):
+            fail(f"5b MIN Result {fold} {nonce} fails the toy_hash check")
+        beside("min", f"Result {fold} {nonce} (toy_hash-checked)")
+        _, lines = client("scrypt", [
+            "--header", scrypt_job["header"].hex(), "--bits", hex(scrypt_job["bits"]),
+            "--scrypt", "--max-nonce", str(scrypt_job["max_nonce"])])
+        _, hash_hex, nonce = lines[0].split()
+        hdr = chain.BlockHeader.unpack(scrypt_job["header"]).with_nonce(int(nonce)).pack()
+        digest = chain.scrypt_hash(hdr)
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(scrypt_job["bits"]):
+            fail(f"5b SCRYPT Result {hash_hex} {nonce} fails the hashlib.scrypt check")
+        beside("scrypt", f"Result {hash_hex} {nonce} (hashlib.scrypt-checked)")
+        text, _ = client("hashcore fmin", [
+            "--workload", "hashcore", "--variant", "fmin", "--seed", str(hc_expect["seed"]),
+            "--max-nonce", str(HC_N - 1)])
+        searched = int(re.search(r"searched=(\d+)", text).group(1))
+        pair = [int(x) for x in re.search(r"value=(\d+) index=(\d+)", text).groups()]
+        if (searched, pair) != tuple(hc_expect["fmin"]):
+            fail(f"5b hashcore fmin: {searched} {pair} != phase 4c's {hc_expect['fmin']}")
+        beside("hashcore fmin", f"{pair} searched={searched}, equal to phase 4c")
+        seconds["dict"] = phase_end_to_end_dict(
+            addr, env, log_dir, client=importtime[1:] + ("tpuminter_torch.client",), label="5b")
+        beside("dict", "equal to hashlib")
+        seconds["crash"] = crash_drill(
+            addr, env, coordinator, lambda name: start_coordinator(name), crash_expect,
+            client=importtime[1:] + ("tpuminter_torch.client",), label="5b")
+        beside("crash", "one Result, equal to CudaMiner's")
+        joins = [ln for name in ("coordinator", "coordinator2") for ln in
+                 log_text(name).splitlines() if "joined (backend=cuda" in ln]
+        if len(joins) < 2 or not all("codec=bin" in ln and "workloads=dict,hashcore" in ln
+                                     for ln in joins):
+            fail(f"5b: the port's coordinators show no binary cuda worker joining each "
+                 f"incarnation: {joins}")
+        if "recovered 1 live job(s)" not in log_text("coordinator2"):
+            fail("5b: the restarted coordinator recovered no job from its journal")
+        if worker.poll() is not None:
+            fail("5b: the port's worker exited early")
+        # the cross-implementation recovery: the unchanged coordinator on
+        # the port's journal, no worker, answers the genesis job from it
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            proc.wait(timeout=30)
+        for name, text in (("coordinator", log_text("coordinator")),
+                           ("coordinator2", log_text("coordinator2")),
+                           ("worker", log_text("worker"))):
+            check_imports(f"the port's {name}", text, torch_too=name != "worker")
+        start_coordinator("reference", "tpuminter.coordinator", (),
+                          (sys.executable, "-m"))
+        _, lines = client("genesis again", genesis_args)
+        if lines != [genesis_line]:
+            fail(f"5b: the unchanged coordinator on the port's journal answered {lines}, "
+                 f"not {genesis_line}")
+        if "re-delivering the journaled winner" not in log_text("reference"):
+            fail("5b: the unchanged coordinator did not answer from the journal's winners")
+        say(f"  5b the unchanged tpuminter.coordinator on the port's journal, no worker: the "
+            f"genesis job re-submitted under its key printed the identical Result "
+            f"({seconds['genesis again']:.2f} s)")
+        say("  5b imports (python -X importtime): no jax, jaxlib or tpuminter module in the "
+            "port's coordinator, worker and client processes; no torch in its coordinator "
+            "and client")
+        return seconds
+    except BaseException:
+        for name, log in logs:
+            log.flush()
+            print(f"--- 5b {name} log tail ---\n{log_text(name)[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for _, log in logs:
+            log.close()
 
 
 def main() -> int:
@@ -3297,8 +3533,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("5. end to end: coordinator + port worker + client processes")
-    hc_e2e_seconds, scrypt_rates["e2e_seconds"], dict_seconds, crash_seconds, window = \
-        phase_end_to_end(hc_expect, scrypt_job, card_tag)
+    e2e_seconds, window, crash_expect = phase_end_to_end(hc_expect, scrypt_job, card_tag)
+    hc_e2e_seconds, scrypt_rates["e2e_seconds"] = e2e_seconds["hashcore"], e2e_seconds["scrypt"]
+    dict_seconds, crash_seconds = e2e_seconds["dict"], e2e_seconds["crash"]
+
+    phase("5b. end to end on the port alone: its coordinator, worker and client processes")
+    port_seconds = phase_port_control_plane(hc_expect, scrypt_job, crash_expect, e2e_seconds,
+                                            card_tag)
 
     paths = {"fixed": fixed, "profiled": profiled, "rolled": rolled, "hashcore": hashcore,
              "scrypt": scrypt, "pod": pod_launches}
@@ -3333,6 +3574,8 @@ def main() -> int:
     say(json.dumps({"rolled_ghs": rates}))
     say(json.dumps({"dict": {"e2e_seconds": dict_seconds, "candidates": DICT_N}}))
     say(json.dumps({"crash_drill": {"e2e_seconds": crash_seconds, "nonces": CRASH_N}}))
+    say(json.dumps({"control_plane": {"phase5_seconds": e2e_seconds,
+                                      "phase5b_seconds": port_seconds}}))
     say(json.dumps({"pod": pod_info}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
         k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))

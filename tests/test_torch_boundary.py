@@ -1,5 +1,6 @@
 """The port's boundary: tpuminter_torch and chip_smoke.py never import
-JAX or the JAX package.
+JAX or the JAX package, and the port's control plane (coordinator,
+client, journal, LSP server) loads no torch either.
 
 The runtime check runs in a subprocess, because this test process has
 already imported JAX (tests/conftest.py does, for the JAX package's
@@ -49,6 +50,30 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
+_CONTROL_PLANE_PROBE = r"""
+import sys
+import tpuminter_torch.coordinator, tpuminter_torch.client, tpuminter_torch.journal
+import tpuminter_torch.lsp.server, tpuminter_torch.lsp.srunner, tpuminter_torch.lsp.crunner
+from tpuminter_torch import workloads
+assert workloads.names() == ("dict", "hashcore")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "tpuminter"))
+print("LOADED", bad)
+"""
+
+
+def test_control_plane_loads_neither_torch_nor_jax():
+    """A coordinator host needs no CUDA stack: the port's coordinator,
+    client, journal and LSP server import no torch, no JAX and nothing
+    of the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CONTROL_PLANE_PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=60,
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"

@@ -134,15 +134,22 @@ def test_every_single_byte_flip_decodes_as_the_reference_does(msg):
 
 def test_tags_a_worker_never_receives_raise():
     """The reference's lease-epoch variants (sent only to aggregators),
-    its admission Refuse (sent only to clients), its WAL batches and
-    partial emits decode there and raise here."""
+    its binary admission Refuse (clients get JSON) and its WAL batches
+    decode there and raise here. Its partial emits, which the port's
+    client receives, decode here as there in both codecs, as does the
+    admission Refuse's JSON."""
     for msg in (ref.RollAssign(1, 2, 3, 4, lease_epoch=5), ref.Beacon(1, 2, 3, 4, 5, 6),
-                ref.Refuse(1, 0, retry_after_ms=50), ref.WalBatch(0, b"x"),
-                ref.Emit(1, 1, 1, 2, b"y")):
+                ref.Refuse(1, 0, retry_after_ms=50), ref.WalBatch(0, b"x")):
         raw = ref.encode_msg(msg, binary=True)
         assert raw[0] != 0x7B and ref.decode_msg(raw) is not None
         with pytest.raises(port.ProtocolError, match="not one a worker receives"):
             port.decode_msg(raw)
+    for msg, codecs in ((ref.Refuse(1, 0, retry_after_ms=50), (False,)),
+                        (ref.Emit(1, 1, 1, 2, b"y"), (True, False))):
+        for binary in codecs:
+            raw = ref.encode_msg(msg, binary=binary)
+            assert _same(port.decode_msg(raw), msg)
+            assert port.encode_msg(port.decode_msg(raw), binary=binary) == raw
     with pytest.raises(port.ProtocolError):
         port.decode_msg(b"\xc0" + bytes(20))
 

@@ -1,0 +1,1311 @@
+"""Coordinator role: connection demultiplexer, work scheduler, result folder.
+
+Counterpart of ``tpuminter.coordinator.Coordinator`` on a single event
+loop. Clients and miners are told apart by their first message (``Join``
+is a miner, ``Request`` a client). Each job's range is carved into
+chunks at dispatch time, ``chunk_size × lanes`` nonces a miner (scaled
+to whole pipeline spans for a worker that advertises one, divided by the
+hash-cost ratio for SCRYPT, never more than half the job, and clamped to
+a workload's window cap); jobs are served round-robin, and every miner
+keeps up to ``pipeline_depth`` chunks outstanding, filled breadth-first.
+A rolled job goes to a roll-dialect worker as extranonce-unit
+``RollAssign`` chunks when ``roll_budget`` is set, and that worker's
+progress ``Beacon`` books as a partial settle. ``_budget`` and
+``_roll_carve`` are the reference's, so for the same ``Join`` and
+``Request`` this coordinator sends the reference's ``Setup``, ``Assign``
+and ``RollAssign`` sequence.
+
+Every claim is checked on the host before it is folded: hashlib for
+double SHA-256 and scrypt, the workload's own verifier (numpy for
+hashcore, hashlib for dict) for a ``WorkResult``; scrypt and workload
+claims verify on the executor, so the loop keeps its heartbeats. A
+forged claim is requeued and its miner evicted after
+:data:`MAX_REJECTIONS`; a refused chunk is requeued and its template
+re-sent; a lost miner's chunks requeue; the first TARGET winner (or a
+first-match workload's) finishes the job and ``Cancel``s the rest.
+
+With a journal (:mod:`tpuminter_torch.journal`) every transition is
+appended, a winner is answered only once its ``finish`` record is
+fsynced, and a restarted coordinator resumes each job over its
+un-settled ranges, unbound until its durable client re-submits under
+the same ``client_key``; an answered job's re-submission is answered
+from the exactly-once winner table. The journal is the reference's,
+record for record.
+
+What waits for later slices, in this order: audits and hedging,
+admission (quotas, the job cap, the park queue, the table TTLs),
+streaming ``Emit`` partials, the stats endpoint, then replication, the
+multi-loop and multi-process coordinators, federation and chaos. Until
+then this coordinator has no flag for them, and it denies every
+``Steal`` (counted in ``steals_denied``), as the reference does with
+``--steal-after`` unset.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import functools
+import logging
+import struct
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from dataclasses import replace as dc_replace
+from typing import Deque, Dict, List, Optional, Tuple
+
+from tpuminter_torch import chain, workloads
+from tpuminter_torch.journal import (
+    WINNERS_CAP,
+    Journal,
+    RecoveredState,
+    encode_settle,
+    merge_ranges,
+)
+from tpuminter_torch.lsp import LspServer, Params
+from tpuminter_torch.lsp.params import FAST
+from tpuminter_torch.protocol import (
+    MIN_UNTRACKED,
+    Assign,
+    Beacon,
+    Cancel,
+    Join,
+    PowMode,
+    ProtocolError,
+    Refuse,
+    Request,
+    Result,
+    RollAssign,
+    Setup,
+    Steal,
+    WorkResult,
+    decode_msg,
+    encode_msg,
+    request_to_obj,
+)
+
+__all__ = ["Coordinator", "main"]
+
+log = logging.getLogger("tpuminter_torch.coordinator")
+
+#: Nonces a dispatch per advertised worker lane.
+DEFAULT_CHUNK_SIZE = 16_384
+
+#: Least pipeline spans a dispatch to a worker that advertises a span
+#: (``Join.span > 0``): a one-span chunk never overlaps its dispatch
+#: with compute.
+SPANS_PER_DISPATCH = 4
+
+#: Chunks kept outstanding a miner, so a Result never round-trips
+#: before the next chunk starts; 1 dispatches one chunk at a time.
+DEFAULT_PIPELINE_DEPTH = 2
+
+#: Unverifiable Results a miner may send before it is evicted.
+MAX_REJECTIONS = 3
+
+#: Consecutive Refuses a miner may send before it is evicted (an honest
+#: worker refuses once a desync; the re-sent Setup fixes the next one).
+MAX_REFUSALS = 8
+
+#: SCRYPT costs ~10^3-10^4 double-SHA hashes a nonce: its chunk budget is
+#: divided by this, floored at SCRYPT_MIN_CHUNK.
+SCRYPT_CHUNK_DIVISOR = 8192
+SCRYPT_MIN_CHUNK = 512
+
+
+@dataclass
+class _MinerState:
+    conn_id: int
+    backend: str
+    lanes: int
+    #: the worker's pipeline-stage size in nonces (0: not pipelined)
+    span: int = 0
+    depth: int = DEFAULT_PIPELINE_DEPTH
+    #: the peer advertised the binary codec and this coordinator speaks
+    #: it: Assign and Cancel go struct-packed, Setup stays JSON
+    binary: bool = False
+    #: the peer advertised the roll-budget dialect (RollAssign, Beacon)
+    roll: bool = False
+    #: workload names both the peer and this registry know
+    workloads: frozenset = frozenset()
+    #: outstanding dispatches, oldest first:
+    #: chunk_id → (job_id, lower, upper, dispatched_at)
+    chunks: "OrderedDict[int, Tuple[int, int, int, float]]" = field(default_factory=OrderedDict)
+    rejections: int = 0
+    refusals: int = 0  # consecutive; reset on an accepted Result
+    hashes: int = 0
+    chunks_done: int = 0
+    joined: float = field(default_factory=time.monotonic)
+    last_result: Optional[float] = None
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.chunks)
+
+    @property
+    def has_capacity(self) -> bool:
+        """True while the dispatch pipeline has room for another chunk."""
+        return len(self.chunks) < self.depth
+
+    def supports(self, workload: str) -> bool:
+        """Can this miner compute ``workload`` ("" is mining, which all do)?"""
+        return not workload or workload in self.workloads
+
+    def snapshot(self) -> dict:
+        now = time.monotonic()
+        alive = now - self.joined
+        return {
+            "backend": self.backend,
+            "lanes": self.lanes,
+            "hashes": self.hashes,
+            "chunks_done": self.chunks_done,
+            "mhs": self.hashes / alive / 1e6 if alive > 0 else 0.0,
+            "busy": self.busy,
+            "outstanding": len(self.chunks),
+            "idle_s": None if self.last_result is None else round(now - self.last_result, 3),
+        }
+
+
+#: ``_Job.client_conn`` when no live connection owns the job (its durable
+#: client is gone and has not re-submitted; the job keeps mining).
+UNBOUND = -1
+
+
+@dataclass
+class _Winner:
+    """A final Result in the dedup table. ``durable`` flips once the
+    journal's finish record is fsynced; a re-submission before then
+    parks in ``waiters`` and is answered by the same callback. ``ts`` is
+    wall time, kept across restarts by the finish record."""
+
+    result: object
+    durable: bool
+    waiters: List[int] = field(default_factory=list)
+    ts: float = field(default_factory=time.time)
+
+
+@dataclass
+class _Job:
+    job_id: int                  # the coordinator's, unique across clients
+    client_conn: int
+    client_job_id: int           # echoed in the final Result
+    request: Request             # the client's full-range request
+    ranges: Deque[Tuple[int, int]] = field(default_factory=deque)
+    #: chunk_id → (miner conn, lower, upper)
+    inflight: Dict[int, Tuple[int, int, int]] = field(default_factory=dict)
+    best: Optional[Tuple[int, int]] = None  # (hash_value, nonce) min-fold
+    #: miners that hold this job's template (got its Setup)
+    setup_sent: set = field(default_factory=set)
+    #: Results under executor verification, and their ranges (in neither
+    #: ``ranges`` nor ``inflight``, so a snapshot reads them here)
+    pending_verifications: int = 0
+    verifying: List[Tuple[int, int]] = field(default_factory=list)
+    done: bool = False
+    started: float = field(default_factory=time.monotonic)
+    hashes_done: int = 0
+    #: a workload job's fold discipline (None: min-fold mining) and its
+    #: coverage-gated fold state
+    discipline: Optional[workloads.Fold] = None
+    wstate: Optional[dict] = None
+
+    @property
+    def workload(self) -> str:
+        return self.request.workload
+
+    def fold(self, hash_value: int, nonce: int) -> None:
+        if self.best is None or (hash_value, nonce) < self.best:
+            self.best = (hash_value, nonce)
+
+    def wfold(self, lo: int, hi: int, acc) -> bool:
+        if self.wstate is None:
+            self.wstate = workloads.new_state(self.discipline)
+        return workloads.absorb(self.discipline, self.wstate, lo, hi, acc)
+
+    @property
+    def wacc(self):
+        if self.wstate is None:
+            self.wstate = workloads.new_state(self.discipline)
+        return self.wstate["acc"]
+
+    @property
+    def exhausted(self) -> bool:
+        return not self.ranges and not self.inflight and self.pending_verifications == 0
+
+
+@functools.lru_cache(maxsize=4096)
+def _rolled_prefix76(header: bytes, cb_prefix: bytes, cb_suffix: bytes, en_size: int,
+                     branch: Tuple[bytes, ...], en: int) -> bytes:
+    """The first 76 bytes of the header mined at extranonce ``en``; a
+    fleet revisits few extranonces of a rolled job, so this caches."""
+    cb = chain.CoinbaseTemplate(cb_prefix, cb_suffix, en_size)
+    return chain.rolled_header(header, cb, branch, en).pack()[:76]
+
+
+class Coordinator:
+    """The scheduler. Owns an :class:`LspServer`; drive with :meth:`serve`."""
+
+    def __init__(
+        self,
+        server: LspServer,
+        *,
+        chunk_size: int = DEFAULT_CHUNK_SIZE,
+        stats_interval: float = 10.0,
+        journal: Optional[Journal] = None,
+        pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
+        binary_codec: bool = True,
+        journal_tick_flush: bool = True,
+        winners_cap: int = WINNERS_CAP,
+        roll_budget: int = 0,
+    ):
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if winners_cap < 1:
+            raise ValueError("winners_cap must be >= 1")
+        if roll_budget < 0 or roll_budget > 0xFFFFFFFF:
+            raise ValueError("roll_budget must be in [0, 2^32-1]")
+        self._server = server
+        self._chunk_size = chunk_size
+        self._stats_interval = stats_interval
+        self._pipeline_depth = pipeline_depth
+        self._binary_codec = binary_codec
+        self._winners_cap = winners_cap
+        #: extranonce segments a RollAssign to a roll-dialect worker
+        #: (0: rolled chunks go as global-index Assigns)
+        self._roll_budget = roll_budget
+        #: chunk_id → indices already settled by accepted Beacons, so
+        #: the chunk's final ``searched`` is not counted twice
+        self._beacon_settled: Dict[int, int] = {}
+        self._journal = journal
+        if journal is not None:
+            journal.snapshot_provider = self._journal_snapshot
+            journal.tick_flush = journal_tick_flush
+        self._miners: Dict[int, _MinerState] = {}
+        #: miners with pipeline room, FIFO; kept on every transition so a
+        #: dispatch pass never scans the whole fleet
+        self._idle: "OrderedDict[int, _MinerState]" = OrderedDict()
+        self._dispatch_scheduled = False
+        #: executor-verification tasks in flight (the loop holds tasks weakly)
+        self._settling: set = set()
+        self._clients: Dict[int, set] = {}        # client conn → its job ids
+        self._jobs: Dict[int, _Job] = {}
+        self._rotation: Deque[int] = deque()      # job ids with queued ranges
+        self._next_job_id = 1
+        self._next_chunk_id = 1
+        #: answered winners by (client_key, client_job_id): a re-submitted
+        #: request is answered from here, never re-mined
+        self._winners: "OrderedDict[Tuple[str, int], _Winner]" = OrderedDict()
+        #: live jobs by (client_key, client_job_id): a redialing client
+        #: re-binds to its running job
+        self._bound: Dict[Tuple[str, int], int] = {}
+        self.stats = {
+            "hashes": 0,
+            "jobs_done": 0,
+            "results_accepted": 0,
+            "chunks_requeued": 0,
+            "results_rejected": 0,
+            "miners_evicted": 0,
+            "refused_workload": 0,
+            "winners_evicted": 0,
+            "chunks_roll_dispatched": 0,
+            "beacons_accepted": 0,
+            "steals_denied": 0,
+        }
+
+    @classmethod
+    async def create(
+        cls,
+        port: int = 0,
+        *,
+        params: Optional[Params] = None,
+        host: str = "127.0.0.1",
+        recover_from: Optional[str] = None,
+        **kwargs,
+    ) -> "Coordinator":
+        """Listen on ``host:port``. ``recover_from`` names a journal file:
+        if it exists its records are replayed (jobs resume from their
+        un-settled ranges, answered winners return to the dedup table)
+        and every transition is journaled onward; the journal's monotone
+        boot epoch becomes the LSP server's, so a redialing peer sees
+        the restart. Other keywords go to the constructor."""
+        journal = None
+        recovered: Optional[RecoveredState] = None
+        boot_epoch: Optional[int] = None
+        if recover_from is not None:
+            journal, recovered = Journal.open(
+                recover_from, winners_cap=kwargs.get("winners_cap", WINNERS_CAP))
+            boot_epoch = recovered.boot_epoch
+        server = await LspServer.create(port, params or FAST, host=host, boot_epoch=boot_epoch)
+        coord = cls(server, journal=journal, **kwargs)
+        if recovered is not None:
+            coord._adopt(recovered)
+        return coord
+
+    def _adopt(self, recovered: RecoveredState) -> None:
+        """Rebuild scheduler state from a replayed journal: each job
+        resumes UNBOUND over its un-settled ranges, each answered winner
+        re-enters the dedup table. (The reference's admission buckets and
+        federation leases, which replay also folds, have no role here
+        yet.)"""
+        self._next_job_id = max(self._next_job_id, recovered.next_job_id)
+        now_wall = time.time()
+        for (ckey, cjid), rec in recovered.winners.items():
+            if "wp" in rec:
+                res = WorkResult(job_id=cjid, chunk_id=0, wid=int(rec.get("wid", 0)),
+                                 searched=int(rec["s"]), payload=bytes.fromhex(rec["wp"]))
+            else:
+                res = Result(cjid, PowMode(rec["mode"]), int(rec["n"]), int(rec["h"], 16),
+                             bool(rec["found"]), searched=int(rec["s"]))
+            # replayed winners came off fsynced records: durable
+            self._winners[(ckey, cjid)] = _Winner(res, durable=True,
+                                                  ts=float(rec.get("ts", now_wall)))
+        self._trim_winners()
+        finish_now = []
+        for rjob in recovered.jobs.values():
+            job = _Job(job_id=rjob.job_id, client_conn=UNBOUND,
+                       client_job_id=rjob.client_job_id, request=rjob.request)
+            job.ranges.extend(rjob.remaining)
+            job.best = rjob.best
+            job.hashes_done = rjob.hashes_done
+            if rjob.request.workload:
+                job.discipline = workloads.fold_of(rjob.request)
+                if job.discipline is None:
+                    log.warning("dropping recovered job %d: workload %r is not registered in "
+                                "this build", rjob.job_id, rjob.request.workload)
+                    continue
+                job.wstate = rjob.wstate
+            self._jobs[job.job_id] = job
+            if rjob.client_key:
+                self._bound[(rjob.client_key, rjob.client_job_id)] = job.job_id
+            if job.ranges:
+                self._rotation.append(job.job_id)
+            if job.discipline is not None:
+                if job.discipline.is_final(job.wacc):
+                    finish_now.append((job, True))  # its finish record was lost
+                elif job.exhausted:
+                    finish_now.append((job, None))
+            elif (job.best is not None and job.request.mode.targeted
+                  and job.best[0] <= (job.request.target or 0)):
+                finish_now.append((job, True))  # a settled winner, finish lost
+            elif job.exhausted:
+                finish_now.append((job, None))  # fully settled, finish lost
+        if recovered.jobs:
+            log.info("recovered %d live job(s) and %d acknowledged winner(s) from the journal "
+                     "(boot epoch %d)", len(recovered.jobs), len(recovered.winners),
+                     recovered.boot_epoch)
+        for job, found in finish_now:
+            if found is None:
+                self._maybe_finish_exhausted(job)
+            else:
+                self._finish_job(job, found=found)
+        self._schedule_dispatch()
+
+    # -- journaling ------------------------------------------------------
+
+    def _journal_append(self, kind: str, obj: dict, on_durable=None) -> None:
+        if self._journal is not None:
+            self._journal.append(kind, obj, on_durable=on_durable)
+
+    def _journal_settle(self, job: _Job, lo: int, hi: int, msg, searched: int) -> None:
+        if self._journal is None:
+            return
+        if job.discipline is not None:
+            # the fold payload rides along, so replay re-absorbs it
+            self._journal.append("settle", {
+                "id": job.job_id, "lo": lo, "hi": hi, "s": searched,
+                "wp": bytes(msg.payload).hex(),
+            })
+            return
+        # the packed record whenever every field fits its u64 (always,
+        # for a verified in-range claim); JSON otherwise
+        if (searched < (1 << 64) and hi < (1 << 64) and lo >= 0
+                and 0 <= msg.nonce < (1 << 64) and job.job_id < (1 << 64)):
+            self._journal.append_encoded(encode_settle(
+                job.job_id, lo, hi, msg.nonce, searched, msg.hash_value))
+        else:
+            self._journal.append_encoded(
+                b'{"id":%d,"lo":%d,"hi":%d,"h":"%x","n":%d,"s":%d,"k":"settle"}'
+                % (job.job_id, lo, hi, msg.hash_value, msg.nonce, searched))
+
+    def _journal_snapshot(self) -> dict:
+        """The compacting checkpoint equal to the live state: a job's
+        remaining coverage is its queued, in-flight and under-verification
+        ranges (none of them settled)."""
+        jobs = []
+        for job in self._jobs.values():
+            if job.done:
+                continue
+            remaining = merge_ranges(
+                list(job.ranges)
+                + [(lo, hi) for _conn, lo, hi in job.inflight.values()]
+                + list(job.verifying))
+            rec = {
+                "id": job.job_id,
+                "req": request_to_obj(job.request),
+                "rem": [[lo, hi] for lo, hi in remaining],
+                "best": None if job.best is None else [f"{job.best[0]:x}", job.best[1]],
+                "hashes": job.hashes_done,
+            }
+            if job.wstate is not None:
+                rec["wst"] = job.wstate
+            jobs.append(rec)
+        return {
+            "k": "snapshot",
+            "next": self._next_job_id,
+            "jobs": jobs,
+            "winners": [[ck, cj, self._winner_rec(ck, cj, w)]
+                        for (ck, cj), w in self._winners.items()],
+        }
+
+    @staticmethod
+    def _winner_rec(ck: str, cj: int, w: _Winner) -> dict:
+        """One dedup-table entry as a replayable finish record."""
+        if isinstance(w.result, WorkResult):
+            return {
+                "k": "finish", "id": 0, "ckey": ck, "cjid": cj,
+                "mode": PowMode.MIN.value, "n": 0, "h": "0",
+                "found": True, "s": w.result.searched,
+                "wid": w.result.wid, "wp": bytes(w.result.payload).hex(),
+                "ts": w.ts,
+            }
+        return {
+            "k": "finish", "id": 0, "ckey": ck, "cjid": cj,
+            "mode": w.result.mode.value, "n": w.result.nonce,
+            "h": f"{w.result.hash_value:x}", "found": w.result.found,
+            "s": w.result.searched, "ts": w.ts,
+        }
+
+    def crash(self) -> None:
+        """Die like ``kill -9``: the socket closes undrained, buffered
+        journal records are lost, nobody hears goodbye. Recover with a
+        fresh ``create(recover_from=...)``."""
+        self._server.crash()
+        if self._journal is not None:
+            self._journal.crash()
+
+    @property
+    def port(self) -> int:
+        return self._server.port
+
+    @property
+    def server(self) -> LspServer:
+        return self._server
+
+    # -- event loop ------------------------------------------------------
+
+    async def serve(self) -> None:
+        """Process events forever, in bursts: one await for the first
+        queued event, ``read_nowait`` for the rest the transport already
+        delivered, then one dispatch pass and one journal flush."""
+        rate_ticker = asyncio.ensure_future(self._rate_ticker())
+        journal = self._journal
+        tick_journal = journal if journal is not None and journal.tick_flush else None
+        try:
+            while True:
+                event = await self._server.read()
+                while event is not None:
+                    self._handle_event(event)
+                    event = self._server.read_nowait()
+                self._run_scheduled_dispatch()
+                if tick_journal is not None:
+                    tick_journal.flush_tick()
+        finally:
+            rate_ticker.cancel()
+
+    def _handle_event(self, event: Tuple[int, Optional[bytes]]) -> None:
+        conn_id, payload = event
+        if payload is None:
+            self._on_lost(conn_id)
+            return
+        try:
+            msg = decode_msg(payload)
+        except ProtocolError as exc:
+            log.warning("conn %d: malformed message dropped: %s", conn_id, exc)
+            return
+        if isinstance(msg, (Result, WorkResult)):
+            self._on_result(conn_id, msg)
+        elif isinstance(msg, Beacon):
+            self._on_beacon(conn_id, msg)
+        elif isinstance(msg, Refuse):
+            self._on_refuse(conn_id, msg)
+        elif isinstance(msg, Join):
+            self._on_join(conn_id, msg)
+        elif isinstance(msg, Steal):
+            # no federation yet: every Steal is denied, as the
+            # reference's coordinator does without --steal-after
+            self.stats["steals_denied"] += 1
+        elif isinstance(msg, Request):
+            self._on_request(conn_id, msg)
+        else:
+            log.warning("conn %d: unexpected %s", conn_id, type(msg).__name__)
+
+    def _schedule_dispatch(self) -> None:
+        """Mark dispatch dirty: the pass runs once a tick however many
+        events asked for it (at serve's burst end, or by call_soon)."""
+        if self._dispatch_scheduled:
+            return
+        self._dispatch_scheduled = True
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            self._run_scheduled_dispatch()  # no loop: run now
+            return
+        loop.call_soon(self._run_scheduled_dispatch)
+
+    def _run_scheduled_dispatch(self) -> None:
+        if not self._dispatch_scheduled:
+            return
+        self._dispatch_scheduled = False
+        self._dispatch()
+
+    async def _rate_ticker(self) -> None:
+        """The aggregate rate line, every ``stats_interval`` seconds
+        while work flows; silent while idle."""
+        last = self.stats["hashes"]
+        while True:
+            await asyncio.sleep(self._stats_interval)
+            cur = self.stats["hashes"]
+            if self._rotation and not self._miners:
+                log.warning("%d job(s) queued but NO miners are connected to this coordinator "
+                            "— they will not progress until a worker joins here",
+                            len(self._rotation))
+            if cur == last and not self._jobs:
+                continue
+            busy = sum(1 for m in self._miners.values() if m.busy)
+            log.info("rate: %.3f MH/s over the last %.0fs (total %d hashes, %d jobs active, "
+                     "%d/%d workers busy)", (cur - last) / self._stats_interval / 1e6,
+                     self._stats_interval, cur, len(self._jobs), busy, len(self._miners))
+            last = cur
+
+    async def close(self) -> None:
+        await self._server.close(drain_timeout=2.0)
+        if self._journal is not None:
+            await self._journal.aclose()
+
+    # -- membership ------------------------------------------------------
+
+    def _mark_idle(self, miner: _MinerState) -> None:
+        """A miner still in the fleet with pipeline room is dispatchable."""
+        if miner.has_capacity and miner.conn_id in self._miners:
+            self._idle[miner.conn_id] = miner
+
+    def _drop_miner(self, conn_id: int) -> None:
+        self._miners.pop(conn_id, None)
+        self._idle.pop(conn_id, None)
+
+    def _on_join(self, conn_id: int, msg: Join) -> None:
+        if conn_id in self._miners:
+            return  # a duplicate Join
+        miner = _MinerState(
+            conn_id, msg.backend, max(1, msg.lanes), span=max(0, msg.span),
+            depth=self._pipeline_depth,
+            binary=self._binary_codec and msg.codec == "bin",
+            roll=msg.roll,
+            workloads=frozenset(msg.workloads) & set(workloads.names()),
+        )
+        self._miners[conn_id] = miner
+        self._idle[conn_id] = miner
+        log.info("miner %d joined (backend=%s, lanes=%d, span=%d, codec=%s%s%s)",
+                 conn_id, msg.backend, msg.lanes, msg.span,
+                 "bin" if miner.binary else "json", ", roll" if miner.roll else "",
+                 (", workloads=" + ",".join(sorted(miner.workloads))) if miner.workloads else "")
+        self._schedule_dispatch()
+
+    def _release_chunk(self, conn_id: int, chunk_id: int,
+                       entry: Tuple[int, int, int, float]) -> None:
+        """Requeue one dispatch the miner no longer owns (the caller has
+        already taken it out of ``miner.chunks``)."""
+        job_id, lo, hi, _at = entry
+        self._beacon_settled.pop(chunk_id, None)
+        job = self._jobs.get(job_id)
+        if job is not None and not job.done:
+            job.inflight.pop(chunk_id, None)
+            self._requeue_chunk(job, lo, hi)
+            log.info("released [%d, %d] of job %d from miner %d", lo, hi, job_id, conn_id)
+
+    def _release_assignment(self, conn_id: int, miner: _MinerState) -> None:
+        """Requeue every chunk a departing miner held."""
+        if not miner.chunks:
+            return
+        chunks, miner.chunks = miner.chunks, OrderedDict()
+        for chunk_id, entry in chunks.items():
+            self._release_chunk(conn_id, chunk_id, entry)
+        self._mark_idle(miner)
+
+    def _on_lost(self, conn_id: int) -> None:
+        miner = self._miners.get(conn_id)
+        if miner is not None:
+            self._drop_miner(conn_id)
+            if miner.busy:
+                self._release_assignment(conn_id, miner)
+                log.info("miner %d died", conn_id)
+            else:
+                log.info("idle miner %d died", conn_id)
+            self._schedule_dispatch()
+            return
+        job_ids = self._clients.pop(conn_id, None)
+        if job_ids:
+            dropped = []
+            for job_id in list(job_ids):
+                job = self._jobs.get(job_id)
+                if job is not None and job.request.client_key:
+                    # a durable client may redial: keep mining, unbound;
+                    # its answer waits in the winner table
+                    job.client_conn = UNBOUND
+                else:
+                    self._abandon_job(job_id)
+                    dropped.append(job_id)
+            log.info("client %d died; dropped jobs %s, kept %d durable",
+                     conn_id, sorted(dropped), len(job_ids) - len(dropped))
+            self._schedule_dispatch()
+
+    def _trim_winners(self) -> None:
+        """Hold the dedup table to ``winners_cap``, evicting the oldest
+        ACKNOWLEDGED entries only: an entry not yet durable, or with
+        parked re-submitters, could otherwise be answered twice."""
+        if len(self._winners) <= self._winners_cap:
+            return
+        evictable = [key for key, w in self._winners.items() if w.durable and not w.waiters]
+        for key in evictable[:len(self._winners) - self._winners_cap]:
+            del self._winners[key]
+            self.stats["winners_evicted"] += 1
+
+    # -- job lifecycle ---------------------------------------------------
+
+    def _on_request(self, conn_id: int, msg: Request) -> None:
+        if conn_id in self._miners:
+            log.warning("miner %d sent a client Request; dropped", conn_id)
+            return
+        if msg.client_key:
+            key = (msg.client_key, msg.job_id)
+            winner = self._winners.get(key)
+            if winner is not None:
+                # a re-submission of an answered job: answer from the
+                # table, once its finish record is durable
+                if not winner.durable:
+                    winner.waiters.append(conn_id)
+                    return
+                log.info("client %d re-submitted answered job %s/%d; re-delivering the "
+                         "journaled winner", conn_id, msg.client_key[:8], msg.job_id)
+                self._deliver_finish(conn_id, winner.result)
+                return
+            bound = self._bound.get(key)
+            if bound is not None:
+                job = self._jobs.get(bound)
+                if job is not None and not job.done:
+                    self._rebind_job(job, conn_id)  # still running: re-bind it
+                    return
+        discipline = None
+        if msg.workload:
+            discipline = workloads.fold_of(msg)
+            if discipline is None:
+                # malformed, not busy: Refuse with no retry hint
+                self.stats["refused_workload"] += 1
+                log.warning("refused job %d from client %d: unknown workload %r or malformed "
+                            "params", msg.job_id, conn_id, msg.workload)
+                try:
+                    self._server.write(conn_id, encode_msg(Refuse(msg.job_id, 0)))
+                except ConnectionError:
+                    pass
+                return
+        job_id = self._next_job_id
+        self._next_job_id += 1
+        job = _Job(job_id=job_id, client_conn=conn_id, client_job_id=msg.job_id, request=msg)
+        job.discipline = discipline
+        job.ranges.append((msg.lower, msg.upper))
+        self._jobs[job_id] = job
+        self._clients.setdefault(conn_id, set()).add(job_id)
+        if msg.client_key:
+            self._bound[(msg.client_key, msg.job_id)] = job_id
+        self._rotation.append(job_id)
+        # the job record is also the client binding: it carries the key
+        self._journal_append("job", {"id": job_id, "req": request_to_obj(msg)})
+        log.info("client %d submitted job %d: mode=%s range=[%d, %d]%s", conn_id, job_id,
+                 msg.mode.value, msg.lower, msg.upper,
+                 f" workload={msg.workload}" if msg.workload else "")
+        self._schedule_dispatch()
+
+    def _rebind_job(self, job: _Job, conn_id: int) -> None:
+        old = job.client_conn
+        if old != UNBOUND:
+            jobs = self._clients.get(old)
+            if jobs is not None:
+                jobs.discard(job.job_id)
+        job.client_conn = conn_id
+        self._clients.setdefault(conn_id, set()).add(job.job_id)
+        self._journal_append("bind", {"id": job.job_id})
+        log.info("client %d re-bound to running job %d", conn_id, job.job_id)
+
+    def _on_result(self, conn_id: int, msg) -> None:
+        miner = self._miners.get(conn_id)
+        if miner is None:
+            return  # from something that never Joined
+        entry = miner.chunks.pop(msg.chunk_id, None)
+        if entry is None:
+            # stale: it answers a dispatch already cancelled or requeued
+            self._schedule_dispatch()
+            return
+        job_id, lo, hi, dispatched_at = entry
+        self._mark_idle(miner)
+        job = self._jobs.get(job_id)
+        if job is not None and not job.done:
+            job.inflight.pop(msg.chunk_id, None)
+            if job.request.mode == PowMode.SCRYPT or job.discipline is not None:
+                # scrypt and the workload verifiers cost whole hashes or
+                # whole rescans: verify on the executor, keep the job open
+                job.pending_verifications += 1
+                job.verifying.append((lo, hi))
+                task = asyncio.ensure_future(self._settle_offloaded(conn_id, job_id, lo, hi, msg))
+                self._settling.add(task)
+                task.add_done_callback(self._settling.discard)
+                self._schedule_dispatch()
+                return
+            if self._verify_result(job.request, msg):
+                self._accept_result(conn_id, miner, job, msg, lo, hi)
+            else:
+                self._reject_result(conn_id, job, msg, lo, hi)
+        self._schedule_dispatch()
+
+    def _on_beacon(self, conn_id: int, msg: Beacon) -> None:
+        """Book a progress Beacon as a partial settle: every global index
+        of ``[chunk lower, high_water]`` was swept with no winner, and
+        (nonce, hash) is the running minimum. The claim is host-verified
+        like a Result, the prefix journaled as a settle, and the chunk
+        advances in place to ``[high_water + 1, upper]``. A Beacon never
+        finishes a job."""
+        miner = self._miners.get(conn_id)
+        if miner is None:
+            return
+        entry = miner.chunks.get(msg.chunk_id)
+        if entry is None:
+            return  # stale: the chunk settled or was cancelled
+        job_id, lo, hi, _at = entry
+        job = self._jobs.get(job_id)
+        if job is None or job.done or not job.request.rolled or job.request.mode == PowMode.SCRYPT:
+            return  # only rolled fast-dialect chunks beacon
+        if msg.lease_epoch:
+            return  # no chunk here is leased under an epoch: a stale lease's echo
+        hw = msg.high_water
+        if not lo <= hw < hi:
+            return  # already settled (dup/reorder), or the Result is due
+        claim = Result(job_id, job.request.mode, msg.nonce, msg.hash_value, found=False,
+                       chunk_id=msg.chunk_id)
+        if not self._verify_result(job.request, claim):
+            log.warning("miner %d sent an unverifiable beacon for job %d (nonce=%d); ignored",
+                        conn_id, job_id, msg.nonce)
+            return
+        searched = hw - lo + 1
+        job.hashes_done += searched
+        self.stats["hashes"] += searched
+        self.stats["beacons_accepted"] += 1
+        miner.hashes += searched
+        job.fold(msg.hash_value, msg.nonce)
+        self._journal_settle(job, lo, hw, claim, searched)
+        miner.chunks[msg.chunk_id] = (job_id, hw + 1, hi, time.monotonic())
+        job.inflight[msg.chunk_id] = (conn_id, hw + 1, hi)
+        self._beacon_settled[msg.chunk_id] = self._beacon_settled.get(msg.chunk_id, 0) + searched
+
+    async def _settle_offloaded(self, conn_id: int, job_id: int, lo: int, hi: int,
+                                msg) -> None:
+        """Settle one executor-verified Result; every actor is looked up
+        again, since the fleet may have churned while the hash ran."""
+        job = self._jobs.get(job_id)
+        if job is None:
+            return
+        req = job.request
+        if job.discipline is not None:
+            # a workload verifier judges the claim against its chunk
+            req = dc_replace(req, lower=lo, upper=hi)
+        try:
+            ok = await asyncio.get_running_loop().run_in_executor(
+                None, self._verify_result, req, msg)
+        except Exception:
+            # the verifier itself failed: inconclusive, requeue, no strike
+            log.exception("offloaded verification crashed for job %d chunk [%d, %d]",
+                          job_id, lo, hi)
+            job = self._jobs.get(job_id)
+            if job is not None:
+                self._unverify(job, lo, hi)
+                if not job.done:
+                    self._requeue_chunk(job, lo, hi)
+                    self._schedule_dispatch()
+            return
+        job = self._jobs.get(job_id)
+        if job is None:
+            return
+        self._unverify(job, lo, hi)
+        if job.done:
+            return
+        miner = self._miners.get(conn_id)
+        if ok:
+            if miner is not None:
+                self._accept_result(conn_id, miner, job, msg, lo, hi)
+            else:
+                # the prover died meanwhile; its verified work still counts
+                searched = msg.searched if msg.searched > 0 else hi - lo + 1
+                job.hashes_done += searched
+                self.stats["hashes"] += searched
+                if job.discipline is not None:
+                    self._settle_work(job, msg, lo, hi, searched)
+                else:
+                    job.fold(msg.hash_value, msg.nonce)
+                    self._journal_settle(job, lo, hi, msg, searched)
+                    if msg.found and job.request.mode.targeted:
+                        self._finish_job(job, found=True)
+                    else:
+                        self._maybe_finish_exhausted(job)
+        else:
+            self._reject_result(conn_id, job, msg, lo, hi)
+            self._maybe_finish_exhausted(job)
+        self._schedule_dispatch()
+
+    @staticmethod
+    def _unverify(job: _Job, lo: int, hi: int) -> None:
+        job.pending_verifications -= 1
+        try:
+            job.verifying.remove((lo, hi))
+        except ValueError:
+            pass
+
+    def _accept_result(self, conn_id: int, miner: _MinerState, job: _Job, msg,
+                       lo: int, hi: int) -> None:
+        """Book a verified chunk Result: accounting, fold, completion."""
+        # Beacons already booked a settled prefix; a zero ``searched``
+        # books the residual range
+        settled = self._beacon_settled.pop(msg.chunk_id, 0)
+        searched = max(0, msg.searched - settled) if msg.searched > 0 else hi - lo + 1
+        job.hashes_done += searched
+        self.stats["hashes"] += searched
+        self.stats["results_accepted"] += 1
+        miner.hashes += searched
+        miner.chunks_done += 1
+        miner.refusals = 0
+        miner.last_result = time.monotonic()
+        if job.discipline is not None:
+            self._settle_work(job, msg, lo, hi, searched)
+            return
+        job.fold(msg.hash_value, msg.nonce)
+        self._journal_settle(job, lo, hi, msg, searched)
+        if msg.found and job.request.mode.targeted:
+            self._finish_job(job, found=True)
+        else:
+            self._maybe_finish_exhausted(job)
+
+    def _settle_work(self, job: _Job, msg, lo: int, hi: int, searched: int) -> None:
+        """Book one verified workload chunk through the coverage gate (a
+        duplicate delivery is a no-op, which keeps sum exactly-once),
+        journal it with its payload, and finish when the fold says so."""
+        try:
+            acc = job.discipline.decode(msg.payload)
+        except (ValueError, AttributeError):
+            self._requeue_chunk(job, lo, hi)  # a torn buffer: never corrupt
+            return
+        if job.wfold(lo, hi, acc):
+            self._journal_settle(job, lo, hi, msg, searched)
+        if job.discipline.is_final(job.wacc):
+            self._finish_job(job, found=True)
+        else:
+            self._maybe_finish_exhausted(job)
+
+    def _reject_result(self, conn_id: int, job: _Job, msg, lo: int, hi: int) -> None:
+        """Drop a claim that failed verification, requeue its chunk for
+        an honest worker, and evict a repeat offender."""
+        log.warning("miner %d returned an unverifiable result for job %d (nonce=%d); chunk "
+                    "[%d, %d] requeued", conn_id, job.job_id, getattr(msg, "nonce", -1), lo, hi)
+        # beacon-settled prefixes stay settled; only [lo, hi] re-mines
+        self._beacon_settled.pop(msg.chunk_id, None)
+        self.stats["results_rejected"] += 1
+        self._requeue_chunk(job, lo, hi)
+        miner = self._miners.get(conn_id)
+        if miner is None:
+            return  # it died mid-verification
+        miner.rejections += 1
+        if miner.rejections >= MAX_REJECTIONS:
+            log.warning("miner %d evicted after %d unverifiable results", conn_id,
+                        miner.rejections)
+            self.stats["miners_evicted"] += 1
+            self._release_assignment(conn_id, miner)
+            self._drop_miner(conn_id)
+            self._server.close_conn(conn_id)
+
+    def _maybe_finish_exhausted(self, job: _Job) -> None:
+        """Finish a job whose whole range is settled."""
+        if job.done or not job.exhausted:
+            return
+        if job.discipline is not None:
+            found = job.discipline.found(job.wacc)
+        else:
+            found = job.request.mode == PowMode.MIN or job.best[0] <= (job.request.target or 0)
+        self._finish_job(job, found=found)
+
+    def _on_refuse(self, conn_id: int, msg: Refuse) -> None:
+        """A worker could not act on a dispatch (its template cache lost
+        the job): requeue it and forget the Setup, so the next dispatch
+        re-ships the template."""
+        miner = self._miners.get(conn_id)
+        if miner is None:
+            return
+        entry = miner.chunks.pop(msg.chunk_id, None)
+        if entry is not None:
+            job = self._jobs.get(entry[0])
+            if job is not None:
+                job.setup_sent.discard(conn_id)
+            self._release_chunk(conn_id, msg.chunk_id, entry)
+            self._mark_idle(miner)
+            log.info("miner %d refused chunk %d (template will be re-sent)", conn_id,
+                     msg.chunk_id)
+        miner.refusals += 1
+        if miner.refusals >= MAX_REFUSALS:
+            self._release_assignment(conn_id, miner)
+            log.warning("miner %d evicted after %d consecutive refusals", conn_id,
+                        miner.refusals)
+            self.stats["miners_evicted"] += 1
+            self._drop_miner(conn_id)
+            self._server.close_conn(conn_id)
+        self._schedule_dispatch()
+
+    def _write_dispatch(self, miner: _MinerState, job: _Job, chunk_id: int, lo: int, hi: int,
+                        roll: Optional[Tuple[int, int]] = None) -> None:
+        """Ship the job's template once a worker (Setup), or a per-chunk
+        window Setup for a catalog too large for one, then the chunk
+        (Assign, or RollAssign for a roll-budget carve). Raises
+        ConnectionError on a dead conn."""
+        window = None
+        if job.discipline is not None and roll is None:
+            window = workloads.window_for(job.request, lo, hi)
+        if window is not None:
+            # LSP's ordered delivery lands the window before its Assign
+            self._server.write(miner.conn_id, encode_msg(Setup(dc_replace(
+                job.request, job_id=job.job_id, data=window, lower=lo, upper=hi))))
+        elif miner.conn_id not in job.setup_sent:
+            self._server.write(miner.conn_id,
+                               encode_msg(Setup(dc_replace(job.request, job_id=job.job_id))))
+            job.setup_sent.add(miner.conn_id)
+        if roll is not None:
+            out = RollAssign(job.job_id, chunk_id, roll[0], roll[1])
+        else:
+            out = Assign(job.job_id, chunk_id, lo, hi)
+        self._server.write(miner.conn_id, encode_msg(out, binary=miner.binary))
+
+    def _requeue_chunk(self, job: _Job, lo: int, hi: int) -> None:
+        """Return a chunk to the front of its job's queue."""
+        job.ranges.appendleft((lo, hi))
+        if job.job_id not in self._rotation:
+            self._rotation.append(job.job_id)
+        self._journal_append("requeue", {"id": job.job_id, "lo": lo, "hi": hi})
+        self.stats["chunks_requeued"] += 1
+
+    @staticmethod
+    def _verify_result(req: Request, msg) -> bool:
+        """The host check of a chunk claim: the claimed hash must be the
+        true hash of the claimed in-range nonce, and a ``found`` TARGET
+        claim must beat the target; a workload claim goes to its
+        workload's verifier."""
+        if req.workload:
+            return workloads.verify_claim(req, msg)
+        if not isinstance(msg, Result):
+            return False  # a WorkResult answering a mining chunk
+        if not msg.found and msg.hash_value == MIN_UNTRACKED:
+            # "exhausted, no winner, minimum untracked": only a targeted
+            # dialect's found flag gives it content
+            return req.mode.targeted
+        if not req.lower <= msg.nonce <= req.upper:
+            return False
+        try:
+            if req.mode == PowMode.MIN:
+                return chain.toy_hash(req.data, msg.nonce) == msg.hash_value
+            if req.rolled:
+                en, nonce = chain.split_global(msg.nonce, req.nonce_bits)
+                prefix = _rolled_prefix76(req.header, req.coinbase_prefix, req.coinbase_suffix,
+                                          req.extranonce_size, req.branch, en)
+            else:
+                nonce = msg.nonce
+                prefix = req.header[:76]
+            powf = chain.scrypt_hash if req.mode == PowMode.SCRYPT else chain.dsha256
+            h = chain.hash_to_int(powf(prefix + struct.pack("<I", nonce)))
+        except (struct.error, TypeError, OverflowError, ValueError):
+            return False
+        if h != msg.hash_value:
+            return False
+        return not msg.found or h <= (req.target or 0)
+
+    def _finish_job(self, job: _Job, *, found: bool) -> None:
+        job.done = True
+        wpayload = b""
+        if job.discipline is not None:
+            hash_value, nonce = 0, 0  # the shared finish record's placeholders
+            wpayload = job.discipline.encode(job.wacc)
+            result = WorkResult(job_id=job.client_job_id, chunk_id=0,
+                                wid=workloads.get(job.workload).wid,
+                                searched=job.hashes_done, payload=wpayload)
+        else:
+            hash_value, nonce = job.best
+            result = Result(job.client_job_id, job.request.mode, nonce, hash_value, found,
+                            searched=job.hashes_done)
+        ckey = job.request.client_key
+        winner: Optional[_Winner] = None
+        if ckey:
+            wkey = (ckey, job.client_job_id)
+            self._winners.pop(wkey, None)
+            winner = _Winner(result, durable=self._journal is None, ts=time.time())
+            self._winners[wkey] = winner
+            self._trim_winners()
+        client_conn = job.client_conn
+        if self._journal is not None:
+            # the client hears the answer only once the finish record is
+            # durable; a re-submitter meanwhile parks in winner.waiters
+            rec = {
+                "id": job.job_id, "ckey": ckey, "cjid": job.client_job_id,
+                "mode": job.request.mode.value, "n": nonce,
+                "h": f"{hash_value:x}", "found": found, "s": job.hashes_done,
+                "ts": winner.ts if winner is not None else time.time(),
+            }
+            if job.discipline is not None:
+                rec["wid"] = workloads.get(job.workload).wid
+                rec["wp"] = wpayload.hex()
+            self._journal.append("finish", rec, on_durable=functools.partial(
+                self._finish_durable, client_conn, result, winner))
+        else:
+            self._deliver_finish(client_conn, result)
+        elapsed = time.monotonic() - job.started
+        rate = job.hashes_done / elapsed if elapsed > 0 else 0.0
+        log.info("job %d done in %.3fs: found=%s nonce=%d (%.2f MH/s across workers)",
+                 job.job_id, elapsed, found, nonce, rate / 1e6)
+        for conn_id, snap in self.worker_stats().items():
+            log.info("  worker %d (%s): %d hashes in %d chunks, %.3f MH/s, %s", conn_id,
+                     snap["backend"], snap["hashes"], snap["chunks_done"], snap["mhs"],
+                     "busy" if snap["busy"] else "idle")
+        self.stats["jobs_done"] += 1
+        self._retire_job(job)
+
+    def _finish_durable(self, client_conn: int, result, winner: Optional[_Winner]) -> None:
+        """The finish record is on disk: answer the owning client and any
+        re-submitter that raced the flush."""
+        waiters = []
+        if winner is not None:
+            winner.durable = True
+            waiters, winner.waiters = winner.waiters, []
+        self._deliver_finish(client_conn, result)
+        for conn_id in waiters:
+            if conn_id != client_conn:
+                self._deliver_finish(conn_id, result)
+
+    def _deliver_finish(self, client_conn: int, result) -> None:
+        """Send a finished job's answer; an unbound or dead client is
+        answered from the winner table when it re-submits."""
+        if client_conn == UNBOUND:
+            return
+        try:
+            self._server.write(client_conn, encode_msg(result))
+        except ConnectionError:
+            pass
+
+    def worker_stats(self) -> Dict[int, dict]:
+        """Per-worker rate and liveness (conn_id → dict)."""
+        return {m.conn_id: m.snapshot() for m in self._miners.values()}
+
+    def _abandon_job(self, job_id: int) -> None:
+        job = self._jobs.get(job_id)
+        if job is None:
+            return
+        job.done = True
+        self._journal_append("abandon", {"id": job_id})
+        self._retire_job(job)
+
+    def _retire_job(self, job: _Job) -> None:
+        """Cancel a finished job's in-flight chunks and forget its queued
+        work. A cancelled miner sends no Result, so it is marked idle
+        now; a Result that races the Cancel no longer matches a chunk."""
+        job.ranges.clear()
+        cancelled: set = set()
+        for chunk_id, (miner_conn, _lo, _hi) in list(job.inflight.items()):
+            job.inflight.pop(chunk_id, None)
+            self._beacon_settled.pop(chunk_id, None)
+            miner = self._miners.get(miner_conn)
+            if miner is not None and miner.chunks.pop(chunk_id, None) is not None:
+                self._mark_idle(miner)
+            if miner_conn in cancelled:
+                continue  # one Cancel covers every chunk of the job
+            cancelled.add(miner_conn)
+            try:
+                self._server.write(miner_conn, encode_msg(
+                    Cancel(job.job_id), binary=miner.binary if miner is not None else False))
+            except ConnectionError:
+                pass
+        self._schedule_dispatch()
+        try:
+            self._rotation.remove(job.job_id)
+        except ValueError:
+            pass
+        self._jobs.pop(job.job_id, None)
+        if job.request.client_key:
+            self._bound.pop((job.request.client_key, job.client_job_id), None)
+        client_jobs = self._clients.get(job.client_conn)
+        if client_jobs is not None:
+            client_jobs.discard(job.job_id)
+            if not client_jobs:
+                self._clients.pop(job.client_conn, None)
+
+    # -- dispatch --------------------------------------------------------
+
+    def _dispatch(self) -> None:
+        """Carve chunks off the round-robin of jobs onto miners with
+        pipeline room. A miner whose dispatch write fails is set aside
+        for this pass (its loss event is already queued)."""
+        if not self._idle:
+            return
+        idle: Deque[_MinerState] = deque(self._idle.values())
+        self._idle.clear()
+        failed: List[_MinerState] = []
+        skipped = 0
+        while idle and self._rotation and skipped < len(self._rotation):
+            job_id = self._rotation[0]
+            job = self._jobs.get(job_id)
+            if job is None or job.done or not job.ranges:
+                self._rotation.popleft()
+                continue
+            miner = next((m for m in idle if m.supports(job.workload)), None)
+            if miner is None:
+                # nobody idle computes this workload: serve the jobs behind it
+                self._rotation.rotate(-1)
+                skipped += 1
+                continue
+            idle.remove(miner)
+            skipped = 0
+            lo, hi = job.ranges.popleft()
+            roll = self._roll_carve(miner, job, lo, hi)
+            if roll is not None:
+                chunk_hi = chain.roll_span(roll[0], roll[1], job.request.nonce_bits)[1]
+            else:
+                take = min(hi - lo + 1, self._budget(miner, job))
+                chunk_hi = lo + take - 1
+            if chunk_hi < hi:
+                job.ranges.appendleft((chunk_hi + 1, hi))
+            if not self._assign(miner, job, lo, chunk_hi, roll=roll):
+                job.ranges.appendleft((lo, chunk_hi))
+                failed.append(miner)
+                continue
+            if miner.has_capacity:
+                idle.append(miner)  # breadth-first: every miner reaches depth 1 first
+            self._rotation.rotate(-1)
+        for m in idle:
+            self._mark_idle(m)
+        for m in failed:
+            self._mark_idle(m)
+
+    def _roll_carve(self, miner: _MinerState, job: _Job, lo: int,
+                    hi: int) -> Optional[Tuple[int, int]]:
+        """``(extranonce0, count)`` when this dispatch can go as one
+        RollAssign of whole segments, else None. Needs the dialect on
+        both ends, a budget, and a segment-aligned range: a mid-segment
+        remainder always falls back to an exact Assign."""
+        if self._roll_budget <= 0 or not miner.roll:
+            return None
+        req = job.request
+        if not req.rolled or req.mode == PowMode.SCRYPT:
+            return None
+        nb = req.nonce_bits
+        if lo & ((1 << nb) - 1):
+            return None  # mid-segment lo: only exact ranges are sound
+        whole = (hi - lo + 1) >> nb
+        if whole < 1:
+            return None  # sub-segment tail: classic Assign
+        # the half-job cap of _budget, in segments (at least one)
+        cap = max(1, ((req.upper - req.lower + 2) // 2) >> nb)
+        count = min(self._roll_budget, whole, cap, 0xFFFFFFFF)
+        return lo >> nb, count
+
+    def _budget(self, miner: _MinerState, job: _Job) -> int:
+        """Nonces a dispatch to this miner for this job's dialect."""
+        budget = self._chunk_size * miner.lanes
+        if job.request.mode == PowMode.SCRYPT:
+            budget = max(SCRYPT_MIN_CHUNK, budget // SCRYPT_CHUNK_DIVISOR)
+        elif miner.span > 1:
+            budget = max(budget, SPANS_PER_DISPATCH * miner.span)
+            budget -= budget % miner.span  # whole spans
+        # never more than half the job, so a second worker can take part
+        req = job.request
+        budget = min(budget, max(1, (req.upper - req.lower + 2) // 2))
+        if job.request.mode != PowMode.SCRYPT and miner.span > 1:
+            if budget > miner.span:
+                budget -= budget % miner.span
+        if job.discipline is not None:
+            wcap = workloads.chunk_cap(job.request)
+            if wcap:
+                budget = min(budget, wcap)
+        return budget
+
+    def _assign(self, miner: _MinerState, job: _Job, lo: int, hi: int,
+                roll: Optional[Tuple[int, int]] = None) -> bool:
+        """Book and write one dispatch; False if the write failed. A roll
+        carve goes on the wire as a RollAssign, but every book keeps
+        global indices (``[lo, hi]`` is ``chain.roll_span``'s expansion)."""
+        chunk_id = self._next_chunk_id
+        self._next_chunk_id += 1
+        miner.chunks[chunk_id] = (job.job_id, lo, hi, time.monotonic())
+        if not miner.has_capacity:
+            self._idle.pop(miner.conn_id, None)
+        job.inflight[chunk_id] = (miner.conn_id, lo, hi)
+        try:
+            self._write_dispatch(miner, job, chunk_id, lo, hi, roll=roll)
+        except ConnectionError:
+            miner.chunks.pop(chunk_id, None)
+            job.inflight.pop(chunk_id, None)
+            return False
+        if roll is not None:
+            self.stats["chunks_roll_dispatched"] += 1
+        return True
+
+
+def main(argv: Optional[list] = None) -> None:
+    """CLI: ``python -m tpuminter_torch.coordinator PORT [flags]``."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="tpuminter_torch coordinator (server role)")
+    parser.add_argument("port", type=int)
+    parser.add_argument("--chunk-size", type=int, default=DEFAULT_CHUNK_SIZE,
+                        help=f"nonces a dispatch per advertised worker lane "
+                        f"(default {DEFAULT_CHUNK_SIZE})")
+    parser.add_argument(
+        "--pipeline-depth", type=int, default=DEFAULT_PIPELINE_DEPTH, metavar="N",
+        help="chunks kept outstanding per miner so a Result never round-trips before the "
+        f"next chunk starts (default {DEFAULT_PIPELINE_DEPTH}; 1 = one chunk at a time)")
+    parser.add_argument(
+        "--codec", choices=("binary", "json"), default="binary",
+        help="codec spoken to workers that advertise the binary fast path (default "
+        "binary; json forces JSON everywhere; decode always takes both)")
+    parser.add_argument(
+        "--roll-budget", type=int, default=0, metavar="N",
+        help="dispatch rolled jobs to roll-dialect workers as RollAssigns of up to N whole "
+        "extranonce segments, with their progress Beacons journaled as partial settles "
+        "(0 = off: global-index Assigns)")
+    parser.add_argument(
+        "--journal", metavar="PATH", default=None,
+        help="write-ahead job journal: every job, settle and winner is appended, and a "
+        "coordinator restarted on the same file resumes the jobs and never loses an "
+        "answered winner (the reference coordinator's journal format)")
+    parser.add_argument(
+        "--journal-flush", choices=("tick", "task"), default="tick",
+        help="journal flushing: once per serve-loop burst (default) or by a separate "
+        "batch-window flusher task")
+    parser.add_argument("--stats-interval", type=float, default=10.0, metavar="SECONDS",
+                        help="period of the aggregate rate log line (default 10)")
+    args = parser.parse_args(argv)
+    if args.pipeline_depth < 1:
+        parser.error("--pipeline-depth must be >= 1")
+    if not 0 <= args.roll_budget <= 0xFFFFFFFF:
+        parser.error("--roll-budget must be in [0, 2^32-1]")
+    logging.basicConfig(level=logging.INFO)
+
+    async def _run() -> None:
+        coord = await Coordinator.create(
+            args.port, chunk_size=args.chunk_size, stats_interval=args.stats_interval,
+            recover_from=args.journal, pipeline_depth=args.pipeline_depth,
+            binary_codec=args.codec == "binary",
+            journal_tick_flush=args.journal_flush == "tick", roll_budget=args.roll_budget)
+        log.info("coordinator listening on port %d", coord.port)
+        await coord.serve()
+
+    asyncio.run(_run())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,12 @@
-"""LSP client side: a reliable, ordered, connection-oriented message
-protocol over UDP.
+"""LSP: a reliable, ordered, connection-oriented message protocol over
+UDP.
 
-Counterpart of ``tpuminter.lsp``, reduced to what a worker dials with:
-the client, its connection state machine, the UDP endpoint, the frame
-codec with its CRC, and the ``Params``/``FAST`` settings. The server
-side stays in the JAX package's control plane, which the port talks to
-over the wire only.
+Counterpart of ``tpuminter.lsp``: the client and the multi-client
+server, their shared connection state machine, the UDP endpoint with
+its fault-injection seam, the frame codec with its CRC, the
+``Params``/``FAST`` settings, and the echo runners ``srunner`` and
+``crunner``. The wire is the reference's byte for byte, so either side
+talks to the reference's other side.
 """
 
 from tpuminter_torch.lsp.client import (
@@ -15,6 +16,7 @@ from tpuminter_torch.lsp.client import (
     LspError,
 )
 from tpuminter_torch.lsp.params import FAST, Params
+from tpuminter_torch.lsp.server import LspServer
 
 __all__ = [
     "FAST",
@@ -22,5 +24,6 @@ __all__ = [
     "LspConnectError",
     "LspConnectionLost",
     "LspError",
+    "LspServer",
     "Params",
 ]

@@ -66,18 +66,19 @@ class LspClient:
     @classmethod
     async def connect(
         cls, host: str, port: int, params: Optional[Params] = None, *,
-        connect_epochs: Optional[int] = None,
+        connect_epochs: Optional[int] = None, seed: Optional[int] = None,
     ) -> "LspClient":
         """Dial the server; raises :class:`LspConnectError` after
         ``epoch_limit`` epochs without a connect-ack, or after
-        ``connect_epochs`` when given: a worker rotating through an
+        ``connect_epochs`` when given: a role rotating through an
         address list wants a dead address to fail fast, while the
-        session keeps ``params.epoch_limit`` for its liveness."""
+        session keeps ``params.epoch_limit`` for its liveness. ``seed``
+        seeds the endpoint's fault-injection PRNG."""
         dials = connect_epochs or (params or Params()).epoch_limit
         self = cls()
         self._params = params or Params()
         self._server_addr = (host, port)
-        self._endpoint = await UdpEndpoint.create(self._on_datagram)
+        self._endpoint = await UdpEndpoint.create(self._on_datagram, seed=seed)
         self._connect_waiter = asyncio.get_running_loop().create_future()
         connect_frame = encode(Frame(MsgType.CONNECT, 0, 0))
         try:
@@ -197,6 +198,16 @@ class LspClient:
     def conn_id(self) -> int:
         assert self._conn is not None
         return self._conn.conn_id
+
+    @property
+    def is_lost(self) -> bool:
+        return self._conn is not None and self._conn.lost
+
+    @property
+    def endpoint(self) -> UdpEndpoint:
+        """The transport seam, exposed for fault injection."""
+        assert self._endpoint is not None
+        return self._endpoint
 
     def write(self, payload: bytes) -> None:
         """Queue a payload for reliable in-order delivery."""

@@ -1,8 +1,10 @@
-"""Per-connection sliding-window state machine of an LSP client.
+"""Per-connection sliding-window state machine, shared by the port's
+LSP client and server.
 
 Counterpart of ``tpuminter.lsp.connection.ConnState`` (the machine both
 ends of a reference LSP connection run), without the slow-peer
-deadlines a server sets: sliding-window send with per-frame retransmit
+deadlines (the reference's ``read_deadline_epochs``, off in its ``FAST``
+settings too): sliding-window send with per-frame retransmit
 backoff, in-order buffered delivery, coalesced cumulative + SACK acks,
 bundled sends, heartbeats on idle epochs, and loss after
 ``epoch_limit`` silent epochs.
@@ -152,6 +154,11 @@ class ConnState:
             self.closed_event.set()
 
     # -- public API ------------------------------------------------------
+
+    @property
+    def in_flight(self) -> int:
+        """DATA frames sent and not yet acknowledged."""
+        return len(self._unacked)
 
     @property
     def acks_pending(self) -> bool:

@@ -35,6 +35,16 @@ EPOCH_CONNECT = 0xE7
 EPOCH_RESET = 0xE8
 
 
+_U64 = 1 << 64
+
+
+def encode_epoch(kind: int, epoch: int) -> bytes:
+    """A seq-0 ACK epoch payload (connect-ack or reset)."""
+    if not 0 <= epoch < _U64:
+        raise ValueError(f"epoch out of u64 range: {epoch}")
+    return _EPOCH.pack(kind, epoch)
+
+
 def decode_epoch(payload) -> Optional[tuple]:
     """Parse an epoch payload; ``(kind, epoch)`` or None when the payload
     is anything else (empty heartbeat, SACK words)."""

@@ -1,11 +1,13 @@
 """LSP tunables. Counterpart of ``tpuminter.lsp.params`` (``Params``, the
-``FAST`` settings the mining roles use, and the redial backoff)."""
+``FAST`` settings the roles use, and the redial backoff), plus the two
+address-list helpers every redialing role shares, whose reference
+counterparts live in ``tpuminter.replication``."""
 
 from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -58,3 +60,27 @@ FAST = Params(
     max_backoff_interval=2,
     max_unacked_messages=64,
 )
+
+
+def dial_patience(targets) -> Optional[int]:
+    """Connect epochs a dial waits: 2 when there is another address to
+    rotate to (a dead primary must cost a fraction of the loss horizon;
+    each epoch resends the CONNECT, so 2 still survives one lost
+    datagram), else None (the session's own ``epoch_limit``)."""
+    return 2 if len(targets) > 1 else None
+
+
+def parse_addr_list(spec: str) -> List[Tuple[str, int]]:
+    """``HOST:PORT[,HOST:PORT...]`` → ``[(host, port), ...]``; a bare
+    ``:PORT`` is localhost. Raises ValueError on an empty list or a port
+    that is not a number."""
+    addrs = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, _, port = part.rpartition(":")
+        addrs.append((host or "127.0.0.1", int(port)))
+    if not addrs:
+        raise ValueError(f"no coordinator addresses in {spec!r}")
+    return addrs

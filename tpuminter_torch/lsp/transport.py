@@ -1,21 +1,28 @@
-"""The UDP socket under an LSP client.
+"""The UDP socket under the port's LSP client and server.
 
 Counterpart of ``tpuminter.lsp.transport.UdpEndpoint`` in its default
 batched mode: the endpoint owns a non-blocking socket, ``add_reader``
 fires once per readability edge and a bounded burst of ``recvfrom``
 calls drains what the kernel queued. Sends go straight to ``sendto``;
 the rare EAGAIN parks the datagram until ``add_writer`` says the socket
-drained, so nothing the caller sent is silently lost locally. The
-reference's fault-injection knobs and stdlib-transport mode serve its
-own tests and the server side, and are not copied.
+drained, so nothing the caller sent is silently lost locally.
+
+**Fault injection** (the reference's ``lspnet`` seam): drop, duplicate
+and reorder rates for each direction, all drawn from one seeded PRNG so
+a test's fault pattern is reproducible. ``send_batch`` and
+``send_grouped`` are the server's gathered writes; with a fault rate set
+they fall back to one :meth:`send` a datagram, so the faults hit each
+datagram as a looped send would. The reference's per-link fault plans
+and its stdlib-transport mode are not copied.
 """
 
 from __future__ import annotations
 
 import asyncio
+import random
 import socket as _socket
 from collections import deque
-from typing import Callable, Deque, Optional, Tuple
+from typing import Callable, Deque, List, Optional, Tuple
 
 Addr = Tuple[str, int]
 
@@ -24,29 +31,55 @@ RECV_BURST = 64
 
 
 class UdpEndpoint:
-    """A non-blocking UDP socket driven by the running event loop."""
+    """A non-blocking UDP socket driven by the running event loop, with
+    injectable loss, duplication and reordering (rates in [0, 1])."""
 
-    def __init__(self, on_datagram: Callable[[bytes, Addr], None]):
+    def __init__(self, on_datagram: Callable[[bytes, Addr], None],
+                 seed: Optional[int] = None):
         self._on_datagram = on_datagram
         self._loop = asyncio.get_running_loop()
         self._sock: Optional[_socket.socket] = None
         self._send_backlog: Deque[Tuple[bytes, Addr]] = deque()
         self._writer_armed = False
+        self._closed = self._loop.create_future()
+        self._rng = random.Random(seed)
+        self.write_drop_rate = 0.0
+        self.read_drop_rate = 0.0
+        self.write_dup_rate = 0.0
+        self.read_dup_rate = 0.0
+        self.write_reorder_rate = 0.0
+        self.read_reorder_rate = 0.0
+        #: seconds a reordered datagram is held back
+        self.reorder_delay = 0.05
+        self.dropped_out = 0
+        self.dropped_in = 0
+        self.duplicated_out = 0
+        self.duplicated_in = 0
+        self.reordered_out = 0
+        self.reordered_in = 0
 
     @classmethod
-    async def create(cls, on_datagram: Callable[[bytes, Addr], None]) -> "UdpEndpoint":
-        """An endpoint on an ephemeral local port."""
-        self = cls(on_datagram)
+    async def create(cls, on_datagram: Callable[[bytes, Addr], None],
+                     local_addr: Optional[Addr] = None,
+                     seed: Optional[int] = None) -> "UdpEndpoint":
+        """An endpoint bound to ``local_addr`` (an ephemeral port on
+        every interface when None); ``seed`` seeds the fault PRNG."""
+        self = cls(on_datagram, seed=seed)
         sock = _socket.socket(_socket.AF_INET, _socket.SOCK_DGRAM)
         try:
             sock.setblocking(False)
-            sock.bind(("0.0.0.0", 0))
+            sock.bind(local_addr or ("0.0.0.0", 0))
         except BaseException:
             sock.close()
             raise
         self._sock = sock
         self._loop.add_reader(sock.fileno(), self._on_readable)
         return self
+
+    @property
+    def local_addr(self) -> Addr:
+        assert self._sock is not None
+        return self._sock.getsockname()[:2]
 
     def _on_readable(self) -> None:
         for _ in range(RECV_BURST):
@@ -59,10 +92,64 @@ class UdpEndpoint:
                 return
             except OSError:
                 return  # socket died under us; close() handles lifecycle
-            self._on_datagram(data, addr[:2])
+            self._received(data, addr[:2])
+
+    def _received(self, data: bytes, addr: Addr) -> None:
+        if self.read_drop_rate > 0 and self._rng.random() < self.read_drop_rate:
+            self.dropped_in += 1
+            return
+        copies = 1
+        if self.read_dup_rate > 0 and self._rng.random() < self.read_dup_rate:
+            self.duplicated_in += 1
+            copies = 2
+        for _ in range(copies):
+            if self.read_reorder_rate > 0 and self._rng.random() < self.read_reorder_rate:
+                self.reordered_in += 1
+                self._loop.call_later(self.reorder_delay, self._deliver, data, addr)
+            else:
+                self._deliver(data, addr)
+
+    def _deliver(self, data: bytes, addr: Addr) -> None:
+        if self._sock is not None:  # a held-back datagram may outlive the socket
+            self._on_datagram(data, addr)
+
+    def _faulty(self) -> bool:
+        return self.write_drop_rate > 0 or self.write_dup_rate > 0 or self.write_reorder_rate > 0
 
     def send(self, data: bytes, addr: Addr) -> None:
-        """Send one datagram; UDP may lose it, this endpoint does not."""
+        """Send one datagram, subject to the injected write faults."""
+        if self._sock is None:
+            return
+        if self.write_drop_rate > 0 and self._rng.random() < self.write_drop_rate:
+            self.dropped_out += 1
+            return
+        copies = 1
+        if self.write_dup_rate > 0 and self._rng.random() < self.write_dup_rate:
+            self.duplicated_out += 1
+            copies = 2
+        for _ in range(copies):
+            if self.write_reorder_rate > 0 and self._rng.random() < self.write_reorder_rate:
+                self.reordered_out += 1
+                self._loop.call_later(self.reorder_delay, self._send_raw, data, addr)
+            else:
+                self._send_raw(data, addr)
+
+    def send_batch(self, datagrams, addr: Addr) -> None:
+        """Several datagrams to one peer."""
+        if self._faulty():
+            for data in datagrams:
+                self.send(data, addr)
+            return
+        for data in datagrams:
+            self._send_raw(data, addr)
+
+    def send_grouped(self, pairs: List[Tuple[Addr, List[bytes]]]) -> None:
+        """One event-loop tick's datagrams to every peer, in one call."""
+        for addr, datagrams in pairs:
+            self.send_batch(datagrams, addr)
+
+    def _send_raw(self, data: bytes, addr: Addr) -> None:
+        """UDP may lose the datagram; this endpoint does not."""
         if self._sock is None:
             return
         if self._send_backlog:
@@ -74,12 +161,7 @@ class UdpEndpoint:
             self._send_backlog.append((data, addr))
             self._arm_writer()
         except OSError:
-            pass  # unreachable/iface error: the datagram is lost, as UDP allows
-
-    def send_batch(self, datagrams, addr: Addr) -> None:
-        """Several datagrams to one peer."""
-        for data in datagrams:
-            self.send(data, addr)
+            self.dropped_out += 1  # unreachable/iface error: lost, as UDP allows
 
     def _arm_writer(self) -> None:
         if not self._writer_armed and self._sock is not None:
@@ -97,10 +179,26 @@ class UdpEndpoint:
             except (BlockingIOError, InterruptedError):
                 return
             except OSError:
-                pass  # lost, as above
+                self.dropped_out += 1  # lost, as above
             self._send_backlog.popleft()
         self._writer_armed = False
         self._loop.remove_writer(sock.fileno())
+
+    def set_write_drop_rate(self, rate: float) -> None:
+        self.write_drop_rate = rate
+
+    def set_read_drop_rate(self, rate: float) -> None:
+        self.read_drop_rate = rate
+
+    def set_fault_rates(self, *, drop: Optional[float] = None, dup: Optional[float] = None,
+                        reorder: Optional[float] = None) -> None:
+        """Set any fault class symmetrically in both directions."""
+        if drop is not None:
+            self.write_drop_rate = self.read_drop_rate = drop
+        if dup is not None:
+            self.write_dup_rate = self.read_dup_rate = dup
+        if reorder is not None:
+            self.write_reorder_rate = self.read_reorder_rate = reorder
 
     def close(self) -> None:
         sock, self._sock = self._sock, None
@@ -111,3 +209,8 @@ class UdpEndpoint:
             self._loop.remove_writer(sock.fileno())
         sock.close()
         self._send_backlog.clear()
+        if not self._closed.done():
+            self._closed.set_result(None)
+
+    async def wait_closed(self) -> None:
+        await self._closed

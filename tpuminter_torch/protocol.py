@@ -1,23 +1,26 @@
-"""The wire messages a worker speaks, in both of the reference's codecs.
+"""The wire messages of the port's three roles, in both of the
+reference's codecs.
 
-Counterpart of ``tpuminter.protocol``, reduced to the kinds a worker
-sends and receives: ``Join``, ``Request``, ``Result``, ``Setup``,
-``Assign``, ``Refuse``, ``Cancel``, the roll-budget dialect's
-``RollAssign`` and ``Beacon``, and the workload answer ``WorkResult``.
-The JSON shapes and the binary layouts are the reference's exactly, so
-this module and ``tpuminter.protocol`` decode each other's payloads;
-that wire is the port's only contact with the JAX package.
+Counterpart of ``tpuminter.protocol``, reduced to the kinds a worker, a
+client and a single-loop coordinator exchange: ``Join``, ``Request``,
+``Result``, ``Setup``, ``Assign``, ``Refuse`` (the worker's and the
+admission dialect's), ``Cancel``, the roll-budget dialect's
+``RollAssign`` and ``Beacon``, the workload answer ``WorkResult``, the
+streaming partial ``Emit`` and the federation's ``Steal`` (decoded so
+that a coordinator can deny it). The JSON shapes and the binary layouts
+are the reference's exactly, so this module and ``tpuminter.protocol``
+decode each other's payloads.
 
 **The binary codec** (the reference's codec v1 and its later tags):
 ``tag:u8 ‖ fields… ‖ crc32:u32``, little-endian, for Assign ``0xB1``,
-Result ``0xB2``, Refuse ``0xB3``, Cancel ``0xB4``, Join ``0xB5``,
-RollAssign ``0xB9``, Beacon ``0xBA`` and WorkResult ``0xBB`` (a
-variable-length kind: a fold payload follows its head). JSON payloads
-start with ``{``, which is no tag, so :func:`decode_msg` takes both. A
-corrupted or truncated binary payload fails its length or CRC check and
-raises :class:`ProtocolError`. ``encode_msg(msg, binary=True)`` packs a
-kind that has a layout when its fields fit, else falls back to JSON
-(Request and Setup are JSON only, as is a Join that names workloads).
+Result ``0xB2``, Refuse ``0xB3``, Cancel ``0xB4``, Join ``0xB5``, RollAssign ``0xB9``, Beacon ``0xBA``,
+WorkResult ``0xBB`` and Emit ``0xBE`` (the last two variable-length: a
+fold payload follows their head). JSON payloads start with ``{``, which
+is no tag, so :func:`decode_msg` takes both. A corrupted or truncated
+binary payload fails its length or CRC check and raises
+:class:`ProtocolError`. ``encode_msg(msg, binary=True)`` packs a kind
+that has a layout when its fields fit, else falls back to JSON (Request,
+Setup and Steal are JSON only, as is a Join that names workloads).
 
 **Negotiation** (the reference's "No flag day"): a worker advertises
 ``codec="bin"`` in its Join, and the coordinator then sends it binary
@@ -25,14 +28,14 @@ Assigns; the worker answers in binary only once it has seen a binary
 payload from the coordinator (:func:`payload_is_binary`). A worker that
 joins with ``codec="json"`` is sent only JSON, plus ``RollAssign`` when
 it advertises ``roll`` and workload jobs' ``Setup``/``Assign`` for the
-workloads it advertises.
+workloads it advertises. Clients are always answered in JSON.
 
-A worker never receives the reference's coordinator-internal kinds, the
-admission ``Refuse`` (``0xB6``), the federation's lease-epoch variants
-(``0xBC``/``0xBD``: the reference stamps lease epochs only toward peers
-that sent the aggregator hello, so a plain worker always sees the
-epoch-free layouts) or any other tag; the decoder raises
-:class:`ProtocolError` on them, which the worker logs and drops.
+The kinds of the reference's replication, multi-process seam and
+federation leases (``0xB8``, ``0xBC``/``0xBD``: the reference stamps
+lease epochs only toward peers that sent the aggregator hello) belong to
+roles the port does not have yet, and its binary admission Refuse
+(``0xB6``) goes only to clients, which it answers in JSON; the decoder
+raises :class:`ProtocolError` on them, which a role logs and drops.
 """
 
 from __future__ import annotations
@@ -56,12 +59,16 @@ __all__ = [
     "RollAssign",
     "Beacon",
     "WorkResult",
+    "Emit",
+    "Steal",
     "Message",
     "ProtocolError",
     "MIN_UNTRACKED",
     "encode_msg",
     "decode_msg",
     "payload_is_binary",
+    "request_to_obj",
+    "request_from_obj",
 ]
 
 #: ``hash_value`` of an exhausted TARGET Result from a worker that does
@@ -252,8 +259,32 @@ class WorkResult:
     payload: bytes = b""
 
 
+@dataclass(frozen=True)
+class Steal:
+    """Aggregator → coordinator: re-lease me the un-beaconed suffix of a
+    slow sibling's assignment (``job_id`` 0 = any job). JSON only. The
+    port's coordinator has no aggregators yet and denies every Steal."""
+
+    job_id: int = 0
+
+
+@dataclass(frozen=True)
+class Emit:
+    """Coordinator → client: a partial answer of a streaming workload
+    job, before its final Result. ``payload`` is the fold's encoding of
+    the running accumulator over journal-settled coverage, ``covered``
+    and ``total`` the settled and the whole index counts, ``seq`` a
+    per-job counter; ``job_id`` is the client's own id."""
+
+    job_id: int
+    seq: int
+    covered: int
+    total: int
+    payload: bytes = b""
+
+
 Message = Union[Join, Request, Result, Setup, Assign, Refuse, Cancel, RollAssign, Beacon,
-                WorkResult]
+                WorkResult, Emit, Steal]
 
 _JSON_OPEN = 0x7B  # ord("{")
 
@@ -269,6 +300,7 @@ _TAG_JOIN = 0xB5
 _TAG_ASSIGN_ROLL = 0xB9
 _TAG_BEACON = 0xBA
 _TAG_WRESULT = 0xBB
+_TAG_EMIT = 0xBE
 
 _BIN_ASSIGN = struct.Struct("<BQQQQ")        # tag, job, chunk, lo, hi
 _BIN_RESULT = struct.Struct("<BBQQ32sBQQ")   # tag, mode, job, nonce, hash (u256 LE),
@@ -279,9 +311,10 @@ _BIN_JOIN = struct.Struct("<BBIQ16s")        # tag, flags, lanes, span, backend 
 _BIN_ASSIGN_ROLL = struct.Struct("<BQQQI")   # tag, job, chunk, extranonce0, count
 _BIN_BEACON = struct.Struct("<BQQQQ32s")     # tag, job, chunk, high_water, nonce, hash
 _BIN_WRESULT_HEAD = struct.Struct("<BQQBQ")  # tag, job, chunk, wid, searched (payload follows)
+_BIN_EMIT_HEAD = struct.Struct("<BQQQQ")     # tag, job, seq, covered, total (payload follows)
 _CRC = struct.Struct("<I")
 
-#: the fixed-size layouts, by tag (WorkResult is variable-length)
+#: the fixed-size layouts, by tag (WorkResult and Emit are variable-length)
 _BIN_BY_TAG = {
     _TAG_ASSIGN: _BIN_ASSIGN,
     _TAG_RESULT: _BIN_RESULT,
@@ -369,6 +402,11 @@ def _encode_binary(msg: Message) -> Optional[bytes]:
             return None
         return _seal(_BIN_WRESULT_HEAD.pack(_TAG_WRESULT, msg.job_id, msg.chunk_id, msg.wid,
                                             msg.searched) + bytes(msg.payload))
+    if isinstance(msg, Emit):
+        if not _u64(msg.job_id, msg.seq, msg.covered, msg.total):
+            return None
+        return _seal(_BIN_EMIT_HEAD.pack(_TAG_EMIT, msg.job_id, msg.seq, msg.covered,
+                                         msg.total) + bytes(msg.payload))
     return None
 
 
@@ -389,6 +427,13 @@ def _decode_binary(raw) -> Message:
         view = _checked(raw, n - _CRC.size)
         _, job_id, chunk_id, wid, searched = _BIN_WRESULT_HEAD.unpack_from(raw)
         return WorkResult(job_id, chunk_id, wid, searched, bytes(view[head:n - _CRC.size]))
+    if tag == _TAG_EMIT:
+        head = _BIN_EMIT_HEAD.size
+        if n < head + _CRC.size:
+            raise ProtocolError(f"emit payload truncated: {n} bytes")
+        view = _checked(raw, n - _CRC.size)
+        _, job_id, seq, covered, total = _BIN_EMIT_HEAD.unpack_from(raw)
+        return Emit(job_id, seq, covered, total, bytes(view[head:n - _CRC.size]))
     layout = _BIN_BY_TAG.get(tag)
     if layout is None:
         raise ProtocolError(f"binary tag {tag:#04x} is not one a worker receives")
@@ -481,6 +526,12 @@ def _request_from_obj(obj: dict) -> Request:
     )
 
 
+#: the Request ↔ JSON-object codec under its public names: the journal
+#: persists job templates through the codec the wire uses
+request_to_obj = _request_obj
+request_from_obj = _request_from_obj
+
+
 def encode_msg(msg: Message, *, binary: bool = False) -> bytes:
     """Serialize a message to an LSP payload: its binary layout when
     ``binary`` and it has one that its fields fit, else JSON."""
@@ -537,6 +588,19 @@ def encode_msg(msg: Message, *, binary: bool = False) -> bytes:
         }
     elif isinstance(msg, Cancel):
         obj = {"kind": "cancel", "job_id": msg.job_id}
+    elif isinstance(msg, Steal):
+        obj = {"kind": "steal"}
+        if msg.job_id:
+            obj["job_id"] = msg.job_id
+    elif isinstance(msg, Emit):
+        obj = {
+            "kind": "emit",
+            "job_id": msg.job_id,
+            "seq": msg.seq,
+            "cov": msg.covered,
+            "tot": msg.total,
+            "wp": bytes(msg.payload).hex(),
+        }
     elif isinstance(msg, RollAssign):
         obj = {
             "kind": "rassign",
@@ -565,8 +629,8 @@ def encode_msg(msg: Message, *, binary: bool = False) -> bytes:
 
 def decode_msg(raw) -> Message:
     """Parse an LSP payload (``bytes`` or ``memoryview``) of either
-    codec. A malformed payload, a tag or kind a worker never receives
-    raises :class:`ProtocolError`."""
+    codec. A malformed payload, or a tag or kind of a role the port does
+    not have, raises :class:`ProtocolError`."""
     if len(raw) == 0:
         raise ProtocolError("empty payload")
     if raw[0] != _JSON_OPEN:
@@ -628,6 +692,16 @@ def decode_msg(raw) -> Message:
             )
         if kind == "cancel":
             return Cancel(job_id=int(obj["job_id"]))
+        if kind == "steal":
+            return Steal(job_id=int(obj.get("job_id", 0)))
+        if kind == "emit":
+            return Emit(
+                job_id=int(obj["job_id"]),
+                seq=int(obj["seq"]),
+                covered=int(obj["cov"]),
+                total=int(obj["tot"]),
+                payload=bytes.fromhex(obj.get("wp", "")),
+            )
         if kind == "rassign":
             count = int(obj["count"])
             if count < 1:

@@ -36,7 +36,7 @@ from typing import Callable, Iterator, List, Optional, Tuple, Union
 
 from tpuminter_torch import chain, workloads
 from tpuminter_torch.lsp import FAST, LspClient, LspConnectError, LspConnectionLost, Params
-from tpuminter_torch.lsp.params import jittered_backoff
+from tpuminter_torch.lsp.params import dial_patience, jittered_backoff, parse_addr_list
 from tpuminter_torch.protocol import (
     Assign,
     Beacon,
@@ -419,30 +419,6 @@ async def run_miner_reconnect(
         log.info("worker: coordinator gone; redialing %s:%d in %.2f s (attempt %d)",
                  *targets[dials % len(targets)], wait, dials + 1)
         await asyncio.sleep(wait)
-
-
-def dial_patience(targets) -> Optional[int]:
-    """Connect epochs a dial waits: 2 when there is another address to
-    rotate to (a dead primary must cost a fraction of the loss horizon;
-    each epoch resends the CONNECT, so 2 still survives one lost
-    datagram), else None (the session's own ``epoch_limit``)."""
-    return 2 if len(targets) > 1 else None
-
-
-def parse_addr_list(spec: str) -> List[Tuple[str, int]]:
-    """``HOST:PORT[,HOST:PORT...]`` → ``[(host, port), ...]``; a bare
-    ``:PORT`` is localhost. Raises ValueError on an empty list or a port
-    that is not a number."""
-    addrs = []
-    for part in spec.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        host, _, port = part.rpartition(":")
-        addrs.append((host or "127.0.0.1", int(port)))
-    if not addrs:
-        raise ValueError(f"no coordinator addresses in {spec!r}")
-    return addrs
 
 
 def _parse_args(argv: Optional[list] = None):

@@ -1,11 +1,13 @@
 """The dict workload: a search over a shipped list of candidates.
 
-Counterpart of ``tpuminter.workloads.dictsearch``, reduced to the
-worker's half: the params codec (the 0xC5 frame the reference client
-writes into ``Request.data``, and the coordinator's per-chunk window
-frames with their ``base``), the scalar :func:`score`, the fold each
-variant asks for, with the range check against the shipped catalog, and
-:meth:`DictSearch.compute`.
+Counterpart of ``tpuminter.workloads.dictsearch``: the params codec (the
+0xC5 frame the client writes into ``Request.data``, and the
+coordinator's per-chunk window frames with their ``base``), the scalar
+:func:`score`, the fold each variant asks for, with the range check
+against the shipped catalog, :meth:`DictSearch.compute` (the worker's
+half) and the coordinator's half: :meth:`~DictSearch.window` and
+:meth:`~DictSearch.chunk_cap`, which re-pack a catalog larger than
+:data:`WINDOW_BYTES` into per-chunk Setups, and :meth:`~DictSearch.verify`.
 
 Global index ``i`` scores ``entries[i - base]``: :func:`score` is the
 low 64 bits, little-endian, of ``SHA-256(seed_le8 ‖ candidate)``. The
@@ -14,10 +16,6 @@ candidates are ragged byte strings, so scoring stays on the host's
 chunks run the same on either device. A chunk is scored in batches of
 256 entries, folded with the fold's ``of_batch``; a first match ends
 the chunk at its batch, so ``searched`` is the reference's, bit for bit.
-
-What stays in the reference: ``window`` and ``chunk_cap`` (the
-coordinator re-packs a large catalog into per-chunk Setups) and
-``verify``, which run in the coordinator.
 """
 
 from __future__ import annotations
@@ -25,14 +23,15 @@ from __future__ import annotations
 import hashlib
 import struct
 import zlib
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from tpuminter_torch.workloads import Workload, register
 from tpuminter_torch.workloads import folds
 
 __all__ = ["DictSearch", "DictParams", "score", "pack_params", "parse_params",
-           "VARIANTS", "DICT_WID", "MAX_CANDIDATES", "MAX_ENTRY"]
+           "VARIANTS", "DICT_WID", "MAX_CANDIDATES", "MAX_ENTRY", "WINDOW_BYTES"]
 
 #: the workload's numeric id on WorkResults (the reference's)
 DICT_WID = 2
@@ -51,6 +50,10 @@ VARIANTS = ("fmin", "topk", "fmatch", "fsum")
 #: the bounds a params frame may carry
 MAX_CANDIDATES = 1 << 20
 MAX_ENTRY = 512
+
+#: per-window byte budget of a chunked dispatch: a windowed Setup stays a
+#: few LSP fragments
+WINDOW_BYTES = 32 * 1024
 
 #: entries scored between two yields (the reference's batch): a first
 #: match ends the chunk at its batch
@@ -107,9 +110,20 @@ class DictParams:
         return self.entries[slot]
 
 
+#: parsed-catalog LRU: the coordinator resolves a job's fold and verifies
+#: once a settle, and re-parsing a multi-MB catalog each time would
+#: dominate; keyed by the frame's bytes, so a window and its job coexist
+_PARSE_CACHE: "OrderedDict[bytes, DictParams]" = OrderedDict()
+_PARSE_CACHE_CAP = 8
+
+
 def parse_params(data: bytes) -> DictParams:
     """Decode and check a params frame; ValueError on anything malformed."""
     key = bytes(data)
+    hit = _PARSE_CACHE.get(key)
+    if hit is not None:
+        _PARSE_CACHE.move_to_end(key)
+        return hit
     head = _BIN_DICTPARAMS_HEAD.size
     if len(key) < head + _CRC.size:
         raise ValueError(f"dictsearch params: truncated ({len(key)} bytes)")
@@ -138,7 +152,11 @@ def parse_params(data: bytes) -> DictParams:
         off += n
     if off != len(body):
         raise ValueError("dictsearch params: trailing bytes after entries")
-    return DictParams(VARIANTS[variant], seed, threshold, k, base, tuple(entries))
+    parsed = DictParams(VARIANTS[variant], seed, threshold, k, base, tuple(entries))
+    _PARSE_CACHE[key] = parsed
+    if len(_PARSE_CACHE) > _PARSE_CACHE_CAP:
+        _PARSE_CACHE.popitem(last=False)
+    return parsed
 
 
 class DictSearch(Workload):
@@ -158,6 +176,22 @@ class DictSearch(Workload):
             return folds.FirstMatch(p.threshold)
         return folds.FSum()
 
+    def window(self, request, lo: int, hi: int) -> Optional[bytes]:
+        p = parse_params(request.data)
+        if len(request.data) <= WINDOW_BYTES:
+            return None  # the cached full-job Setup is already small
+        if not p.base <= lo <= hi < p.base + len(p.entries):
+            raise ValueError("dictsearch: window outside the catalog")
+        return pack_params(p.variant, p.seed, p.entries[lo - p.base:hi - p.base + 1],
+                           threshold=p.threshold, k=p.k, base=lo)
+
+    def chunk_cap(self, request) -> int:
+        p = parse_params(request.data)
+        if len(request.data) <= WINDOW_BYTES:
+            return 0
+        avg = max(1, len(request.data) // max(1, len(p.entries)))
+        return max(16, WINDOW_BYTES // (avg + _LEN.size))
+
     def compute(self, request, fold: folds.Fold, device="cuda", engine: str = "kernel"):
         """Score ``[lower, upper]`` on the host in batches of 256 entries,
         fold each with ``of_batch`` and yield after each; a first match
@@ -175,6 +209,53 @@ class DictSearch(Workload):
                 break
             yield None
         return searched, acc
+
+    def verify(self, request, fold: folds.Fold, acc) -> bool:
+        p = parse_params(request.data)
+        lo, hi = request.lower, request.upper
+        if lo > hi:
+            return False
+
+        def value_at(index: int) -> Optional[int]:
+            try:
+                return score(p.seed, p.entry(index))
+            except ValueError:
+                return None
+
+        def dry(first: int, last: int) -> bool:
+            return all(value_at(j) is not None and value_at(j) > p.threshold
+                       for j in range(first, last + 1))
+
+        if isinstance(fold, folds.FMin):
+            if acc is None:
+                return False
+            value, index = acc
+            return lo <= index <= hi and value_at(index) == value
+        if isinstance(fold, folds.TopK):
+            want = min(p.k, hi - lo + 1)
+            if len(acc) != want or sorted(map(tuple, acc)) != list(map(tuple, acc)):
+                return False
+            if len({index for _v, index in acc}) != len(acc):
+                return False
+            return all(lo <= index <= hi and value_at(index) == value for value, index in acc)
+        if isinstance(fold, folds.FirstMatch):
+            if acc is None:
+                return False  # a dispatched chunk always scans something
+            index, value, probes = acc
+            if index is None:
+                # a dry claim covers the whole chunk and survives a rescan
+                return probes == hi - lo + 1 and dry(lo, hi)
+            if not (lo <= index <= hi and value <= p.threshold and value_at(index) == value
+                    and probes == index - lo + 1):
+                return False
+            return dry(lo, index - 1)  # "first" is part of the claim
+        if isinstance(fold, folds.FSum):
+            total, count = acc
+            if count != hi - lo + 1:
+                return False
+            scores = [value_at(j) for j in range(lo, hi + 1)]
+            return None not in scores and total == sum(scores)
+        return False
 
 
 register(DictSearch())

@@ -1,10 +1,11 @@
 """Fold disciplines: how a workload chunk's partial answer combines with
 others, and how it is framed on the wire.
 
-Counterpart of ``tpuminter.workloads.folds``, reduced to what a worker
-needs: the four disciplines' ``initial``/``combine``/``is_final``, their
-host ``of_batch`` (a batch of objective values from a global index, as
-the dict workload scores them) and their chunk-partial codec. Each
+Counterpart of ``tpuminter.workloads.folds``: the four disciplines'
+``initial``/``combine``/``is_final``, their host ``of_batch`` (a batch
+of objective values from a global index, as the dict workload scores
+them), their chunk-partial codec, and what the coordinator and the
+client ask of them (``found``, ``idempotent``, ``describe``). Each
 partial travels inside a ``WorkResult`` as a tagged, CRC-trailed frame
 (tags 0xC1–0xC4) that the reference coordinator decodes, so the layouts
 are the reference's byte for byte.
@@ -72,6 +73,10 @@ class Fold:
     same answer."""
 
     name = "fold"
+    #: False when absorbing overlapping coverage twice would corrupt the
+    #: answer (sum); the coordinator's coverage gate is what keeps such
+    #: a fold exactly-once
+    idempotent = True
 
     def initial(self) -> Any:
         return None
@@ -88,11 +93,19 @@ class Fold:
         """True when this accumulator already decides the job."""
         return False
 
+    def found(self, acc: Any) -> bool:
+        """The finish record's ``found`` flag once the range exhausts."""
+        return acc is not None
+
     def encode(self, acc: Any) -> bytes:
         raise NotImplementedError
 
     def decode(self, data: bytes) -> Any:
         raise NotImplementedError
+
+    def describe(self, acc: Any) -> str:
+        """The client CLI's rendering of an answer."""
+        return repr(acc)
 
 
 class FMin(Fold):
@@ -122,6 +135,11 @@ class FMin(Fold):
     def decode(self, data):
         _tag, has, value, index = _open_payload(data, _BIN_WMIN, _TAG_WMIN)
         return [value, index] if has else None
+
+    def describe(self, acc):
+        if acc is None:
+            return "fmin: empty range"
+        return f"fmin: value={acc[0]} index={acc[1]}"
 
 
 class TopK(Fold):
@@ -165,6 +183,15 @@ class TopK(Fold):
             raise ValueError("topk payload: count exceeds the slot table")
         return [[fields[2 + 2 * s], fields[3 + 2 * s]] for s in range(count)]
 
+    def found(self, acc):
+        return bool(acc)
+
+    def describe(self, acc):
+        if not acc:
+            return "topk: empty range"
+        rows = "\n".join(f"  #{rank + 1} value={v} index={i}" for rank, (v, i) in enumerate(acc))
+        return f"topk ({len(acc)}):\n{rows}"
+
 
 class FirstMatch(Fold):
     name = "fmatch"
@@ -196,6 +223,9 @@ class FirstMatch(Fold):
     def is_final(self, acc):
         return acc is not None and acc[0] is not None
 
+    def found(self, acc):
+        return acc is not None and acc[0] is not None
+
     def encode(self, acc):
         if acc is None:
             acc = [None, None, 0]
@@ -214,9 +244,15 @@ class FirstMatch(Fold):
             return [index, value, probes]
         return [None, None, probes] if probes else None
 
+    def describe(self, acc):
+        if acc is None or acc[0] is None:
+            return "fmatch: no match"
+        return f"fmatch: index={acc[0]} value={acc[1]} probes={acc[2]}"
+
 
 class FSum(Fold):
     name = "fsum"
+    idempotent = False
 
     def initial(self):
         return [0, 0]
@@ -237,3 +273,10 @@ class FSum(Fold):
     def decode(self, data):
         _tag, total, count = _open_payload(data, _BIN_WSUM, _TAG_WSUM)
         return [int.from_bytes(total, "little"), count]
+
+    def found(self, acc):
+        return True
+
+    def describe(self, acc):
+        acc = acc or [0, 0]
+        return f"fsum: total={acc[0]} count={acc[1]}"

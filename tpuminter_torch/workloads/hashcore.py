@@ -1,24 +1,28 @@
 """The hashcore workload: a seeded splitmix64 search over global indices.
 
-Counterpart of ``tpuminter.workloads.hashcore``, reduced to the worker's
-half: the params codec (the 0xC0 frame the reference client writes into
-``Request.data``), the scalar :func:`objective`, the fold each variant
-asks for, and :meth:`HashCore.compute` on device lanes
-(``ops.splitmix``), whose values come from K7 (``kernels.splitmix``).
+Counterpart of ``tpuminter.workloads.hashcore``: the params codec (the
+0xC0 frame the client writes into ``Request.data``), the scalar
+:func:`objective`, the fold each variant asks for, :meth:`HashCore.compute`
+on device lanes (``ops.splitmix``, whose values come from K7,
+``kernels.splitmix``) and :meth:`HashCore.verify`, the coordinator's
+check of a chunk's claim on the host (numpy's wrapping u64 lanes for a
+whole chunk, as the reference's ``_values_vectorized``).
 
 Four variants, one per fold discipline: ``fmin`` (the smallest value),
 ``topk`` (the k smallest), ``fmatch`` (the first index with a value
 ``<= threshold``, which ends the chunk early) and ``fsum`` (the exact
 total). A chunk computed here returns the ``(searched, acc)`` the
-reference's host lanes return for it, bit for bit, so the reference
+reference's host lanes return for it, bit for bit, so either
 coordinator verifies and folds it unchanged.
 
-What stays in the reference: the numpy host-lane arm and its
-``set_dev_lanes`` knob (here every chunk runs on device lanes, on the
-card or, for ``device="cpu"``, on the plain versions), the width
-autotune, and ``verify``, which runs in the coordinator. Unlike the
-reference, no setup error falls back to other lanes: a chunk whose
-kernel cannot be built or launched raises.
+``compute`` imports ``torch`` (through ``ops.splitmix`` and ``search``)
+when it runs, not when this module loads, so the coordinator's half
+needs no CUDA stack. What stays in the reference: the numpy host-lane
+arm of ``compute`` and its ``set_dev_lanes`` knob (here every chunk runs
+on device lanes, on the card or, for ``device="cpu"``, on the plain
+versions) and the width autotune. Unlike the reference, no setup error
+falls back to other lanes: a chunk whose kernel cannot be built or
+launched raises.
 """
 
 from __future__ import annotations
@@ -27,12 +31,12 @@ import struct
 import zlib
 from dataclasses import dataclass
 
-from tpuminter_torch.ops import splitmix
-from tpuminter_torch.search import pipeline_spans
+from typing import List
+
 from tpuminter_torch.workloads import Workload, register
 from tpuminter_torch.workloads import folds
 
-__all__ = ["HashCore", "HashParams", "objective", "pack_params", "parse_params",
+__all__ = ["HashCore", "HashParams", "objective", "values", "pack_params", "parse_params",
            "VARIANTS", "HASHCORE_WID"]
 
 #: the workload's numeric id on WorkResults (the reference's)
@@ -46,7 +50,12 @@ _TAG_HCPARAMS = 0xC0
 _BIN_HCPARAMS = struct.Struct("<BBQQB")
 _CRC = struct.Struct("<I")
 
-VARIANTS = splitmix.VARIANTS
+VARIANTS = ("fmin", "topk", "fmatch", "fsum")
+
+#: splitmix64's constants (``ops.splitmix`` holds the same for the lanes)
+GOLDEN = 0x9E3779B97F4A7C15
+MIX1 = 0xBF58476D1CE4E5B9
+MIX2 = 0x94D049BB133111EB
 
 #: the reference host loop's batch: a first-match chunk that stops early
 #: reports ``searched`` in whole batches through the matching index
@@ -55,10 +64,24 @@ _BATCH = 2048
 
 def objective(seed: int, index: int) -> int:
     """splitmix64 of ``seed + (index + 1) · golden``, one u64 per index."""
-    z = (seed + (index + 1) * splitmix.GOLDEN) & _M64
-    z = ((z ^ (z >> 30)) * splitmix.MIX1) & _M64
-    z = ((z ^ (z >> 27)) * splitmix.MIX2) & _M64
+    z = (seed + (index + 1) * GOLDEN) & _M64
+    z = ((z ^ (z >> 30)) * MIX1) & _M64
+    z = ((z ^ (z >> 27)) * MIX2) & _M64
     return z ^ (z >> 31)
+
+
+def values(seed: int, lo: int, hi: int) -> List[int]:
+    """:func:`objective` over ``[lo, hi]`` on numpy's u64 lanes, whose
+    wrapping arithmetic is mod 2^64: the host verifier's batch path."""
+    import numpy as np
+
+    idx = np.arange(lo, hi + 1, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        z = np.uint64(seed) + (idx + np.uint64(1)) * np.uint64(GOLDEN)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(MIX1)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(MIX2)
+        z = z ^ (z >> np.uint64(31))
+    return z.tolist()
 
 
 def pack_params(variant: str, seed: int, threshold: int = 0, k: int = 1) -> bytes:
@@ -122,6 +145,9 @@ class HashCore(Workload):
         its ``searched`` is then counted from the match index in the
         reference host loop's batches, so it does not depend on the
         window."""
+        from tpuminter_torch.ops import splitmix
+        from tpuminter_torch.search import pipeline_spans
+
         p = parse_params(request.data)
         lo, hi = request.lower, request.upper
         sweep = splitmix.lane_sweep(p.variant, k=p.k, device=device, engine=engine)
@@ -136,6 +162,43 @@ class HashCore(Workload):
             searched += e - g + 1
             yield None
         return searched, acc
+
+    def verify(self, request, fold: folds.Fold, acc) -> bool:
+        p = parse_params(request.data)
+        lo, hi = request.lower, request.upper
+        if lo > hi:
+            return False
+        if isinstance(fold, folds.FMin):
+            if acc is None:
+                return False
+            value, index = acc
+            return lo <= index <= hi and objective(p.seed, index) == value
+        if isinstance(fold, folds.TopK):
+            want = min(p.k, hi - lo + 1)
+            if len(acc) != want or sorted(map(tuple, acc)) != list(map(tuple, acc)):
+                return False
+            if len({index for _v, index in acc}) != len(acc):
+                return False
+            return all(lo <= index <= hi and objective(p.seed, index) == value
+                       for value, index in acc)
+        if isinstance(fold, folds.FirstMatch):
+            if acc is None:
+                return False  # a dispatched chunk always scans something
+            index, value, probes = acc
+            if index is None:
+                # absence is decidable: a dry claim covers the whole chunk,
+                # and the rescan means a false "no match" cannot hide one
+                return probes == hi - lo + 1 and all(
+                    objective(p.seed, j) > p.threshold for j in range(lo, hi + 1))
+            if not (lo <= index <= hi and value <= p.threshold
+                    and objective(p.seed, index) == value and probes == index - lo + 1):
+                return False
+            # "first" is part of the claim: the prefix must be dry
+            return all(objective(p.seed, j) > p.threshold for j in range(lo, index))
+        if isinstance(fold, folds.FSum):
+            total, count = acc
+            return count == hi - lo + 1 and total == sum(values(p.seed, lo, hi))
+        return False
 
 
 register(HashCore())
