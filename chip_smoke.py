@@ -157,6 +157,35 @@ caught), and without a CUDA device the script exits non-zero at once:
    journal's winner table. No import log of the three may name a
    ``jax``, ``jaxlib`` or ``tpuminter`` module, nor the coordinator's
    or the client's a ``torch`` one.
+5c. the coordinator's policies on the port: first ``CudaMiner()`` at its
+   defaults on the ranges an audit sends, every launch count 0 just
+   before and read just after: 256 nonces at random bases on the fast
+   path (3h), on exact-min (2h, ``exact_min=True`` and regtest bits) and
+   on MIN (6t, also across a 2^32 low-word boundary), 64 nonces of
+   SCRYPT (S1, 19, S2), each Result against hashlib, ``hashlib.scrypt``
+   or ``toy_hash``; then ``python -m tpuminter_torch.coordinator`` with a
+   journal, ``--roll-budget 2``, ``--audit-rate 1.0``, ``--hedge-after
+   0.3``, ``--stats-port 0``, ``--quota-rate 1 --quota-burst 2``,
+   ``--max-jobs 4``, ``--park-queue 8 --workload-weight mine=1,dict=2``
+   and ``--emit-interval 0.2``, two port workers sharing the card and
+   the port's client, all under ``python -X importtime``: a MIN job over
+   2^34 nonces (equal to ``CudaMiner()``'s, every audit conclusive), the
+   genesis TARGET job (hashlib; its audit counters printed: the fast
+   path's sentinel leaves them inconclusive), phase 4d's SCRYPT job
+   (audits conclusive), phase 5's dict top-k with ``--stream`` beside a
+   MIN job over 2^35 that keeps the workers busy (Partial lines of
+   monotone coverage, the final equal to phase 5's), a hedge
+   drill (one worker stopped with SIGSTOP just before a MIN job's four
+   chunks are dispatched and continued once one is hedged, inside the
+   LSP loss horizon: the Result exact, a hedge counted, the stopped
+   worker's log showing the Cancel) and three submissions under one
+   client key at once (the third parked and drained); then the
+   coordinator is killed and restarted from its journal without the
+   park queue (its tenant's bucket restored) and the three submissions
+   run again (at least one refused and retried by the client, all
+   exact). Each incarnation's stats endpoint is read over HTTP before it
+   stops, held to what the phase saw, and printed. The import logs as in
+   5b.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
@@ -3173,6 +3202,19 @@ def dict_score(seed: int, candidate: bytes) -> int:
     return int.from_bytes(digest[:8], "little")
 
 
+def dict_catalog(log_dir):
+    """Phase 5's dict catalog: DICT_N seeded candidates written one a
+    line to a file for the client; returns the file's path, the
+    candidates and their top-k as hashlib scores them."""
+    rng = np.random.default_rng(SEED + 5)
+    cands = [b"candidate-%05d-%s" % (i, rng.bytes(6).hex().encode()) for i in range(DICT_N)]
+    path = os.path.join(log_dir, "e2e_dict_candidates.txt")
+    with open(path, "wb") as fh:
+        fh.write(b"\n".join(cands) + b"\n")
+    want = sorted([dict_score(DICT_SEED, c), i] for i, c in enumerate(cands))[:DICT_K]
+    return path, cands, want
+
+
 def phase_end_to_end_dict(addr, env, log_dir, client=("-m", "tpuminter.client"),
                           label="e2e") -> float:
     """A dict job through a client (``client``: the interpreter
@@ -3181,11 +3223,7 @@ def phase_end_to_end_dict(addr, env, log_dir, client=("-m", "tpuminter.client"),
     coordinator's 32 KiB window budget (its chunks ride window Setups),
     answered by the port worker alone and checked with hashlib. Returns
     its seconds."""
-    rng = np.random.default_rng(SEED + 5)
-    cands = [b"candidate-%05d-%s" % (i, rng.bytes(6).hex().encode()) for i in range(DICT_N)]
-    path = os.path.join(log_dir, "e2e_dict_candidates.txt")
-    with open(path, "wb") as fh:
-        fh.write(b"\n".join(cands) + b"\n")
+    path, _cands, want = dict_catalog(log_dir)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, *client, addr, "--workload", "dict",
                           "--variant", "topk", "--k", str(DICT_K), "--seed", str(DICT_SEED),
@@ -3198,7 +3236,6 @@ def phase_end_to_end_dict(addr, env, log_dir, client=("-m", "tpuminter.client"),
         fail(f"client dict job failed (rc {out.returncode}): {out.stdout}{out.stderr}")
     searched = int(re.search(r"searched=(\d+)", out.stdout).group(1))
     pairs = [[int(v), int(i)] for v, i in re.findall(r"value=(\d+) index=(\d+)", out.stdout)]
-    want = sorted([dict_score(DICT_SEED, c), i] for i, c in enumerate(cands))[:DICT_K]
     if (searched, pairs) != (DICT_N, want):
         fail(f"e2e dict topk: searched={searched} {pairs} != hashlib's {want}")
     say(f"  {label} dict topk (k = {DICT_K}) over {DICT_N} candidates: {pairs[0]} ... "
@@ -3460,6 +3497,458 @@ def phase_port_control_plane(hc_expect, scrypt_job, crash_expect, phase5, card: 
             log.close()
 
 
+# ---- phase 5c: the coordinator's policies on the card -----------------------
+
+#: nonces an audit re-mines (the coordinator's AUDIT_SAMPLE and
+#: AUDIT_SAMPLE_SCRYPT), the shapes phase 5c holds the kernels at
+AUDIT_N, AUDIT_N_SCRYPT = 256, 64
+#: phase 5c's coordinator: every single-loop policy on. Hedging at 0.3 s,
+#: well inside the loss horizon of the LSP settings the roles use (5
+#: silent epochs of 250 ms: a stopped worker is lost 1.0-1.25 s after its
+#: last heartbeat), so the hedge drill's stopped worker is hedged and
+#: continued before it is lost
+HEDGE_AFTER = 0.3
+POLICY_FLAGS = ("--roll-budget", "2", "--audit-rate", "1.0", "--hedge-after", str(HEDGE_AFTER),
+                "--stats-port", "0", "--stats-interval", "0.5", "--quota-rate", "1",
+                "--quota-burst", "2", "--max-jobs", "4", "--emit-interval", "0.2")
+PARK_FLAGS = ("--park-queue", "8", "--workload-weight", "mine=1,dict=2")
+#: the audited MIN job, the hedge drill's job (four 2^29-nonce chunks),
+#: the MIN job the dict stream runs beside, and the admission drills'
+#: jobs (three a drill under one client key)
+AUDITED_DATA, AUDITED_N = b"tpuminter_torch audited", 1 << 34
+HEDGE_DATA, HEDGE_N = b"tpuminter_torch hedge drill", 1 << 31
+LOAD_DATA, LOAD_N = b"tpuminter_torch beside the stream", 1 << 35
+QUOTA_DATA, QUOTA_N, QUOTA_KEY = "tpuminter_torch quota", 1 << 24, "chip-smoke-5c-tenant"
+#: three submissions under one client key at once through the port's
+#: client (``submit``), each printed, and the admission refusals it retried
+ADMISSION_DRILL = r"""
+import asyncio, logging, sys
+from tpuminter_torch.client import submit
+from tpuminter_torch.protocol import PowMode, Request
+host, port, key, base, n, data = sys.argv[1:7]
+refused = []
+class Refusals(logging.Handler):
+    def emit(self, record):
+        if "admission refused" in record.getMessage():
+            refused.append(record.getMessage())
+log = logging.getLogger("tpuminter_torch.client")
+log.setLevel(logging.INFO)
+log.addHandler(Refusals())
+reqs = [Request(int(base) + i, PowMode.MIN, 0, int(n) - 1, data=b"%s-%d" % (data.encode(), i))
+        for i in range(3)]
+async def main():
+    return await asyncio.gather(*(submit(host, int(port), r, client_key=key) for r in reqs))
+for r in asyncio.run(asyncio.wait_for(main(), 120)):
+    print("Result", r.job_id, r.hash_value, r.nonce, r.searched)
+print("Refused", len(refused))
+"""
+
+
+#: one MIN job through the port's client, submitted when a line arrives on
+#: stdin (so the caller can stop a worker just before it)
+HEDGE_DRILL = r"""
+import asyncio, sys
+from tpuminter_torch.client import submit
+from tpuminter_torch.protocol import PowMode, Request
+host, port, n, data = sys.argv[1:5]
+print("ready", flush=True)
+sys.stdin.readline()
+req = Request(1, PowMode.MIN, 0, int(n) - 1, data=data.encode())
+r = asyncio.run(asyncio.wait_for(submit(host, int(port), req), 120))
+print("Result", r.hash_value, r.nonce)
+"""
+#: a worker's log line for a Cancel, mid-chunk or between chunks
+CANCELLED = re.compile(r"worker: job \d+ cancelled[^\n]*")
+
+
+def phase_audit_shapes(card: str, rng):
+    """``CudaMiner()`` at its defaults on the ranges an audit sends: 256
+    nonces on the fast path (3h), on exact-min (2h: ``exact_min=True``
+    at the genesis target, and the defaults at regtest bits) and on MIN
+    (6t, also across a 2^32 low-word boundary); 64 nonces of SCRYPT (S1,
+    19, S2). Random bases; every Result against hashlib,
+    ``hashlib.scrypt`` or ``toy_hash``; every launch count 0 just before
+    and read just after. Returns the counts and each range's ms."""
+    from tpuminter_torch import chain, kernels
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.protocol import MIN_UNTRACKED, PowMode, Request
+
+    genesis = chain.GENESIS_HEADER.pack()
+    target = chain.bits_to_target(chain.GENESIS_HEADER.bits)
+    regtest = genesis[:72] + struct.pack("<I", REGTEST_BITS) + b"\0" * 4
+    ltc = ltc_genesis().pack()
+    ltc_target = chain.bits_to_target(LTC_GENESIS["bits"])
+    reset_launches(kernels)
+    miner, exact = CudaMiner(), CudaMiner(exact_min=True)
+    ms = {}
+
+    def mine(label, m, req):
+        t0 = time.perf_counter()
+        res = drain(m.mine(req))
+        ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def expect(req, hashes, tracked=True):
+        """The Result the reference's rules give: the first winner with
+        ``searched`` up to it, else the exact minimum (the fast path
+        tracks it only when a candidate surfaced)."""
+        for i, (h, n) in enumerate(hashes):
+            if req.mode.targeted and h <= req.target:
+                return (n, h, True, i + 1)
+        h, n = min(hashes)
+        if not tracked and h >> 224:
+            return (req.lower, MIN_UNTRACKED, False, len(hashes))
+        return (n, h, req.mode == PowMode.MIN, len(hashes))
+
+    def dsha(header, lo, hi):
+        return [(chain.hash_to_int(chain.dsha256(header[:76] + struct.pack("<I", n))), n)
+                for n in range(lo, hi + 1)]
+
+    for i in range(2):
+        lo = int(rng.integers(0, (1 << 32) - AUDIT_N))
+        req = Request(60 + i, PowMode.TARGET, lo, lo + AUDIT_N - 1, header=genesis, target=target)
+        res = mine("3h", miner, req)
+        want = expect(req, dsha(genesis, req.lower, req.upper), tracked=False)
+        if (res.nonce, res.hash_value, res.found, res.searched) != want:
+            fail(f"audit shape, fast path [{lo}, {req.upper}]: {res} != hashlib's {want}")
+        res = mine("2h", exact, req)
+        want = expect(req, dsha(genesis, req.lower, req.upper))
+        if (res.nonce, res.hash_value, res.found, res.searched) != want:
+            fail(f"audit shape, exact-min [{lo}, {req.upper}]: {res} != hashlib's {want}")
+        rt = Request(62 + i, PowMode.TARGET, lo, lo + AUDIT_N - 1, header=regtest,
+                     target=chain.bits_to_target(REGTEST_BITS))
+        res = mine("2h", miner, rt)
+        want = expect(rt, dsha(regtest, rt.lower, rt.upper))
+        if (res.nonce, res.hash_value, res.found, res.searched) != want:
+            fail(f"audit shape, regtest [{lo}, {rt.upper}]: {res} != hashlib's {want}")
+    for lo in (int(rng.integers(0, 1 << 40)), (1 << 32) - AUDIT_N // 2):
+        req = Request(64, PowMode.MIN, lo, lo + AUDIT_N - 1, data=MIN_DATA)
+        res = mine("6t", miner, req)
+        want = expect(req, [(chain.toy_hash(MIN_DATA, n), n) for n in range(lo, lo + AUDIT_N)])
+        if (res.nonce, res.hash_value, res.found, res.searched) != want:
+            fail(f"audit shape, MIN [{lo}, {req.upper}]: {res} != toy_hash's {want}")
+    for i in range(2):
+        lo = int(rng.integers(0, (1 << 32) - AUDIT_N_SCRYPT))
+        req = Request(65 + i, PowMode.SCRYPT, lo, lo + AUDIT_N_SCRYPT - 1, header=ltc,
+                      target=ltc_target)
+        res = mine("S1+19+S2", miner, req)
+        hashes = [(chain.hash_to_int(chain.scrypt_hash(ltc[:76] + struct.pack("<I", n))), n)
+                  for n in range(req.lower, req.upper + 1)]
+        want = expect(req, hashes)
+        if (res.nonce, res.hash_value, res.found, res.searched) != want:
+            fail(f"audit shape, SCRYPT [{lo}, {req.upper}]: {res} != hashlib.scrypt's {want}")
+    launches = read_launches(kernels, ("sha256_batch", "search_candidates_header",
+                                       "search_target_header", "min_toy_toy") +
+                             SCRYPT_PATH_KERNELS, "audit-shape", FIXED_PATH_GENERIC)
+    for label, runs in ms.items():
+        say(f"  audit shape {label}: {len(runs)} ranges of {AUDIT_N_SCRYPT if label[0] == 'S' else AUDIT_N} "
+            f"nonces, each Result checked; ms a range {', '.join(f'{t:.3f}' for t in runs)} on {card}")
+    del miner, exact
+    torch.cuda.empty_cache()
+    return launches, {k: [round(t, 3) for t in v] for k, v in ms.items()}
+
+
+def stats_get(stats_port: int) -> dict:
+    """One GET of a coordinator's stats endpoint."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{stats_port}", timeout=10) as rsp:
+        return json.load(rsp)
+
+
+def phase_port_policies(scrypt_job, card: str) -> dict:
+    """Phase 5c: the port's coordinator as a process with a journal and
+    every single-loop policy on (audits at rate 1, hedging, the stats
+    endpoint, quotas, the job cap, the park queue, streaming), two port
+    workers sharing the card, the port's client; every process under
+    ``python -X importtime``. Jobs: an audited MIN job over 2^34 nonces
+    (exact against ``CudaMiner()``, every audit conclusive), the genesis
+    TARGET job (hashlib; its audit counters printed), phase 4d's SCRYPT
+    job (audits conclusive), phase 5's dict top-k streamed beside a MIN
+    job over 2^35 (Partial lines, monotone coverage, the final equal to
+    phase 5's), a hedge drill (one worker stopped with SIGSTOP while its
+    chunks are in flight, continued inside the LSP loss horizon: the
+    Result exact, a hedge counted, the loser's log showing the Cancel),
+    and three
+    submissions under one client key at once: parked and drained here.
+    Then the coordinator is killed and restarted from its journal
+    without the park queue (the tenant's bucket restored from the
+    journal) and the three submissions again: refused and retried by
+    the client. Each incarnation's stats endpoint is read before it
+    stops and held to what the phase saw. Returns the numbers."""
+    from tpuminter_torch import chain
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.protocol import PowMode, Request
+
+    audited = drain(CudaMiner().mine(Request(70, PowMode.MIN, 0, AUDITED_N - 1,
+                                             data=AUDITED_DATA)))
+    hedged = drain(CudaMiner().mine(Request(71, PowMode.MIN, 0, HEDGE_N - 1, data=HEDGE_DATA)))
+    quota_expect = [drain(CudaMiner().mine(Request(
+        72, PowMode.MIN, 0, QUOTA_N - 1, data=b"%s-%d" % (QUOTA_DATA.encode(), i))))
+        for i in range(3)]
+    torch.cuda.empty_cache()
+    log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
+    os.makedirs(log_dir, exist_ok=True)
+    env = repo_env()
+    port = free_udp_port()
+    addr = f"127.0.0.1:{port}"
+    journal = os.path.join(log_dir, "e2e5c_coordinator.wal")
+    if os.path.exists(journal):
+        os.remove(journal)
+    importtime = (sys.executable, "-X", "importtime")
+    procs, logs, out = [], [], {"seconds": {}}
+
+    def log_text(name):
+        with open(os.path.join(log_dir, f"e2e5c_{name}.log")) as fh:
+            return fh.read()
+
+    def start(name, args):
+        log = open(os.path.join(log_dir, f"e2e5c_{name}.log"), "w")
+        logs.append((name, log))
+        procs.append(subprocess.Popen([*importtime, "-m", *args], cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+        return procs[-1]
+
+    def start_coordinator(name, flags):
+        proc = start(name, ["tpuminter_torch.coordinator", str(port), *flags, "--journal",
+                            journal])
+        deadline = time.time() + 60
+        while not (m := re.search(r"stats endpoint on http://127.0.0.1:(\d+)", log_text(name))):
+            if proc.poll() is not None or time.time() > deadline:
+                fail(f"phase 5c: the coordinator ({name}) did not start")
+            time.sleep(0.1)
+        return proc, int(m.group(1))
+
+    def wait_workers(stats_port, n=2):
+        deadline = time.time() + 120
+        while len(stats_get(stats_port)["workers"]) < n:
+            if time.time() > deadline:
+                fail(f"phase 5c: {n} workers did not join")
+            time.sleep(0.2)
+
+    def client(job, args, python=("-m", "tpuminter_torch.client", addr)):
+        t0 = time.perf_counter()
+        res = subprocess.run([*importtime, *python, *args], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        out["seconds"][job] = time.perf_counter() - t0
+        check_imports(f"the 5c {job} client", res.stderr, torch_too=True)
+        if res.returncode != 0:
+            fail(f"phase 5c client {job} failed (rc {res.returncode}): {res.stdout}"
+                 f"{res.stderr[-2000:]}")
+        return res.stdout
+
+    def result_line(job, text):
+        lines = [ln for ln in text.splitlines() if ln.startswith("Result ")]
+        if len(lines) != 1:
+            fail(f"phase 5c {job}: {len(lines)} Result lines: {text}")
+        return lines[0].split()
+
+    def audits(stats_port):
+        s = stats_get(stats_port)["stats"]
+        return {k: s[k] for k in ("audits_done", "audits_failed", "audits_inconclusive")}
+
+    def admission_drill(label, stats_port, base):
+        text = client(label, [addr.split(":")[0], str(port), QUOTA_KEY, str(base), str(QUOTA_N),
+                              QUOTA_DATA], python=("-c", ADMISSION_DRILL))
+        got = [ln.split() for ln in text.splitlines() if ln.startswith("Result ")]
+        refused = int(re.search(r"^Refused (\d+)", text, re.M).group(1))
+        if len(got) != 3:
+            fail(f"phase 5c {label}: {text}")
+        for (_, jid, h, n, searched), want in zip(got, quota_expect):
+            if (int(h), int(n), int(searched)) != (want.hash_value, want.nonce, QUOTA_N):
+                fail(f"phase 5c {label}: job {jid} {h} {n} != CudaMiner's {want}")
+        return refused
+
+    try:
+        coordinator, sp = start_coordinator("coordinator", POLICY_FLAGS + PARK_FLAGS)
+        workers = [start(f"worker{i}", ["tpuminter_torch.worker", "--coordinator", addr,
+                                        "--reconnect"]) for i in range(2)]
+        wait_workers(sp)
+        # 1. the audited MIN job: exact, and every audit conclusive
+        _, fold, nonce = result_line("min", client("min", [AUDITED_DATA.decode(),
+                                                           str(AUDITED_N - 1)]))
+        if (int(fold), int(nonce)) != (audited.hash_value, audited.nonce):
+            fail(f"5c MIN: {fold} {nonce} != CudaMiner's {audited.hash_value} {audited.nonce}")
+        a_min = audits(sp)
+        if a_min["audits_done"] < 1 or a_min["audits_failed"] or a_min["audits_inconclusive"]:
+            fail(f"5c MIN: the audits did not all conclude: {a_min}")
+        say(f"  5c MIN over 2^34, audited: Result {fold} {nonce}, equal to CudaMiner's; "
+            f"{a_min} ({out['seconds']['min']:.1f} s through the port's client; {card})")
+        # 2. the genesis TARGET job: the fast path's sentinel leaves its audits inconclusive
+        genesis = chain.GENESIS_HEADER
+        _, hash_hex, nonce = result_line("genesis", client("genesis", [
+            "--header", genesis.pack().hex(), "--bits", hex(genesis.bits), "--max-nonce",
+            str(GENESIS_NONCE + 4095)]))
+        digest = genesis.with_nonce(int(nonce)).block_hash()
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
+            fail(f"5c genesis Result {hash_hex} {nonce} fails the hashlib check")
+        time.sleep(0.3)  # the retired job's audits in flight settle
+        a_gen = audits(sp)
+        delta = {k: a_gen[k] - a_min[k] for k in a_gen}
+        say(f"  5c genesis TARGET: Result {hash_hex} {nonce} (hashlib-checked); its audits "
+            f"{delta} ({out['seconds']['genesis']:.1f} s)")
+        # 3. phase 4d's SCRYPT job: its audits conclude
+        _, hash_hex, nonce = result_line("scrypt", client("scrypt", [
+            "--header", scrypt_job["header"].hex(), "--bits", hex(scrypt_job["bits"]),
+            "--scrypt", "--max-nonce", str(scrypt_job["max_nonce"])]))
+        hdr = chain.BlockHeader.unpack(scrypt_job["header"]).with_nonce(int(nonce)).pack()
+        digest = chain.scrypt_hash(hdr)
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(scrypt_job["bits"]):
+            fail(f"5c SCRYPT Result {hash_hex} {nonce} fails the hashlib.scrypt check")
+        time.sleep(0.3)
+        a_scr = audits(sp)
+        delta_s = {k: a_scr[k] - a_gen[k] for k in a_scr}
+        if delta_s["audits_failed"] or delta_s["audits_inconclusive"]:
+            fail(f"5c SCRYPT: an audit failed or ended inconclusive: {delta_s}")
+        say(f"  5c SCRYPT: Result {hash_hex} {nonce} (hashlib.scrypt-checked); its audits "
+            f"{delta_s} ({out['seconds']['scrypt']:.1f} s)")
+        # 4. phase 5's dict top-k, streamed beside a MIN job that keeps both
+        # workers busy, so its chunks settle between MIN chunks: a dict job
+        # alone on the fleet settles within one journal fsync, and a stream
+        # whose last settle retires the job before its first is durable
+        # emits nothing
+        path, _cands, want = dict_catalog(log_dir)
+        busy = subprocess.Popen([*importtime, "-m", "tpuminter_torch.client", addr,
+                                 LOAD_DATA.decode(), str(LOAD_N - 1), "--timeout", "120"],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        procs.append(busy)
+        deadline = time.time() + 30
+        while not stats_get(sp)["jobs_active"]:
+            if busy.poll() is not None or time.time() > deadline:
+                fail("5c: the MIN job beside the dict stream did not start")
+            time.sleep(0.02)
+        text = client("dict stream", ["--workload", "dict", "--variant", "topk", "--k",
+                                      str(DICT_K), "--seed", str(DICT_SEED), "--candidates",
+                                      path, "--stream"])
+        partials = [int(c) for c, _t in re.findall(r"^Partial \[(\d+)/(\d+) ", text, re.M)]
+        pairs = [[int(v), int(i)] for v, i in re.findall(r"value=(\d+) index=(\d+)",
+                                                         text.split("Result [dict]")[-1])]
+        searched = int(re.search(r"searched=(\d+)", text).group(1))
+        if not partials or partials != sorted(set(partials)) or partials[-1] >= DICT_N:
+            fail(f"5c dict stream: Partial coverage {partials} is empty or not monotone")
+        if (searched, pairs) != (DICT_N, want):
+            fail(f"5c dict stream: searched={searched} {pairs} != phase 5's {want}")
+        text, err = busy.communicate(timeout=120)
+        check_imports("the 5c busy MIN client", err, torch_too=True)
+        _, fold, nonce = result_line("busy MIN", text)
+        if int(fold) != chain.toy_hash(LOAD_DATA, int(nonce)):
+            fail(f"5c MIN beside the stream: Result {fold} {nonce} fails the toy_hash check")
+        say(f"  5c dict top-k streamed beside a MIN job over 2^35: {len(partials)} Partial "
+            f"lines, coverage {partials}, the final equal to phase 5's "
+            f"({out['seconds']['dict stream']:.1f} s); the MIN job's Result toy_hash-checked")
+        # 6. the hedge drill: stop a worker, submit, continue it once hedged
+        hedged_before = stats_get(sp)["stats"]["chunks_hedged"]
+        died_before = log_text("coordinator").count(" died")
+        cancels = CANCELLED.findall(log_text("worker1"))
+        drill = subprocess.Popen([*importtime, "-c", HEDGE_DRILL, addr.split(":")[0], str(port),
+                                  str(HEDGE_N), HEDGE_DATA.decode()], cwd=ROOT, env=env,
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        procs.append(drill)
+        if drill.stdout.readline().strip() != "ready":
+            fail("5c hedge drill: the client did not start")
+        workers[1].send_signal(signal.SIGSTOP)
+        t_stop = time.perf_counter()
+        try:
+            drill.stdin.write("go\n")
+            drill.stdin.flush()
+            while (stats_get(sp)["stats"]["chunks_hedged"] == hedged_before
+                   and time.perf_counter() - t_stop < 0.7):
+                time.sleep(0.01)
+            time.sleep(0.1)  # the backup mines its copy (one 2^29-nonce chunk)
+        finally:
+            workers[1].send_signal(signal.SIGCONT)
+        stopped = time.perf_counter() - t_stop
+        text, err = drill.communicate(timeout=120)
+        out["seconds"]["hedge"] = time.perf_counter() - t_stop
+        check_imports("the 5c hedge client", err, torch_too=True)
+        _, fold, nonce = result_line("hedge", text)
+        if (int(fold), int(nonce)) != (hedged.hash_value, hedged.nonce):
+            fail(f"5c hedge drill: {fold} {nonce} != CudaMiner's {hedged.hash_value} "
+                 f"{hedged.nonce}")
+        if log_text("coordinator").count(" died") != died_before:
+            fail(f"5c hedge drill: the stopped worker was lost ({stopped:.3f} s stopped)")
+        hedges = stats_get(sp)["stats"]["chunks_hedged"] - hedged_before
+        if hedges < 1:
+            fail(f"5c hedge drill: no chunk hedged in {stopped:.3f} s stopped")
+        deadline = time.time() + 10
+        while len(CANCELLED.findall(log_text("worker1"))) <= len(cancels):
+            if time.time() > deadline:
+                fail("5c hedge drill: the stopped worker's log shows no Cancel")
+            time.sleep(0.1)
+        loser_line = CANCELLED.findall(log_text("worker1"))[len(cancels)]
+        out["hedge"] = {"stopped_s": round(stopped, 3), "hedged": hedges}
+        say(f"  5c hedge drill: a worker stopped {stopped:.3f} s with its chunks in flight; "
+            f"{hedges} chunk(s) hedged onto the other, Result {fold} {nonce} equal to "
+            f"CudaMiner's; the stopped worker's log: {loser_line!r} "
+            f"({out['seconds']['hedge']:.1f} s)")
+        # 5a. three submissions under one key at once: the third parks
+        refused = admission_drill("admission (park)", sp, 100)
+        snap1 = stats_get(sp)
+        s1 = snap1["stats"]
+        if (s1["jobs_done"] != 9 or s1["emits_sent"] < 1 or s1["chunks_hedged"] < 1
+                or s1["jobs_parked"] < 1 or s1["parked_drained"] < 1 or refused
+                or s1["refused_admission"] or s1["audits_failed"]):
+            fail(f"5c: the stats endpoint disagrees with the phase: {s1} (refused {refused})")
+        say(f"  5c three submissions under one key at once, --park-queue 8: {s1['jobs_parked']} "
+            f"parked and drained, none refused; all three exact "
+            f"({out['seconds']['admission (park)']:.1f} s)")
+        say(f"  5c stats endpoint: {json.dumps(snap1, sort_keys=True)}")
+        time.sleep(1.0)  # the stats tick journals the tenant's bucket
+        coordinator.kill()
+        coordinator.wait()
+        # 5b. restarted from the journal without the park queue: refused, retried
+        coordinator, sp = start_coordinator("coordinator2", POLICY_FLAGS)
+        restored = stats_get(sp)["quota_buckets"]
+        if restored < 1:
+            fail("5c: the restarted coordinator restored no tenant bucket from its journal")
+        wait_workers(sp)
+        refused = admission_drill("admission (refuse)", sp, 200)
+        snap2 = stats_get(sp)
+        s2 = snap2["stats"]
+        if refused < 1 or s2["refused_admission"] < 1 or s2["jobs_done"] != 3:
+            fail(f"5c: no refusal retried, or the endpoint disagrees: {s2} (refused {refused})")
+        say(f"  5c restarted from its journal ({restored} tenant bucket restored), no park "
+            f"queue: the same three submissions, {refused} refused and retried by the client, "
+            f"all three exact ({out['seconds']['admission (refuse)']:.1f} s)")
+        say(f"  5c stats endpoint: {json.dumps(snap2, sort_keys=True)}")
+        for w in workers:
+            if w.poll() is not None:
+                fail("5c: a port worker exited early")
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            proc.wait(timeout=30)
+        for name in ("coordinator", "coordinator2", "worker0", "worker1"):
+            check_imports(f"the 5c {name}", log_text(name), torch_too=not name.startswith("w"))
+        say("  5c imports (python -X importtime): no jax, jaxlib or tpuminter module in any "
+            "process; no torch in the coordinator and the clients")
+        out.update(stats=s1, stats_restarted=s2, audits_min=a_min,
+                   audits_genesis=delta, audits_scrypt=delta_s, partials=len(partials))
+        return out
+    except BaseException:
+        for name, log in logs:
+            log.flush()
+            print(f"--- 5c {name} log tail ---\n{log_text(name)[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGCONT)
+                proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for _, log in logs:
+            log.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to test", file=sys.stderr)
@@ -3541,8 +4030,13 @@ def main() -> int:
     port_seconds = phase_port_control_plane(hc_expect, scrypt_job, crash_expect, e2e_seconds,
                                             card_tag)
 
+    phase("5c. the coordinator's policies on the port: audits, hedging, admission, streaming, "
+          "the stats endpoint")
+    audit_launches, audit_ms = phase_audit_shapes(card_tag, np.random.default_rng(SEED + 6))
+    policies = phase_port_policies(scrypt_job, card_tag)
+
     paths = {"fixed": fixed, "profiled": profiled, "rolled": rolled, "hashcore": hashcore,
-             "scrypt": scrypt, "pod": pod_launches}
+             "scrypt": scrypt, "pod": pod_launches, "audit": audit_launches}
     rows = []
     for name, st in stats.items():
         t = st.timing
@@ -3577,6 +4071,7 @@ def main() -> int:
     say(json.dumps({"control_plane": {"phase5_seconds": e2e_seconds,
                                       "phase5b_seconds": port_seconds}}))
     say(json.dumps({"pod": pod_info}))
+    say(json.dumps({"policies": {"audit_shape_ms": audit_ms, **policies}}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
         k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -96,3 +96,50 @@ def test_no_port_source_imports_jax_or_the_jax_package():
         for f in files
     }
     assert {f: roots for f, roots in offenders.items() if roots} == {}
+
+
+_POLICY_FLAGS = ["--roll-budget", "2", "--hedge-after", "1", "--audit-rate", "1.0",
+                 "--stats-port", "0", "--quota-rate", "1", "--quota-burst", "2",
+                 "--quota-tier", "gold=4", "--max-jobs", "4", "--retry-after-ms", "100",
+                 "--winners-ttl", "60", "--unbound-ttl", "60", "--park-queue", "8",
+                 "--workload-weight", "mine=1,dict=2", "--emit-interval", "0.2"]
+
+
+def test_coordinator_with_every_policy_flag_loads_neither_torch_nor_jax(tmp_path):
+    """``python -X importtime -m tpuminter_torch.coordinator`` with a
+    journal and every policy flag: it serves its stats endpoint, dumps
+    the same snapshot to its log on SIGUSR1, and no module of torch,
+    JAX or the JAX package appears in its import log."""
+    import json
+    import re
+    import signal
+    import time
+    import urllib.request
+
+    log = tmp_path / "coordinator.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "tpuminter_torch.coordinator", "0",
+             "--journal", str(tmp_path / "c.wal"), *_POLICY_FLAGS],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 30
+            while not (m := re.search(r"stats endpoint on http://127.0.0.1:(\d+)",
+                                      log.read_text())):
+                assert proc.poll() is None and time.monotonic() < deadline, log.read_text()
+                time.sleep(0.05)
+            with urllib.request.urlopen(f"http://127.0.0.1:{m.group(1)}", timeout=5) as rsp:
+                snap = json.load(rsp)
+            assert snap["stats"]["jobs_done"] == 0 and "journal" in snap
+            proc.send_signal(signal.SIGUSR1)
+            while "stats: {" not in log.read_text():
+                assert proc.poll() is None and time.monotonic() < deadline, log.read_text()
+                time.sleep(0.05)
+        finally:
+            proc.kill()
+            proc.wait()
+    mods = re.findall(r"^import time:\s+\d+\s+\|\s+\d+\s+\|\s+(\S+)", log.read_text(), re.M)
+    assert "tpuminter_torch.journal" in {m.strip() for m in mods}
+    bad = sorted({m for m in mods
+                  if m.split(".")[0] in ("torch", "jax", "jaxlib", "tpuminter")})
+    assert bad == []

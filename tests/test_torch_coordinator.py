@@ -4,7 +4,9 @@
   same ``Join`` and answers every dispatch the same way, for one client
   ``Request``; the raw ``Setup``/``Assign``/``RollAssign``/``Cancel``
   payloads each coordinator sends must be equal, byte for byte, and so
-  must the final Results.
+  must the final Results. With audits on (``audit_rate=1.0`` under one
+  ``audit_seed``, one chunk at a time) the lone peer audits itself, so
+  the audit dispatches drawn from the seeded generator are in the trace.
 - *Same Results*: each dialect and workload through the port's three
   roles (worker on ``device="cpu"``) and through the reference's.
 - *Interop*: the port's coordinator with the reference's worker and
@@ -128,7 +130,9 @@ def _answer(tmpl, msg):
                        searched=req.upper - req.lower + 1, chunk_id=msg.chunk_id)]
 
 
-async def _trace(impl, join, request, coord_kwargs):
+async def _trace(impl, join, request, coord_kwargs, stats=None):
+    """The raw payloads the peer read and the final Result; ``stats``, a
+    dict, receives the coordinator's counters at the end."""
     Coord, params, sub, sub_params = _impl(impl)
     coord = await Coord.create(params=params, **coord_kwargs)
     serve = asyncio.ensure_future(coord.serve())
@@ -163,6 +167,8 @@ async def _trace(impl, join, request, coord_kwargs):
                         break
                 break
         result = await asyncio.wait_for(job, 5)
+        if stats is not None:
+            stats.update(coord.stats)
     finally:
         await peer.close(drain_timeout=0.5)  # drains while the coordinator acks
         await _stop(coord, serve)
@@ -193,6 +199,17 @@ TRACES = {
                      ref.Request(6, ref.PowMode.MIN, 0, len(_cat) - 1,
                                  data=ref_ds.pack_params("fmin", 3, _cat), workload="dict"),
                      {"chunk_size": 512}),
+    # MIN audits conclude (each sub-range re-mined exactly); the TARGET
+    # peer answers with the sentinel, so each audit ends inconclusive
+    # after MAX_AUDIT_RETRIES re-dispatches
+    "min-audit": (ref.Join(backend="cpu", lanes=1),
+                  ref.Request(7, ref.PowMode.MIN, 0, 4095, data=b"audit trace"),
+                  {"chunk_size": 512, "audit_rate": 1.0, "audit_seed": 5, "pipeline_depth": 1}),
+    "target-audit": (ref.Join(backend="cuda", lanes=2, codec="bin"),
+                     ref.Request(8, ref.PowMode.TARGET, 0, 3000, header=GENESIS.pack(),
+                                 target=1),
+                     {"chunk_size": 512, "audit_rate": 1.0, "audit_seed": 5,
+                      "pipeline_depth": 1}),
 }
 
 

@@ -265,6 +265,7 @@ async def run_miner(
                     continue
             if isinstance(msg, Cancel):
                 templates.pop(msg.job_id, None)
+                log.info("worker: job %d cancelled between chunks", msg.job_id)
                 continue  # not the job being mined: stale
             if isinstance(msg, Setup):
                 templates[msg.request.job_id] = msg.request
