@@ -186,6 +186,25 @@ caught), and without a CUDA device the script exits non-zero at once:
    exact). Each incarnation's stats endpoint is read over HTTP before it
    stops, held to what the phase saw, and printed. The import logs as in
    5b.
+5d. a failover drill on the port: a hot standby (``python -m
+   tpuminter_torch.replication P1 --wal S --port P2 --promote-after
+   1.5``), the port's coordinator on P1 with a journal, ``--replicate-to
+   127.0.0.1:P2 --replica-ack --roll-budget 2 --stats-port 0``, two port
+   workers on the card and the port's client, both given ``P1,P2`` and
+   ``--reconnect``, every process under ``python -X importtime``: the
+   genesis job under a client key (its seconds beside 5b's), then a MIN
+   job over 2^35 nonces; once 16 chunks are settled and the lane's acked
+   offset has passed the journal's size read then, the primary is
+   killed (SIGKILL). The standby promotes at a fenced epoch, the MIN
+   Result must equal ``CudaMiner()``'s, the genesis re-submission is
+   answered from the promoted winner table with no job minted, phase
+   4d's SCRYPT job runs through the promoted coordinator, and the old
+   primary restarted on its journal with ``--replicate-to P2`` must log
+   FENCED while the promoted one logs its RepHello rejected. Printed:
+   seconds from the kill to the promotion and to the MIN Result, the
+   job's coverage in what the standby had acked, in what it adopted and
+   in the primary's own journal, and the share mined twice. The import
+   logs as in 5b, the standby's free of torch too.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. This script imports neither JAX nor the JAX package:
@@ -3949,6 +3968,270 @@ def phase_port_policies(scrypt_job, card: str) -> dict:
             log.close()
 
 
+# ---- phase 5d: a failover drill on the card ----------------------------------
+
+#: the MIN job across the kill (64 of the coordinator's 2^29-nonce chunks),
+#: the chunks settled before the kill, and the standby's promotion threshold
+FAILOVER_DATA, FAILOVER_N = b"tpuminter_torch failover drill", 1 << 35
+FAILOVER_SETTLED = 16
+PROMOTE_AFTER_S = 1.5
+
+
+def settled_count(state, data: bytes, n: int) -> int:
+    """Nonces of the MIN job over ``data`` that a replayed journal state
+    holds settled (0 when the job is not live in it)."""
+    for job in state.jobs.values():
+        if job.request.data == data:
+            return n - sum(hi - lo + 1 for lo, hi in job.remaining)
+    return 0
+
+
+def phase_port_failover(scrypt_job, phase5b, card: str) -> dict:
+    """Phase 5d: a port standby (``python -m tpuminter_torch.replication
+    P1 --wal S --port P2 --promote-after 1.5``), the port's coordinator
+    on P1 with a journal, ``--replicate-to 127.0.0.1:P2 --replica-ack
+    --roll-budget 2 --stats-port 0``, two port workers on the card and
+    the port's client, both given ``P1,P2`` and ``--reconnect``; every
+    process under ``python -X importtime``. The genesis TARGET job under
+    a client key (its seconds beside phase 5b's: the replica-ack's
+    cost), then a MIN job over 2^35 nonces: once ``FAILOVER_SETTLED``
+    chunks are settled and the lane's acked offset has passed the
+    journal's size read then, the primary is killed (SIGKILL). The
+    standby promotes; the MIN Result must equal ``CudaMiner()``'s, the
+    genesis re-submission is answered from the winner table (no job
+    minted), phase 4d's SCRYPT job runs through the promoted
+    coordinator, and the old primary restarted on its journal with
+    ``--replicate-to P2`` must be fenced. Returns the drill's figures."""
+    from tpuminter_torch import chain
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.journal import replay, scan
+    from tpuminter_torch.protocol import PowMode, Request
+    from tpuminter_torch.replication import FENCE_JUMP
+
+    expect = drain(CudaMiner().mine(Request(80, PowMode.MIN, 0, FAILOVER_N - 1,
+                                            data=FAILOVER_DATA)))
+    torch.cuda.empty_cache()
+    log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
+    os.makedirs(log_dir, exist_ok=True)
+    env = repo_env()
+    p1 = free_udp_port()
+    p2 = free_udp_port()
+    while p2 == p1:
+        p2 = free_udp_port()
+    addrs = f"127.0.0.1:{p1},127.0.0.1:{p2}"
+    wal, copy = (os.path.join(log_dir, f"e2e5d_{n}.wal") for n in ("primary", "standby"))
+    for path in (wal, copy):
+        if os.path.exists(path):
+            os.remove(path)
+    importtime = (sys.executable, "-X", "importtime")
+    procs, logs, out = [], [], {"seconds": {}}
+
+    def log_text(name):
+        with open(os.path.join(log_dir, f"e2e5d_{name}.log")) as fh:
+            return fh.read()
+
+    def start(name, args):
+        log = open(os.path.join(log_dir, f"e2e5d_{name}.log"), "w")
+        logs.append((name, log))
+        procs.append(subprocess.Popen([*importtime, "-m", *args], cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+        return procs[-1]
+
+    def wait_log(name, pattern, seconds, what):
+        deadline = time.time() + seconds
+        while not (m := re.search(pattern, log_text(name))):
+            if time.time() > deadline:
+                fail(f"phase 5d: {what}")
+            time.sleep(0.01)
+        return m
+
+    def client_args(args):
+        return [*importtime, "-m", "tpuminter_torch.client", addrs, *args, "--reconnect",
+                "--timeout", "300"]
+
+    def client(job, args):
+        t0 = time.perf_counter()
+        res = subprocess.run(client_args(args), cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=400)
+        out["seconds"][job] = time.perf_counter() - t0
+        check_imports(f"the 5d {job} client", res.stderr, torch_too=True)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("Result ")]
+        if res.returncode != 0 or len(lines) != 1:
+            fail(f"phase 5d client {job} failed (rc {res.returncode}): {res.stdout}"
+                 f"{res.stderr[-2000:]}")
+        return lines[0]
+
+    def primary_stats():
+        return stats_get(stats_port)
+
+    try:
+        start("standby", ["tpuminter_torch.replication", f"127.0.0.1:{p1}", "--wal", copy,
+                          "--port", str(p2), "--promote-after", str(PROMOTE_AFTER_S)])
+        wait_log("standby", r"standby listening on port", 60, "the standby did not start")
+        primary = start("primary", ["tpuminter_torch.coordinator", str(p1), "--journal", wal,
+                                    "--replicate-to", f"127.0.0.1:{p2}", "--replica-ack",
+                                    "--roll-budget", "2", "--stats-port", "0"])
+        stats_port = int(wait_log("primary", r"stats endpoint on http://127.0.0.1:(\d+)", 60,
+                                  "the primary did not start").group(1))
+        deadline = time.time() + 30
+        while not primary_stats()["replication"][0]["synced"]:
+            if time.time() > deadline:
+                fail("phase 5d: the primary's lane never synced with the standby")
+            time.sleep(0.05)
+        workers = [start(f"worker{i}", ["tpuminter_torch.worker", "--coordinator", addrs,
+                                        "--reconnect"]) for i in range(2)]
+        # 4. the genesis job under a key: answered once a standby acked its finish
+        genesis = chain.GENESIS_HEADER
+        genesis_args = ["--header", genesis.pack().hex(), "--bits", hex(genesis.bits),
+                        "--max-nonce", str(GENESIS_NONCE + 4095), "--client-key",
+                        "chip-smoke-5d-genesis"]
+        genesis_line = client("genesis", genesis_args)
+        _, hash_hex, nonce = genesis_line.split()
+        digest = genesis.with_nonce(int(nonce)).block_hash()
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
+            fail(f"5d genesis Result {hash_hex} {nonce} fails the hashlib check")
+        say(f"  5d genesis TARGET, --replica-ack: Result {hash_hex} {nonce} (hashlib-checked; "
+            f"{out['seconds']['genesis']:.2f} s through the port's client; phase 5b "
+            f"{phase5b['genesis']:.2f} s; {card})")
+        deadline = time.time() + 60
+        while len(primary_stats()["workers"]) < 2:
+            if time.time() > deadline:
+                fail("phase 5d: two workers did not join the primary")
+            time.sleep(0.05)
+        # 5. the MIN job; kill the primary once enough is settled and acked
+        base = primary_stats()["stats"]["results_accepted"]
+        t_start = time.perf_counter()
+        min_client = subprocess.Popen(
+            client_args([FAILOVER_DATA.decode(), str(FAILOVER_N - 1), "--client-key",
+                         "chip-smoke-5d-min"]),
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(min_client)
+        deadline = time.time() + 120
+        while (snap := primary_stats())["stats"]["results_accepted"] - base < FAILOVER_SETTLED:
+            if min_client.poll() is not None or time.time() > deadline:
+                fail(f"phase 5d: the MIN job settled no {FAILOVER_SETTLED} chunks before it "
+                     f"ended: {snap['stats']}")
+            time.sleep(0.005)
+        size_then = os.path.getsize(wal)
+        while (snap := primary_stats())["replication"][0]["acked"] < size_then:
+            if min_client.poll() is not None or time.time() > deadline:
+                fail(f"phase 5d: the standby never acked past {size_then} bytes: "
+                     f"{snap['replication']}")
+            time.sleep(0.002)
+        acked = snap["replication"][0]["acked"]
+        settled_chunks = snap["stats"]["results_accepted"] - base
+        primary.kill()
+        t_kill = time.perf_counter()
+        primary.wait()
+        lane = snap["replication"][0]
+        # 6. the standby promotes; the MIN job ends on it
+        wait_log("standby", r"standby PROMOTED", 60, "the standby never promoted")
+        out["promote_s"] = time.perf_counter() - t_kill
+        text, err = min_client.communicate(timeout=300)
+        out["result_s"] = time.perf_counter() - t_kill
+        out["seconds"]["min"] = time.perf_counter() - t_start
+        check_imports("the 5d MIN client", err, torch_too=True)
+        lines = [ln for ln in text.splitlines() if ln.startswith("Result ")]
+        if min_client.returncode != 0 or len(lines) != 1:
+            fail(f"phase 5d MIN: rc {min_client.returncode}: {text}{err[-2000:]}")
+        _, fold, nonce = lines[0].split()
+        if (int(fold), int(nonce)) != (expect.hash_value, expect.nonce):
+            fail(f"5d MIN across the kill: {fold} {nonce} != CudaMiner's {expect.hash_value} "
+                 f"{expect.nonce}")
+        promoted = re.search(r"standby PROMOTED: epoch (\d+) \(fenced (\d+) \+ (\d+)\)",
+                             log_text("standby"))
+        epoch, fenced_from = int(promoted.group(1)), int(promoted.group(2))
+        if epoch < fenced_from + FENCE_JUMP:
+            fail(f"5d: promoted at epoch {epoch}, not fenced above {fenced_from}")
+        say(f"  5d MIN over 2^{FAILOVER_N.bit_length() - 1}, the primary killed after {settled_chunks} settled chunks, "
+            f"the standby acked {acked} bytes: Result {fold} {nonce}, equal to CudaMiner's; "
+            f"promoted {out['promote_s']:.2f} s after the kill at epoch {epoch} (the primary's "
+            f"{fenced_from} + {FENCE_JUMP}), the Result {out['result_s']:.2f} s after it")
+        # the genesis job again: from the promoted winner table, no job minted
+        minted = len(re.findall(r"client \d+ submitted job", log_text("standby")))
+        again = client("genesis again", genesis_args)
+        if again != genesis_line:
+            fail(f"5d: the promoted coordinator answered the genesis job with {again}, not "
+                 f"{genesis_line}")
+        if "re-delivering the journaled winner" not in log_text("standby") or \
+                len(re.findall(r"client \d+ submitted job", log_text("standby"))) != minted:
+            fail("5d: the genesis re-submission was not answered from the winner table")
+        say(f"  5d the genesis job re-submitted under its key: the identical Result from the "
+            f"promoted winner table, no job minted ({out['seconds']['genesis again']:.2f} s)")
+        # 7. phase 4d's SCRYPT job through the promoted coordinator
+        line = client("scrypt", ["--header", scrypt_job["header"].hex(), "--bits",
+                                 hex(scrypt_job["bits"]), "--scrypt", "--max-nonce",
+                                 str(scrypt_job["max_nonce"])])
+        _, hash_hex, nonce = line.split()
+        hdr = chain.BlockHeader.unpack(scrypt_job["header"]).with_nonce(int(nonce)).pack()
+        digest = chain.scrypt_hash(hdr)
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(scrypt_job["bits"]):
+            fail(f"5d SCRYPT Result {hash_hex} {nonce} fails the hashlib.scrypt check")
+        say(f"  5d SCRYPT through the promoted coordinator: Result {hash_hex} {nonce} "
+            f"(hashlib.scrypt-checked; {out['seconds']['scrypt']:.2f} s)")
+        # what the primary had settled at its death, read before it restarts
+        with open(wal, "rb") as fh:
+            primary_settled = settled_count(replay(scan(fh.read())[0]), FAILOVER_DATA,
+                                            FAILOVER_N)
+        # 8. the old primary restarted on its journal: fenced
+        start("zombie", ["tpuminter_torch.coordinator", str(p1), "--journal", wal,
+                         "--replicate-to", f"127.0.0.1:{p2}"])
+        wait_log("zombie", r"FENCED", 30, "the restarted old primary was not fenced")
+        rejected = wait_log("standby", r"REJECTING RepHello epoch (\d+) \(own epoch (\d+)\)", 30,
+                            "the promoted coordinator logged no RepHello rejected").groups()
+        say(f"  5d the old primary restarted on its journal: FENCED; the promoted coordinator "
+            f"rejected its RepHello (epoch {rejected[0]} against its own {rejected[1]})")
+        for w in workers:
+            if w.poll() is not None:
+                fail("5d: a port worker exited early")
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs:
+            proc.wait(timeout=30)
+        for name in ("standby", "primary", "zombie", "worker0", "worker1"):
+            check_imports(f"the 5d {name}", log_text(name), torch_too=not name.startswith("w"))
+        # the standby's copy: what it acked before the kill, what it adopted
+        with open(copy, "rb") as fh:
+            data = fh.read()
+        records, _ = scan(data)
+        fence = next(i for i, r in enumerate(records)
+                     if r["k"] == "boot" and int(r["epoch"]) >= FENCE_JUMP)
+        adopted = settled_count(replay(records[:fence]), FAILOVER_DATA, FAILOVER_N)
+        acked_cov = settled_count(replay(scan(data[:acked])[0]), FAILOVER_DATA, FAILOVER_N)
+        out.update(settled_chunks=settled_chunks, acked_bytes=acked, lane=lane, epoch=epoch,
+                   acked_coverage=acked_cov, adopted_coverage=adopted,
+                   primary_coverage=primary_settled,
+                   remined_share=(primary_settled - adopted) / FAILOVER_N)
+        say(f"  5d coverage of the MIN job: {acked_cov} nonces in what the standby had acked "
+            f"at the last read before the kill, {adopted} adopted by the promotion, "
+            f"{primary_settled} settled in the primary's own journal at its death; mined "
+            f"twice: {primary_settled - adopted} nonces, {out['remined_share']:.4f} of the "
+            f"range (chunks in flight at the kill not counted)")
+        say("  5d imports (python -X importtime): no jax, jaxlib or tpuminter module in any "
+            "process; no torch in the standby, the coordinators and the clients")
+        return out
+    except BaseException:
+        for name, log in logs:
+            log.flush()
+            print(f"--- 5d {name} log tail ---\n{log_text(name)[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for _, log in logs:
+            log.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to test", file=sys.stderr)
@@ -4035,6 +4318,10 @@ def main() -> int:
     audit_launches, audit_ms = phase_audit_shapes(card_tag, np.random.default_rng(SEED + 6))
     policies = phase_port_policies(scrypt_job, card_tag)
 
+    phase("5d. a failover drill on the port: WAL shipping to a hot standby, the primary "
+          "killed mid-job, the standby promoted, the old primary fenced")
+    failover = phase_port_failover(scrypt_job, port_seconds, card_tag)
+
     paths = {"fixed": fixed, "profiled": profiled, "rolled": rolled, "hashcore": hashcore,
              "scrypt": scrypt, "pod": pod_launches, "audit": audit_launches}
     rows = []
@@ -4072,6 +4359,7 @@ def main() -> int:
                                       "phase5b_seconds": port_seconds}}))
     say(json.dumps({"pod": pod_info}))
     say(json.dumps({"policies": {"audit_shape_ms": audit_ms, **policies}}))
+    say(json.dumps({"failover": failover}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
         k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")

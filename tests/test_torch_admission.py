@@ -399,8 +399,9 @@ def test_winners_ttl_and_unbound_ttl_evict_as_the_reference():
 
 def test_the_cli_takes_the_references_admission_flags():
     """The thirteen policy flags parse with the reference's defaults;
-    malformed tiers and weights are the reference's parse errors; the
-    flags of later slices are argparse errors, not silent no-ops."""
+    malformed tiers and weights are the reference's parse errors, as is
+    ``--replicate-to`` without ``--journal``; the flags of later slices
+    are argparse errors, not silent no-ops."""
     import contextlib
     import io
 
@@ -420,7 +421,7 @@ def test_the_cli_takes_the_references_admission_flags():
     for argv in (["0", "--quota-tier", "gold"], ["0", "--workload-weight", "mine=1,dict"],
                  ["0", "--loops", "2"], ["0", "--procs", "2"], ["0", "--io-batch", "on"],
                  ["0", "--journal-mode", "writer"], ["0", "--replicate-to", "h:1"],
-                 ["0", "--replica-ack"], ["0", "--steal-after", "1"]):
+                 ["0", "--steal-after", "1"]):
         err = io.StringIO()
         with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as exit_:
             port_coordinator.main(argv)

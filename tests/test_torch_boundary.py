@@ -1,6 +1,6 @@
 """The port's boundary: tpuminter_torch and chip_smoke.py never import
 JAX or the JAX package, and the port's control plane (coordinator,
-client, journal, LSP server) loads no torch either.
+client, journal, replication, LSP server) loads no torch either.
 
 The runtime check runs in a subprocess, because this test process has
 already imported JAX (tests/conftest.py does, for the JAX package's
@@ -58,6 +58,7 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
 _CONTROL_PLANE_PROBE = r"""
 import sys
 import tpuminter_torch.coordinator, tpuminter_torch.client, tpuminter_torch.journal
+import tpuminter_torch.replication
 import tpuminter_torch.lsp.server, tpuminter_torch.lsp.srunner, tpuminter_torch.lsp.crunner
 from tpuminter_torch import workloads
 assert workloads.names() == ("dict", "hashcore")
@@ -143,3 +144,39 @@ def test_coordinator_with_every_policy_flag_loads_neither_torch_nor_jax(tmp_path
     bad = sorted({m for m in mods
                   if m.split(".")[0] in ("torch", "jax", "jaxlib", "tpuminter")})
     assert bad == []
+
+
+def test_standby_cli_promotes_fenced_and_loads_neither_torch_nor_jax(tmp_path):
+    """``python -X importtime -m tpuminter_torch.replication`` over a WAL
+    copy whose primary never connects: once ``--promote-after`` passes it
+    promotes replay-free at the copy's epoch plus ``FENCE_JUMP`` and
+    serves as the coordinator, and no module of torch, JAX or the JAX
+    package appears in its import log."""
+    import re
+    import time
+
+    from tpuminter_torch.journal import encode_record
+
+    wal = tmp_path / "standby.wal"
+    wal.write_bytes(encode_record({"k": "boot", "epoch": 3}))
+    log = tmp_path / "standby.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "tpuminter_torch.replication",
+             "127.0.0.1:9", "--wal", str(wal), "--promote-after", "0.2"],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 30
+            while "serving as coordinator on port" not in log.read_text():
+                assert proc.poll() is None and time.monotonic() < deadline, log.read_text()
+                time.sleep(0.05)
+        finally:
+            proc.kill()
+            proc.wait()
+    text = log.read_text()
+    assert f"standby PROMOTED: epoch {3 + (1 << 16)} (fenced 0 + {1 << 16})" in text
+    mods = {m.strip() for m in re.findall(r"^import time:\s+\d+\s+\|\s+\d+\s+\|\s+(\S+)",
+                                          text, re.M)}
+    assert {"tpuminter_torch.replication", "tpuminter_torch.coordinator"} <= mods
+    assert sorted(m for m in mods
+                  if m.split(".")[0] in ("torch", "jax", "jaxlib", "tpuminter")) == []

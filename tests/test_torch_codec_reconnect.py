@@ -133,19 +133,20 @@ def test_every_single_byte_flip_decodes_as_the_reference_does(msg):
 
 
 def test_tags_a_worker_never_receives_raise():
-    """The reference's lease-epoch variants (sent only to aggregators),
-    its binary admission Refuse (clients get JSON) and its WAL batches
-    decode there and raise here. Its partial emits, which the port's
-    client receives, decode here as there in both codecs, as does the
-    admission Refuse's JSON."""
+    """The reference's lease-epoch variants (sent only to aggregators)
+    and its binary admission Refuse (clients get JSON) decode there and
+    raise here. Its partial emits, which the port's client receives, and
+    its WAL batches, which the port's standby receives, decode here as
+    there in both codecs, as does the admission Refuse's JSON."""
     for msg in (ref.RollAssign(1, 2, 3, 4, lease_epoch=5), ref.Beacon(1, 2, 3, 4, 5, 6),
-                ref.Refuse(1, 0, retry_after_ms=50), ref.WalBatch(0, b"x")):
+                ref.Refuse(1, 0, retry_after_ms=50)):
         raw = ref.encode_msg(msg, binary=True)
         assert raw[0] != 0x7B and ref.decode_msg(raw) is not None
         with pytest.raises(port.ProtocolError, match="not one a worker receives"):
             port.decode_msg(raw)
     for msg, codecs in ((ref.Refuse(1, 0, retry_after_ms=50), (False,)),
-                        (ref.Emit(1, 1, 1, 2, b"y"), (True, False))):
+                        (ref.Emit(1, 1, 1, 2, b"y"), (True, False)),
+                        (ref.WalBatch(0, b"x"), (True, False))):
         for binary in codecs:
             raw = ref.encode_msg(msg, binary=binary)
             assert _same(port.decode_msg(raw), msg)

@@ -121,12 +121,15 @@ def test_codec_round_trips_with_reference(msg):
 
 
 def test_codec_drops_what_a_json_worker_never_receives():
-    """A kind no port role receives (the replication hello) raises; a
+    """A kind no role has raises; the replication hello, which the
+    port's standby and coordinator decode (the latter to reject it), a
     Steal, which the port's coordinator decodes to deny it, and a binary
     Assign, which a worker that advertises the binary codec receives,
     decode equal to the reference's."""
     with pytest.raises(port.ProtocolError):
-        port.decode_msg(ref.encode_msg(ref.RepHello(epoch=1)))
+        port.decode_msg(b'{"kind":"nosuch","epoch":1}')
+    raw = ref.encode_msg(ref.RepHello(epoch=1))
+    assert dataclasses.asdict(port.decode_msg(raw)) == dataclasses.asdict(ref.decode_msg(raw))
     raw = ref.encode_msg(ref.Steal(job_id=1))
     assert dataclasses.asdict(port.decode_msg(raw)) == dataclasses.asdict(ref.decode_msg(raw))
     raw = ref.encode_msg(ref.Assign(1, 2, 3, 4), binary=True)

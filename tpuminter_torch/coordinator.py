@@ -61,11 +61,21 @@ from the exactly-once winner table, and each tenant's token bucket is
 restored from its ``quota`` records. The journal is the reference's,
 record for record.
 
-What waits for later slices, in this order: replication, the
-multi-loop and multi-process coordinators, federation and chaos. Until
-then this coordinator has no flag for them, and it denies every
-``Steal`` (counted in ``steals_denied``), as the reference does with
-``--steal-after`` unset.
+**Replication** (``replicate_to``, ``replica_ack``; :mod:`tpuminter_torch.
+replication`): with a journal, one shipping lane a standby streams the
+WAL, started by :meth:`Coordinator.serve`; with ``replica_ack`` a winner
+is answered only once a standby has also acked its ``finish`` record.
+A lane fenced by a promoted standby fences this coordinator
+(:meth:`Coordinator._fence_self`): it drops every connection and rejects
+every later event. A ``RepHello`` that reaches a coordinator is a stale
+primary's and is rejected (``replication_fenced``). A promoted standby
+builds its coordinator through :meth:`Coordinator.adopt_recovered`.
+
+What waits for later slices, in this order: the multi-loop and
+multi-process coordinators (with the multi-loop ``replica_gate``),
+federation and chaos. Until then this coordinator has no flag for them,
+and it denies every ``Steal`` (counted in ``steals_denied``), as the
+reference does with ``--steal-after`` unset.
 """
 
 from __future__ import annotations
@@ -91,7 +101,7 @@ from tpuminter_torch.journal import (
     merge_ranges,
 )
 from tpuminter_torch.lsp import LspServer, Params
-from tpuminter_torch.lsp.params import FAST
+from tpuminter_torch.lsp.params import FAST, parse_addr_list
 from tpuminter_torch.protocol import (
     MIN_UNTRACKED,
     Assign,
@@ -102,6 +112,7 @@ from tpuminter_torch.protocol import (
     PowMode,
     ProtocolError,
     Refuse,
+    RepHello,
     Request,
     Result,
     RollAssign,
@@ -112,6 +123,7 @@ from tpuminter_torch.protocol import (
     encode_msg,
     request_to_obj,
 )
+from tpuminter_torch.replication import ReplicationPrimary, gate_any
 
 __all__ = ["Coordinator", "main"]
 
@@ -351,6 +363,8 @@ class Coordinator:
         workload_weights: Optional[Dict[str, float]] = None,
         park_capacity: int = 0,
         emit_interval: float = 0.5,
+        replicate_to: Optional[List[Tuple[str, int]]] = None,
+        replica_ack: bool = False,
         clock=None,
     ):
         if pipeline_depth < 1:
@@ -391,6 +405,22 @@ class Coordinator:
         if journal is not None:
             journal.snapshot_provider = self._journal_snapshot
             journal.tick_flush = journal_tick_flush
+        # -- replication
+        #: WAL-shipping lanes, one a standby; serve() starts them
+        self._replicas: List[ReplicationPrimary] = []
+        if replicate_to:
+            if journal is None:
+                raise ValueError("replicate_to requires a journal: replication ships the WAL, "
+                                 "so there must be one")
+            self._replicas = [ReplicationPrimary(journal, host, port, params=server.params)
+                              for host, port in replicate_to]
+        #: a lane was fenced by a promoted standby: this incarnation is a
+        #: zombie of a failed-over epoch and answers nothing more
+        self.fenced = False
+        for rep in self._replicas:
+            rep.on_fenced = self._fence_self
+        #: winners wait for a standby's ack past their finish record too
+        self._replica_ack = replica_ack and bool(self._replicas)
         # -- audits and hedging
         self._audit_rate = audit_rate
         self._audit_rng = random.Random(audit_seed)
@@ -447,8 +477,8 @@ class Coordinator:
         #: re-binds to its running job
         self._bound: Dict[Tuple[str, int], int] = {}
         #: the reference's counters, key for key; those of subsystems this
-        #: coordinator does not run (replication, federation, the
-        #: multi-process seam) stay 0
+        #: coordinator does not run (federation, the multi-process seam)
+        #: stay 0
         self.stats = {
             "hashes": 0,
             "jobs_done": 0,
@@ -518,6 +548,11 @@ class Coordinator:
         if recovered is not None:
             coord._adopt(recovered)
         return coord
+
+    def adopt_recovered(self, recovered: RecoveredState) -> None:
+        """The replication standby's takeover seam: the shadow it built
+        record by record is a replayed journal."""
+        self._adopt(recovered)
 
     def _adopt(self, recovered: RecoveredState) -> None:
         """Rebuild scheduler state from a replayed journal (the
@@ -703,12 +738,18 @@ class Coordinator:
         journal records are lost, nobody hears goodbye. Recover with a
         fresh ``create(recover_from=...)``."""
         self._server.crash()
+        for rep in self._replicas:
+            rep.crash()
         if self._journal is not None:
             self._journal.crash()
 
     @property
     def port(self) -> int:
         return self._server.port
+
+    @property
+    def boot_epoch(self) -> int:
+        return self._server.boot_epoch
 
     @property
     def server(self) -> LspServer:
@@ -724,6 +765,8 @@ class Coordinator:
         if self._hedge_after is not None:
             self._hedge_task = asyncio.ensure_future(self._hedge_ticker())
         rate_ticker = asyncio.ensure_future(self._rate_ticker())
+        for rep in self._replicas:
+            rep.start()
         journal = self._journal
         tick_journal = journal if journal is not None and journal.tick_flush else None
         try:
@@ -741,10 +784,27 @@ class Coordinator:
                 if task is not None:
                     task.cancel()
 
+    def _fence_self(self) -> None:
+        """A lane learned that a promoted standby owns a higher epoch:
+        stop serving, so a healed netsplit never runs two coordinators
+        on one job set. Every peer is reset now, every later event
+        rejected, and the fleet rotates to the promoted standby."""
+        if self.fenced:
+            return
+        self.fenced = True
+        log.warning("coordinator (epoch %d) FENCED: a promoted standby owns a higher epoch — "
+                    "dropping %d connection(s) and refusing all traffic on this incarnation",
+                    self.boot_epoch, len(self._server.conn_ids))
+        for conn_id in self._server.conn_ids:
+            self._server.reject_conn(conn_id)
+
     def _handle_event(self, event: Tuple[int, Optional[bytes]]) -> None:
         conn_id, payload = event
         if payload is None:
             self._on_lost(conn_id)
+            return
+        if self.fenced:
+            self._server.reject_conn(conn_id)
             return
         try:
             msg = decode_msg(payload)
@@ -765,6 +825,14 @@ class Coordinator:
             self.stats["steals_denied"] += 1
         elif isinstance(msg, Request):
             self._on_request(conn_id, msg)
+        elif isinstance(msg, RepHello):
+            # only a standby is a shipping target: this is a primary that
+            # lost a failover resuming its stream here. Higher epoch wins
+            log.warning("conn %d: REJECTING RepHello epoch %d (own epoch %d): this coordinator "
+                        "is not a standby — a fenced-off primary is still claiming its old role",
+                        conn_id, msg.epoch, self.boot_epoch)
+            self.stats["replication_fenced"] += 1
+            self._server.reject_conn(conn_id)
         else:
             log.warning("conn %d: unexpected %s", conn_id, type(msg).__name__)
 
@@ -812,9 +880,9 @@ class Coordinator:
             last = cur
 
     def stats_snapshot(self) -> dict:
-        """The machine-readable view (the reference's ``stats_snapshot``,
-        which adds a ``replication`` block when it ships a WAL):
-        cumulative counters, per-worker rates and queue depths."""
+        """The machine-readable view (the reference's ``stats_snapshot``):
+        cumulative counters, per-worker rates and queue depths, and a
+        ``replication`` entry a shipping lane."""
         snap = {
             "stats": dict(self.stats),
             "workers": {str(k): v for k, v in self.worker_stats().items()},
@@ -827,6 +895,10 @@ class Coordinator:
         }
         if self._journal is not None:
             snap["journal"] = dict(self._journal.stats)
+        if self._replicas:
+            snap["replication"] = [{"synced": rep.synced, "acked": rep.acked,
+                                    "fenced": rep.fenced, **rep.stats}
+                                   for rep in self._replicas]
         return snap
 
     async def start_stats_server(self, port: int = 0, host: str = "127.0.0.1") -> int:
@@ -872,6 +944,8 @@ class Coordinator:
             self._hedge_task.cancel()
         if self._stats_server is not None:
             self._stats_server.close()
+        for rep in self._replicas:
+            await rep.stop()
         await self._server.close(drain_timeout=2.0)
         if self._journal is not None:
             await self._journal.aclose()
@@ -1771,8 +1845,12 @@ class Coordinator:
             if job.discipline is not None:
                 rec["wid"] = workloads.get(job.workload).wid
                 rec["wp"] = wpayload.hex()
-            self._journal.append("finish", rec, on_durable=functools.partial(
-                self._finish_durable, client_conn, result, winner))
+            on_durable = functools.partial(self._finish_durable, client_conn, result, winner)
+            if self._replica_ack:
+                # and then a standby's ack past the record: the answer
+                # survives the loss of this machine
+                on_durable = functools.partial(self._gate_on_replicas, on_durable)
+            self._journal.append("finish", rec, on_durable=on_durable)
         else:
             self._deliver_finish(client_conn, result)
         elapsed = time.monotonic() - job.started
@@ -1785,6 +1863,11 @@ class Coordinator:
                      "busy" if snap["busy"] else "idle")
         self.stats["jobs_done"] += 1
         self._retire_job(job)
+
+    def _gate_on_replicas(self, cb) -> None:
+        """The finish record is fsynced (``journal.size`` covers it):
+        release ``cb`` once a standby has acked past it."""
+        gate_any(self._replicas, self._journal.size, cb)
 
     def _finish_durable(self, client_conn: int, result, winner: Optional[_Winner]) -> None:
         """The finish record is on disk: answer the owning client and any
@@ -2142,6 +2225,11 @@ def main(argv: Optional[list] = None) -> None:
         help="journal flushing: once per serve-loop burst (default) or by a separate "
         "batch-window flusher task")
     parser.add_argument(
+        "--replicate-to", metavar="LIST", default=None,
+        help="ship the write-ahead journal to hot standby(s) at host:port[,host:port...] "
+        "(each runs `python -m tpuminter_torch.replication`); requires --journal. The "
+        "standby replays the stream live, so a fenced failover is replay-free")
+    parser.add_argument(
         "--quota-rate", type=float, default=0.0, metavar="R",
         help="admission control: job submissions per second each client identity may "
         "sustain (token bucket per ckey; 0 = off, the default). Over-quota submissions are "
@@ -2187,7 +2275,14 @@ def main(argv: Optional[list] = None) -> None:
         "--emit-interval", type=float, default=0.5, metavar="SECONDS",
         help="pacing of streaming Emit partials per job (clients that submit with "
         "stream=True; default 0.5, 0 = push on every durable settle)")
+    parser.add_argument(
+        "--replica-ack", action="store_true",
+        help="with --replicate-to: hold each winner acknowledgement until a standby confirms "
+        "the finish record, so an answered winner survives MACHINE loss, not just process "
+        "loss (degrades loudly to local-only durability when no standby is reachable)")
     args = parser.parse_args(argv)
+    if args.replicate_to is not None and args.journal is None:
+        parser.error("--replicate-to requires --journal")
     if args.pipeline_depth < 1:
         parser.error("--pipeline-depth must be >= 1")
     if not 0 <= args.roll_budget <= 0xFFFFFFFF:
@@ -2196,6 +2291,10 @@ def main(argv: Optional[list] = None) -> None:
     weights = _parse_pairs(parser, "--workload-weight",
                            filter(None, (args.workload_weight or "").split(",")),
                            "NAME=W[,NAME=W...]")
+    try:
+        replicate_to = parse_addr_list(args.replicate_to) if args.replicate_to else None
+    except ValueError as exc:
+        parser.error(f"--replicate-to: {exc}")
     logging.basicConfig(level=logging.INFO)
 
     async def _run() -> None:
@@ -2209,7 +2308,8 @@ def main(argv: Optional[list] = None) -> None:
             max_jobs=args.max_jobs, retry_after_ms=args.retry_after_ms,
             winners_ttl=args.winners_ttl, unbound_ttl=args.unbound_ttl,
             workload_weights=weights, park_capacity=args.park_queue,
-            emit_interval=args.emit_interval)
+            emit_interval=args.emit_interval, replicate_to=replicate_to,
+            replica_ack=args.replica_ack)
         log.info("coordinator listening on port %d", coord.port)
         if args.stats_port is not None:
             await coord.start_stats_server(args.stats_port)

@@ -32,10 +32,19 @@ With no running loop, appends write through synchronously.
 
 **Replay** (:func:`replay`) is a pure fold over decoded records and is
 idempotent on every sequence in which each job's record comes before
-its settles, as a coordinator writes them. What waits for later slices:
-the multi-loop segment files (``segment_paths``, ``merge_states``), the
-replication cursor and tail reader, the cross-job group-commit window
-and the disk fault plan.
+its settles, as a coordinator writes them.
+
+**Replication** (:mod:`tpuminter_torch.replication`): :attr:`Journal.size`
+is the clean file's length, the shipping offset space, and
+:attr:`Journal.generation` counts compactions (each makes every older
+offset meaningless). :attr:`Journal.on_batch` sees each batch written
+to the file, with its start offset and raw framed bytes; a hook that
+raises is detached and the WAL goes on. :func:`scan_with_cursor`,
+:func:`read_span` and :func:`cursor_valid` are a standby's resume cursor
+and a primary's tail reader, and :meth:`Journal.adopt` opens a promoted
+standby's copy without a rescan. What waits for later slices: the
+multi-loop segment files (``segment_paths``, ``merge_states``), the
+cross-job group-commit window and the disk fault plan.
 """
 
 from __future__ import annotations
@@ -64,6 +73,9 @@ __all__ = [
     "encode_settle",
     "decode_settle",
     "scan",
+    "scan_with_cursor",
+    "read_span",
+    "cursor_valid",
     "replay",
     "merge_ranges",
     "intersect_ranges",
@@ -140,8 +152,18 @@ def scan(data: bytes) -> Tuple[List[dict], int]:
     clean_bytes)``. Everything past ``clean_bytes`` (a torn tail, a
     corrupted record and what its broken size field would unframe) is
     lost; the recovering owner truncates the file there."""
+    records, clean, _last = scan_with_cursor(data)
+    return records, clean
+
+
+def scan_with_cursor(data: bytes) -> Tuple[List[dict], int, int]:
+    """:func:`scan`, plus the offset at which the last clean record
+    starts (-1 when none decoded). ``(clean, last_start, the stored CRC
+    at last_start)`` is a standby's resume cursor, which the primary
+    checks against its own file with :func:`cursor_valid`."""
     records: List[dict] = []
     off = 0
+    last_start = -1
     total = len(data)
     while total - off >= _REC.size:
         size, crc = _REC.unpack_from(data, off)
@@ -163,8 +185,40 @@ def scan(data: bytes) -> Tuple[List[dict], int]:
             if not isinstance(obj, dict) or "k" not in obj:
                 break
         records.append(obj)
-        off = end
-    return records, off
+        last_start, off = off, end
+    return records, off, last_start
+
+
+def read_span(path: str, offset: int, limit: int) -> bytes:
+    """Up to ``limit`` raw journal bytes from ``offset``: a primary's
+    tail reader (the file is the backlog; ``on_batch`` only says that
+    there is more)."""
+    with open(path, "rb") as fh:
+        fh.seek(offset)
+        return fh.read(limit)
+
+
+def cursor_valid(path: str, offset: int, last_start: int, crc: int) -> bool:
+    """Whether a standby's cursor matches this file, with no replay: the
+    record at ``last_start`` must frame to exactly ``offset`` and carry
+    stored CRC ``crc``. A compaction or any divergence fails it (the
+    stream then restarts at 0); ``offset == 0`` always holds."""
+    if offset == 0:
+        return True
+    if not 0 <= last_start < offset:
+        return False
+    try:
+        with open(path, "rb") as fh:
+            if fh.seek(0, os.SEEK_END) < offset:
+                return False
+            fh.seek(last_start)
+            head = fh.read(_REC.size)
+    except OSError:
+        return False
+    if len(head) != _REC.size:
+        return False
+    size, stored_crc = _REC.unpack(head)
+    return last_start + _REC.size + size == offset and stored_crc == crc
 
 
 # -- interval arithmetic (pure) ----------------------------------------------
@@ -417,6 +471,13 @@ class Journal:
         #: per event burst; a short timer covers appends made elsewhere
         self.tick_flush = False
         self._tick_timer_armed = False
+        #: the clean file's length: the replication offset space
+        self.size = 0
+        #: bumped by each compaction, which makes older offsets meaningless
+        self.generation = 0
+        #: replication hook, called on the event loop with ``(start,
+        #: blob)`` once each batch is in the file
+        self.on_batch: Optional[Callable[[int, bytes], None]] = None
         self.stats = {"records": 0, "flushes": 0, "syncs": 0, "bytes": 0, "compactions": 0}
 
     @classmethod
@@ -439,9 +500,24 @@ class Journal:
         journal = cls(path, **kwargs)
         journal.boot_epoch = state.boot_epoch
         journal._fh = open(path, "ab")
+        journal.size = journal._fh.tell()
         journal.stats["records"] += 1
         journal._write_sync(encode_record({"k": "boot", "epoch": state.boot_epoch}), True)
         return journal, state
+
+    @classmethod
+    def adopt(cls, path: str, epoch: int, **kwargs) -> "Journal":
+        """Open ``path`` with no scan or replay: a promoted standby
+        already holds the state its copy replays to, and its copy is a
+        clean record prefix. The fencing ``boot`` record of ``epoch`` is
+        durable before this returns, as in :meth:`open`."""
+        journal = cls(path, **kwargs)
+        journal.boot_epoch = epoch
+        journal._fh = open(path, "ab")
+        journal.size = journal._fh.tell()
+        journal._write_sync(encode_record({"k": "boot", "epoch": epoch}), True)
+        journal.stats["records"] += 1
+        return journal
 
     # -- append path -------------------------------------------------------
 
@@ -549,7 +625,7 @@ class Journal:
             try:
                 blob = self._encode_batch(buf)
                 if need_sync and self._fsync and self._fsync_slow:
-                    await loop.run_in_executor(None, self._write_sync, blob, True)
+                    await loop.run_in_executor(None, self._write_sync, blob, True, loop)
                 elif need_sync and self._fsync:
                     t0 = time.perf_counter()
                     self._write_sync(blob, True)
@@ -589,10 +665,17 @@ class Journal:
                                   "for this incarnation", self.path)
                     return
                 if swapped:
+                    # size and generation move together, on the loop
+                    self.size = len(blob)
+                    self.generation += 1
                     self._bytes_since_compact = 0
                     self.stats["compactions"] += 1
 
-    def _write_sync(self, blob: bytes, need_sync: bool) -> None:
+    def _write_sync(self, blob: bytes, need_sync: bool,
+                    loop: Optional[asyncio.AbstractEventLoop] = None) -> None:
+        """Append one batch, then hand it to :attr:`on_batch`. On the
+        executor ``loop`` names the owner's loop, where the hook runs
+        (before the awaiting flusher resumes to fire callbacks)."""
         if self._crashed:
             return
         self._fh.write(blob)
@@ -600,9 +683,25 @@ class Journal:
         if self._fsync and need_sync:
             os.fsync(self._fh.fileno())
             self.stats["syncs"] += 1
+        start = self.size
+        self.size += len(blob)
         self.stats["flushes"] += 1
         self.stats["bytes"] += len(blob)
         self._bytes_since_compact += len(blob)
+        if self.on_batch is not None:
+            if loop is None:
+                self._ship(start, blob)
+            else:
+                loop.call_soon_threadsafe(self._ship, start, blob)
+
+    def _ship(self, start: int, blob: bytes) -> None:
+        """One batch to the replication hook; a broken hook is detached."""
+        if self.on_batch is not None:
+            try:
+                self.on_batch(start, blob)
+            except Exception:
+                log.exception("journal on_batch hook failed; detaching it")
+                self.on_batch = None
 
     def _compact_sync(self, blob: bytes) -> bool:
         """Replace the file by ``boot ‖ snapshot``, atomically."""

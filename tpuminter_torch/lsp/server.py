@@ -10,9 +10,13 @@ Every connect-ack carries this incarnation's boot epoch, and a frame
 from an address the server does not know draws a reset ack, so a peer of
 an earlier incarnation learns of the restart in one round trip. Sends of
 one event-loop tick are bundled per connection and written in one
-grouped pass. What the reference adds for its multi-loop and
-replicated coordinators (conn-id striping, an ingress filter, connection
-rejection and re-branding the epoch) and its slow-peer read deadlines
+grouped pass.
+
+For replication, :meth:`LspServer.reject_conn` drops a connection at
+once and forgets its address, so the peer's next datagram draws a reset
+ack, and :meth:`LspServer.set_boot_epoch` re-brands a promoted standby's
+listener. What the reference adds for its multi-loop coordinator
+(conn-id striping, an ingress filter) and its slow-peer read deadlines
 are not copied.
 """
 
@@ -206,6 +210,12 @@ class LspServer:
         return self._boot_epoch
 
     @property
+    def params(self) -> Params:
+        """The LSP settings this listener runs: a coordinator's shipping
+        lanes dial its standbys with the same ones."""
+        return self._params
+
+    @property
     def conn_ids(self) -> Tuple[int, ...]:
         return tuple(self._by_id)
 
@@ -228,6 +238,27 @@ class LspServer:
         if conn is None:
             raise ConnectionError(f"conn {conn_id} does not exist (or was lost)")
         conn.write(payload)
+
+    def reject_conn(self, conn_id: int) -> None:
+        """Drop one connection now: no drain, no loss event here, and its
+        address forgotten, so the peer's next datagram draws a reset ack
+        and its client declares the connection lost in one round trip
+        (a fenced primary, or a miner dialing an unpromoted standby)."""
+        conn = self._by_id.get(conn_id)
+        if conn is None:
+            return
+        addr = self._addr_of.get(conn_id)
+        conn.suppress_loss_event = True
+        conn.declare_lost("rejected by owner")
+        self._forget(conn_id)
+        # the reset goes out even if one was spent this epoch elsewhere
+        self._reset_pinged.discard(addr)
+
+    def set_boot_epoch(self, epoch: int) -> None:
+        """Re-brand the listener with a promoted standby's fenced epoch;
+        connect-acks and reset acks name it from now on."""
+        self._boot_epoch = epoch
+        self._reset_pinged.clear()
 
     def close_conn(self, conn_id: int) -> None:
         """Close one connection: refuse further writes, keep it ticking

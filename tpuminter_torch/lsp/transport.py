@@ -12,8 +12,15 @@ and reorder rates for each direction, all drawn from one seeded PRNG so
 a test's fault pattern is reproducible. ``send_batch`` and
 ``send_grouped`` are the server's gathered writes; with a fault rate set
 they fall back to one :meth:`send` a datagram, so the faults hit each
-datagram as a looped send would. The reference's per-link fault plans
-and its stdlib-transport mode are not copied.
+datagram as a looped send would.
+
+**Fault plans** (the reference's per-link seam): :meth:`UdpEndpoint.
+set_fault_plan` installs a plan object that this module reads through
+``decide(direction, addr)`` and ``arm()`` only. A datagram the plan
+rules on (``("drop", reason)`` or ``("deliver", delays)``) is governed by
+it instead of the rates; ``None`` falls through to them. The plan class
+itself is the chaos module's. The reference's stdlib-transport mode is
+not copied.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ class UdpEndpoint:
         self._writer_armed = False
         self._closed = self._loop.create_future()
         self._rng = random.Random(seed)
+        #: per-link fault plan, consulted before the rates
+        self.fault_plan = None
         self.write_drop_rate = 0.0
         self.read_drop_rate = 0.0
         self.write_dup_rate = 0.0
@@ -57,6 +66,8 @@ class UdpEndpoint:
         self.duplicated_in = 0
         self.reordered_out = 0
         self.reordered_in = 0
+        self.partitioned_out = 0
+        self.partitioned_in = 0
 
     @classmethod
     async def create(cls, on_datagram: Callable[[bytes, Addr], None],
@@ -95,6 +106,11 @@ class UdpEndpoint:
             self._received(data, addr[:2])
 
     def _received(self, data: bytes, addr: Addr) -> None:
+        if self.fault_plan is not None:
+            verdict = self.fault_plan.decide("in", addr)
+            if verdict is not None:
+                self._apply_plan_verdict(verdict, data, addr, inbound=True)
+                return
         if self.read_drop_rate > 0 and self._rng.random() < self.read_drop_rate:
             self.dropped_in += 1
             return
@@ -109,17 +125,55 @@ class UdpEndpoint:
             else:
                 self._deliver(data, addr)
 
+    def _apply_plan_verdict(self, verdict, data: bytes, addr: Addr, *, inbound: bool) -> None:
+        """Carry out a plan's decision for one datagram: the plan drew
+        drop, dup and delays; this books the counters and sends or
+        delivers each surviving copy after its delay."""
+        kind, detail = verdict
+        if kind == "drop":
+            if detail == "partition":
+                if inbound:
+                    self.partitioned_in += 1
+                else:
+                    self.partitioned_out += 1
+            elif inbound:
+                self.dropped_in += 1
+            else:
+                self.dropped_out += 1
+            return
+        if len(detail) > 1:
+            if inbound:
+                self.duplicated_in += len(detail) - 1
+            else:
+                self.duplicated_out += len(detail) - 1
+        emit = self._deliver if inbound else self._send_raw
+        for held in detail:
+            if held > 0:
+                if inbound:
+                    self.reordered_in += 1
+                else:
+                    self.reordered_out += 1
+                self._loop.call_later(held, emit, data, addr)
+            else:
+                emit(data, addr)
+
     def _deliver(self, data: bytes, addr: Addr) -> None:
         if self._sock is not None:  # a held-back datagram may outlive the socket
             self._on_datagram(data, addr)
 
     def _faulty(self) -> bool:
-        return self.write_drop_rate > 0 or self.write_dup_rate > 0 or self.write_reorder_rate > 0
+        return (self.write_drop_rate > 0 or self.write_dup_rate > 0
+                or self.write_reorder_rate > 0 or self.fault_plan is not None)
 
     def send(self, data: bytes, addr: Addr) -> None:
         """Send one datagram, subject to the injected write faults."""
         if self._sock is None:
             return
+        if self.fault_plan is not None:
+            verdict = self.fault_plan.decide("out", addr)
+            if verdict is not None:
+                self._apply_plan_verdict(verdict, data, addr, inbound=False)
+                return
         if self.write_drop_rate > 0 and self._rng.random() < self.write_drop_rate:
             self.dropped_out += 1
             return
@@ -199,6 +253,13 @@ class UdpEndpoint:
             self.write_dup_rate = self.read_dup_rate = dup
         if reorder is not None:
             self.write_reorder_rate = self.read_reorder_rate = reorder
+
+    def set_fault_plan(self, plan) -> None:
+        """Install (or clear, with None) a per-link fault plan and arm
+        its clock, so its timed partitions count from now."""
+        self.fault_plan = plan
+        if plan is not None:
+            plan.arm()
 
     def close(self) -> None:
         sock, self._sock = self._sock, None

@@ -13,8 +13,9 @@ decode each other's payloads.
 
 **The binary codec** (the reference's codec v1 and its later tags):
 ``tag:u8 ‖ fields… ‖ crc32:u32``, little-endian, for Assign ``0xB1``,
-Result ``0xB2``, Refuse ``0xB3``, Cancel ``0xB4``, Join ``0xB5``, RollAssign ``0xB9``, Beacon ``0xBA``,
-WorkResult ``0xBB`` and Emit ``0xBE`` (the last two variable-length: a
+Result ``0xB2``, Refuse ``0xB3``, Cancel ``0xB4``, Join ``0xB5``, WalBatch
+``0xB8``, RollAssign ``0xB9``, Beacon ``0xBA``, WorkResult ``0xBB`` and
+Emit ``0xBE`` (the last three variable-length: raw journal bytes or a
 fold payload follows their head). JSON payloads start with ``{``, which
 is no tag, so :func:`decode_msg` takes both. A corrupted or truncated
 binary payload fails its length or CRC check and raises
@@ -30,10 +31,15 @@ joins with ``codec="json"`` is sent only JSON, plus ``RollAssign`` when
 it advertises ``roll`` and workload jobs' ``Setup``/``Assign`` for the
 workloads it advertises. Clients are always answered in JSON.
 
-The kinds of the reference's replication, multi-process seam and
-federation leases (``0xB8``, ``0xBC``/``0xBD``: the reference stamps
-lease epochs only toward peers that sent the aggregator hello) belong to
-roles the port does not have yet, and its binary admission Refuse
+**Replication** (:mod:`tpuminter_torch.replication`): ``RepHello``,
+``SyncFrom``, ``WalStart`` and ``SyncAck`` travel in JSON, ``WalBatch``
+in binary (``0xB8 ‖ offset:u64 ‖ raw journal bytes ‖ crc32``; its JSON
+form, hex data, is decoded too).
+
+The kinds of the reference's multi-process seam and federation leases
+(``0xBC``/``0xBD``: the reference stamps lease epochs only toward peers
+that sent the aggregator hello) belong to roles the port does not have
+yet, and its binary admission Refuse
 (``0xB6``) goes only to clients, which it answers in JSON; the decoder
 raises :class:`ProtocolError` on them, which a role logs and drops.
 """
@@ -61,6 +67,11 @@ __all__ = [
     "WorkResult",
     "Emit",
     "Steal",
+    "RepHello",
+    "SyncFrom",
+    "WalStart",
+    "WalBatch",
+    "SyncAck",
     "Message",
     "ProtocolError",
     "MIN_UNTRACKED",
@@ -283,8 +294,54 @@ class Emit:
     payload: bytes = b""
 
 
+@dataclass(frozen=True)
+class RepHello:
+    """Primary → standby, first on a WAL-shipping connection: "I am the
+    coordinator of boot epoch ``epoch``; tell me where to resume". The
+    epoch is the fencing credential: higher epoch wins."""
+
+    epoch: int
+
+
+@dataclass(frozen=True)
+class SyncFrom:
+    """Standby → primary: the durable resume cursor of its local WAL
+    copy. ``offset`` bytes are applied, the last record starts at
+    ``last_start`` and carries stored CRC ``crc``."""
+
+    offset: int
+    last_start: int = -1
+    crc: int = 0
+
+
+@dataclass(frozen=True)
+class WalStart:
+    """Primary → standby: the next :class:`WalBatch` begins at byte
+    ``offset``; 0 with local state present is a full resync."""
+
+    offset: int
+
+
+@dataclass(frozen=True)
+class WalBatch:
+    """Primary → standby: ``data`` is a raw slice of the primary's
+    journal file starting at byte ``offset``, records framed as the
+    flusher wrote them."""
+
+    offset: int
+    data: bytes
+
+
+@dataclass(frozen=True)
+class SyncAck:
+    """Standby → primary: every byte below ``offset`` is in the
+    standby's local WAL and applied to its shadow state."""
+
+    offset: int
+
+
 Message = Union[Join, Request, Result, Setup, Assign, Refuse, Cancel, RollAssign, Beacon,
-                WorkResult, Emit, Steal]
+                WorkResult, Emit, Steal, RepHello, SyncFrom, WalStart, WalBatch, SyncAck]
 
 _JSON_OPEN = 0x7B  # ord("{")
 
@@ -297,6 +354,7 @@ _TAG_RESULT = 0xB2
 _TAG_REFUSE = 0xB3
 _TAG_CANCEL = 0xB4
 _TAG_JOIN = 0xB5
+_TAG_WALBATCH = 0xB8
 _TAG_ASSIGN_ROLL = 0xB9
 _TAG_BEACON = 0xBA
 _TAG_WRESULT = 0xBB
@@ -312,9 +370,11 @@ _BIN_ASSIGN_ROLL = struct.Struct("<BQQQI")   # tag, job, chunk, extranonce0, cou
 _BIN_BEACON = struct.Struct("<BQQQQ32s")     # tag, job, chunk, high_water, nonce, hash
 _BIN_WRESULT_HEAD = struct.Struct("<BQQBQ")  # tag, job, chunk, wid, searched (payload follows)
 _BIN_EMIT_HEAD = struct.Struct("<BQQQQ")     # tag, job, seq, covered, total (payload follows)
+_BIN_WALBATCH_HEAD = struct.Struct("<BQ")    # tag, offset (journal bytes follow)
 _CRC = struct.Struct("<I")
 
-#: the fixed-size layouts, by tag (WorkResult and Emit are variable-length)
+#: the fixed-size layouts, by tag (WalBatch, WorkResult and Emit are
+#: variable-length)
 _BIN_BY_TAG = {
     _TAG_ASSIGN: _BIN_ASSIGN,
     _TAG_RESULT: _BIN_RESULT,
@@ -407,6 +467,10 @@ def _encode_binary(msg: Message) -> Optional[bytes]:
             return None
         return _seal(_BIN_EMIT_HEAD.pack(_TAG_EMIT, msg.job_id, msg.seq, msg.covered,
                                          msg.total) + bytes(msg.payload))
+    if isinstance(msg, WalBatch):
+        if not _u64(msg.offset):
+            return None
+        return _seal(_BIN_WALBATCH_HEAD.pack(_TAG_WALBATCH, msg.offset) + bytes(msg.data))
     return None
 
 
@@ -420,6 +484,12 @@ def _checked(raw, body: int) -> memoryview:
 
 def _decode_binary(raw) -> Message:
     n, tag = len(raw), raw[0]
+    if tag == _TAG_WALBATCH:
+        head = _BIN_WALBATCH_HEAD.size
+        if n < head + _CRC.size:
+            raise ProtocolError(f"walbatch payload truncated: {n} bytes")
+        view = _checked(raw, n - _CRC.size)
+        return WalBatch(_BIN_WALBATCH_HEAD.unpack_from(raw)[1], bytes(view[head:n - _CRC.size]))
     if tag == _TAG_WRESULT:
         head = _BIN_WRESULT_HEAD.size
         if n < head + _CRC.size:
@@ -622,6 +692,17 @@ def encode_msg(msg: Message, *, binary: bool = False) -> bytes:
         }
         if msg.lease_epoch:
             obj["le"] = msg.lease_epoch
+    elif isinstance(msg, RepHello):
+        obj = {"kind": "rhello", "epoch": msg.epoch}
+    elif isinstance(msg, SyncFrom):
+        obj = {"kind": "syncfrom", "off": msg.offset, "start": msg.last_start, "crc": msg.crc}
+    elif isinstance(msg, WalStart):
+        obj = {"kind": "walstart", "off": msg.offset}
+    elif isinstance(msg, WalBatch):
+        # the shipper always speaks binary; the JSON form is decoded too
+        obj = {"kind": "walbatch", "off": msg.offset, "data": bytes(msg.data).hex()}
+    elif isinstance(msg, SyncAck):
+        obj = {"kind": "syncack", "off": msg.offset}
     else:
         raise ProtocolError(f"not a message of this codec: {msg!r}")
     return json.dumps(obj, separators=(",", ":")).encode()
@@ -722,6 +803,17 @@ def decode_msg(raw) -> Message:
                 hash_value=int(obj["hash"], 16),
                 lease_epoch=int(obj.get("le", 0)),
             )
+        if kind == "rhello":
+            return RepHello(epoch=int(obj["epoch"]))
+        if kind == "syncfrom":
+            return SyncFrom(offset=int(obj["off"]), last_start=int(obj.get("start", -1)),
+                            crc=int(obj.get("crc", 0)))
+        if kind == "walstart":
+            return WalStart(offset=int(obj["off"]))
+        if kind == "walbatch":
+            return WalBatch(offset=int(obj["off"]), data=bytes.fromhex(obj["data"]))
+        if kind == "syncack":
+            return SyncAck(offset=int(obj["off"]))
     except (KeyError, ValueError, TypeError) as exc:
         raise ProtocolError(f"malformed {kind} message: {exc}") from exc
     raise ProtocolError(f"unknown message kind: {kind!r}")
