@@ -3316,8 +3316,9 @@ def phase_end_to_end_hashcore(addr, env, hc_expect) -> dict:
 #: (the port's coordinator and client add torch: a coordinator host needs
 #: no CUDA stack)
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "tpuminter")
-#: ``python -X importtime``'s line for one imported module
-IMPORTTIME = re.compile(r"^import time:\s+\d+\s+\|\s+\d+\s+\|\s+(\S+)", re.M)
+#: ``python -X importtime``'s line for one imported module (a module
+#: imported on one thread while another imports can log a negative time)
+IMPORTTIME = re.compile(r"^import time:\s+-?\d+\s+\|\s+-?\d+\s+\|\s+(\S+)", re.M)
 
 
 def check_imports(name: str, text: str, torch_too: bool) -> list:
@@ -4232,6 +4233,338 @@ def phase_port_failover(scrypt_job, phase5b, card: str) -> dict:
             log.close()
 
 
+
+# ---- phase 5e: the sharded coordinator on the card --------------------------
+
+#: phase 5e's MIN job: SIGKILLed once this many of its nonces are settled
+#: in the writer journal
+SHARDED_DATA, SHARDED_N = b"tpuminter_torch sharded drill", 1 << 34
+SHARDED_SETTLED = 1 << 31
+#: workers phase 5e may start on the card to staff every shard
+SHARDED_MAX_WORKERS = 8
+STATS_LINE = re.compile(r"stats: (.*)$", re.M)
+
+
+def child_pids(pid: int) -> list:
+    """The processes whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def phase_port_sharded(scrypt_job, hc_expect, phase5b, card: str) -> dict:
+    """Phase 5e: the port's sharded coordinator on the card, every process
+    under ``python -X importtime``. (a) ``tpuminter_torch.coordinator
+    --loops 2 --journal J`` (writer mode); port workers (``--coordinator
+    ADDR --reconnect``) started on the one card until SIGUSR1's per-shard
+    stats show a miner on each shard (at most ``SHARDED_MAX_WORKERS``);
+    the port's client runs genesis (3h), phase 4d's SCRYPT job (S1, 19,
+    S2), hashcore fmin over 2^32 (K7) and a MIN job over 2^34 (`6t`)
+    under a client key, each checked as phase 5b checks it. Once the
+    writer journal holds ``SHARDED_SETTLED`` of the MIN job's nonces the
+    coordinator is SIGKILLed and restarted with ``--procs 2`` on the same
+    journal (recovery crosses from the writer file to per-shard
+    segments); the workers redial, every shard is staffed again, and the
+    client's re-submission must be answered once, equal to
+    ``CudaMiner()``'s answer. (b) On the ``--procs 2`` coordinator: the
+    genesis job under its key again (the identical Result, from the
+    winner table both segments hold), a fresh genesis job and SCRYPT;
+    SIGUSR1's per-shard seam counters must mirror (``fwd_out``/``fwd_in``,
+    ``binds_gossiped``/``binds_learned``) with no ``seam_drops``; after
+    SIGTERM no shard process may be left. No coordinator or client may
+    import torch, and no process JAX or the JAX package. Returns the
+    phase's figures."""
+    from tpuminter_torch import chain
+    from tpuminter_torch.cuda_worker import CudaMiner
+    from tpuminter_torch.journal import replay, scan, segment_paths
+    from tpuminter_torch.protocol import PowMode, Request
+
+    expect = drain(CudaMiner().mine(Request(90, PowMode.MIN, 0, SHARDED_N - 1,
+                                            data=SHARDED_DATA)))
+    torch.cuda.empty_cache()
+    log_dir = os.path.join(ROOT, "build", "tpuminter_torch")
+    os.makedirs(log_dir, exist_ok=True)
+    env = repo_env()
+    port = free_udp_port()
+    addr = f"127.0.0.1:{port}"
+    wal = os.path.join(log_dir, "e2e5e_coordinator.wal")
+    for path in [wal, *segment_paths(wal)]:
+        if os.path.exists(path):
+            os.remove(path)
+    importtime = (sys.executable, "-X", "importtime")
+    procs, logs, workers = [], [], []
+    out = {"seconds": {}}
+
+    def log_text(name):
+        with open(os.path.join(log_dir, f"e2e5e_{name}.log")) as fh:
+            return fh.read()
+
+    def start(name, args):
+        log = open(os.path.join(log_dir, f"e2e5e_{name}.log"), "w")
+        logs.append((name, log))
+        procs.append(subprocess.Popen([*importtime, "-m", *args], cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+        return procs[-1]
+
+    def start_coordinator(name, flags):
+        proc = start(name, ["tpuminter_torch.coordinator", str(port), "--journal", wal, *flags])
+        deadline = time.time() + 60
+        while "coordinator listening" not in log_text(name):
+            if proc.poll() is not None or time.time() > deadline:
+                fail(f"phase 5e: the coordinator ({name}) did not start")
+            time.sleep(0.05)
+        return proc
+
+    def shard_stats(name, proc):
+        """SIGUSR1, then the dump it logs: a list of per-shard dicts."""
+        before = len(STATS_LINE.findall(log_text(name)))
+        proc.send_signal(signal.SIGUSR1)
+        deadline = time.time() + 20
+        while len(found := STATS_LINE.findall(log_text(name))) <= before:
+            if proc.poll() is not None or time.time() > deadline:
+                fail(f"phase 5e: {name} logged no stats on SIGUSR1")
+            time.sleep(0.02)
+        snap = json.loads(found[-1])
+        return snap["shards"] if isinstance(snap, dict) else snap
+
+    def staff(name, proc):
+        """Wait for every live worker to join; add one while a shard has
+        none, up to SHARDED_MAX_WORKERS."""
+        while True:
+            deadline = time.time() + 60
+            while True:
+                shards = shard_stats(name, proc)
+                miners = [s["miners"] for s in shards]
+                if sum(miners) >= sum(w.poll() is None for w in workers):
+                    break
+                if time.time() > deadline:
+                    fail(f"phase 5e: the workers did not all join {name}: {miners}")
+                time.sleep(0.25)
+            if all(miners):
+                return miners
+            if len(workers) >= SHARDED_MAX_WORKERS:
+                fail(f"phase 5e: a shard of {name} has no miner after {len(workers)} workers: "
+                     f"{miners}")
+            workers.append(start(f"worker{len(workers)}", [
+                "tpuminter_torch.worker", "--coordinator", addr, "--reconnect"]))
+
+    def client_args(args):
+        return [*importtime, "-m", "tpuminter_torch.client", addr, *args, "--timeout", "300"]
+
+    def client(job, args):
+        t0 = time.perf_counter()
+        res = subprocess.run(client_args(args), cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=400)
+        out["seconds"][job] = time.perf_counter() - t0
+        check_imports(f"the 5e {job} client", res.stderr, torch_too=True)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("Result ")]
+        if res.returncode != 0 or len(lines) != 1:
+            fail(f"phase 5e client {job} failed (rc {res.returncode}): {res.stdout}"
+                 f"{res.stderr[-2000:]}")
+        return res.stdout, lines[0]
+
+    def beside(job, text, b5=None):
+        b5 = phase5b.get(job) if b5 is None else b5
+        b5_text = f"; phase 5b {b5:.2f} s" if b5 is not None else ""
+        say(f"  5e {job}: {text} ({out['seconds'][job]:.2f} s through the port's client"
+            f"{b5_text}; {card})")
+
+    genesis = chain.GENESIS_HEADER
+    genesis_args = ["--header", genesis.pack().hex(), "--bits", hex(genesis.bits),
+                    "--max-nonce", str(GENESIS_NONCE + 4095)]
+
+    def check_genesis(job, line):
+        _, hash_hex, nonce = line.split()
+        digest = genesis.with_nonce(int(nonce)).block_hash()
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(genesis.bits):
+            fail(f"5e {job} Result {hash_hex} {nonce} fails the hashlib check")
+        return hash_hex, nonce
+
+    def check_scrypt(line):
+        _, hash_hex, nonce = line.split()
+        hdr = chain.BlockHeader.unpack(scrypt_job["header"]).with_nonce(int(nonce)).pack()
+        digest = chain.scrypt_hash(hdr)
+        if chain.hash_to_hex(digest) != hash_hex or \
+                chain.hash_to_int(digest) > chain.bits_to_target(scrypt_job["bits"]):
+            fail(f"5e SCRYPT Result {hash_hex} {nonce} fails the hashlib.scrypt check")
+        return hash_hex, nonce
+
+    scrypt_args = ["--header", scrypt_job["header"].hex(), "--bits", hex(scrypt_job["bits"]),
+                   "--scrypt", "--max-nonce", str(scrypt_job["max_nonce"])]
+    try:
+        t_phase = time.perf_counter()
+        # (a) two loops, one writer journal
+        loops = start_coordinator("loops", ["--loops", "2"])
+        workers.extend(start(f"worker{i}", ["tpuminter_torch.worker", "--coordinator", addr,
+                                            "--reconnect"]) for i in range(3))
+        miners = staff("loops", loops)
+        out["staff_s"] = time.perf_counter() - t_phase
+        say(f"  5e --loops 2: {len(workers)} workers on the card, miners a shard {miners} "
+            f"({out['staff_s']:.1f} s to staff both)")
+        _, line = client("genesis", [*genesis_args, "--client-key", "chip-smoke-5e-genesis"])
+        genesis_line = line
+        hash_hex, nonce = check_genesis("genesis", line)
+        beside("genesis", f"Result {hash_hex} {nonce} (hashlib-checked)")
+        _, line = client("scrypt", scrypt_args)
+        hash_hex, nonce = check_scrypt(line)
+        beside("scrypt", f"Result {hash_hex} {nonce} (hashlib.scrypt-checked)")
+        text, _ = client("hashcore fmin", [
+            "--workload", "hashcore", "--variant", "fmin", "--seed", str(hc_expect["seed"]),
+            "--max-nonce", str(HC_N - 1)])
+        searched = int(re.search(r"searched=(\d+)", text).group(1))
+        pair = [int(x) for x in re.search(r"value=(\d+) index=(\d+)", text).groups()]
+        if (searched, pair) != tuple(hc_expect["fmin"]):
+            fail(f"5e hashcore fmin: {searched} {pair} != phase 4c's {hc_expect['fmin']}")
+        beside("hashcore fmin", f"{pair} searched={searched}, equal to phase 4c")
+        loads = shard_stats("loops", loops)
+        # the MIN job; SIGKILL once enough of it is settled in the writer journal
+        t_min = time.perf_counter()
+        min_client = subprocess.Popen(
+            client_args([SHARDED_DATA.decode(), str(SHARDED_N - 1), "--reconnect",
+                         "--client-key", "chip-smoke-5e-min"]),
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(min_client)
+        deadline = time.time() + 120
+        while True:
+            with open(wal, "rb") as fh:
+                settled = settled_count(replay(scan(fh.read())[0]), SHARDED_DATA, SHARDED_N)
+            if settled >= SHARDED_SETTLED:
+                break
+            if min_client.poll() is not None or time.time() > deadline:
+                fail(f"phase 5e: the MIN job settled {settled} nonces, not "
+                     f"{SHARDED_SETTLED}, before it ended")
+            time.sleep(0.005)
+        loops.kill()
+        t_kill = time.perf_counter()
+        loops.wait()
+        out["settled_at_kill"] = settled
+        out["into_min_at_kill_s"] = t_kill - t_min
+        with open(wal, "rb") as fh:
+            at_kill = replay(scan(fh.read())[0])
+        # restarted as two shard processes: writer file -> segments
+        procs_coord = start_coordinator("procs", ["--procs", "2"])
+        out["restart_s"] = time.perf_counter() - t_kill
+        segs = segment_paths(wal)
+        if os.path.exists(wal) or len(segs) != 2:
+            fail(f"5e: the --procs 2 restart left {wal} and segments {segs}")
+        miners = staff("procs", procs_coord)
+        text, err = min_client.communicate(timeout=300)
+        out["kill_to_answer_s"] = time.perf_counter() - t_kill
+        out["seconds"]["min"] = time.perf_counter() - t_min
+        check_imports("the 5e MIN client", err, torch_too=True)
+        lines = [ln for ln in text.splitlines() if ln.startswith("Result ")]
+        if min_client.returncode != 0 or len(lines) != 1:
+            fail(f"phase 5e MIN: rc {min_client.returncode}: {text}{err[-2000:]}")
+        _, fold, nonce = lines[0].split()
+        if (int(fold), int(nonce)) != (expect.hash_value, expect.nonce):
+            fail(f"5e MIN across the kill: {fold} {nonce} != CudaMiner's {expect.hash_value} "
+                 f"{expect.nonce}")
+        say(f"  5e MIN over 2^{SHARDED_N.bit_length() - 1}: --loops 2 SIGKILLed "
+            f"{out['into_min_at_kill_s']:.2f} s in with {settled} nonces settled in the writer "
+            f"journal ({len(at_kill.jobs)} live job), restarted as --procs 2 on it "
+            f"(segments {', '.join(os.path.basename(p) for p in segs)}; up "
+            f"{out['restart_s']:.2f} s after the kill, miners a shard {miners}, {len(workers)} "
+            f"workers in all): one Result {fold} {nonce}, equal to CudaMiner's, "
+            f"{out['kill_to_answer_s']:.2f} s after the kill ({out['seconds']['min']:.2f} s "
+            f"through the client)")
+        # (b) the two shard processes
+        _, again = client("genesis again", [*genesis_args, "--client-key",
+                                            "chip-smoke-5e-genesis"])
+        if again != genesis_line:
+            fail(f"5e: --procs 2 answered the genesis job with {again}, not {genesis_line}")
+        beside("genesis again", "the identical Result from the winner table the segments hold",
+               b5=phase5b.get("genesis again"))
+        _, line = client("genesis fresh", [*genesis_args, "--client-key",
+                                           "chip-smoke-5e-genesis-procs"])
+        hash_hex, nonce = check_genesis("genesis fresh", line)
+        beside("genesis fresh", f"Result {hash_hex} {nonce} (hashlib-checked)",
+               b5=phase5b.get("genesis"))
+        _, line = client("scrypt procs", scrypt_args)
+        hash_hex, nonce = check_scrypt(line)
+        beside("scrypt procs", f"Result {hash_hex} {nonce} (hashlib.scrypt-checked)",
+               b5=phase5b.get("scrypt"))
+        shards = shard_stats("procs", procs_coord)
+        if len(shards) != 2:
+            fail(f"5e: SIGUSR1 reported {len(shards)} shard processes: {shards}")
+        s0, s1 = (s["seam"] for s in sorted(shards, key=lambda s: s["shard"]))
+        mirrored = (s0["fwd_out"] == s1["fwd_in"] and s1["fwd_out"] == s0["fwd_in"]
+                    and s0["binds_gossiped"] == s1["binds_learned"]
+                    and s1["binds_gossiped"] == s0["binds_learned"])
+        if not mirrored or s0["seam_drops"] or s1["seam_drops"]:
+            fail(f"5e: the seam's counters do not mirror: {s0} {s1}")
+        out["loops_shards"] = [{k: s[k] for k in ("shard", "conns", "miners", "results_accepted",
+                                                  "forwarded_out", "handoff_in")} for s in loads]
+        out["procs_shards"] = [{"shard": s["shard"], "conns": s["conns"], "miners": s["miners"],
+                                "results_accepted": s["stats"]["results_accepted"],
+                                "jobs_done": s["stats"]["jobs_done"],
+                                "seam_rebinds_honored": s["stats"]["seam_rebinds_honored"],
+                                **s["seam"]} for s in shards]
+        say(f"  5e --loops 2 shards: {json.dumps(out['loops_shards'])}")
+        say(f"  5e --procs 2 shards (SIGUSR1): {json.dumps(out['procs_shards'])}")
+        # SIGTERM: the group stops, no shard process left
+        kids = child_pids(procs_coord.pid)
+        if len(kids) < 2:
+            fail(f"5e: the --procs 2 coordinator has {len(kids)} child processes")
+        procs_coord.terminate()
+        procs_coord.wait(timeout=30)
+        deadline = time.time() + 10
+        while (left := [k for k in kids if pid_alive(k)]) and time.time() < deadline:
+            time.sleep(0.05)
+        if left:
+            fail(f"5e: processes {left} of the --procs 2 coordinator outlived its SIGTERM")
+        for w in workers:
+            if w.poll() is not None:
+                fail("5e: a port worker exited early")
+        for name in ("loops", "procs"):
+            check_imports(f"the 5e {name} coordinator", log_text(name), torch_too=True)
+        for i in range(len(workers)):
+            check_imports(f"the 5e worker{i}", log_text(f"worker{i}"), torch_too=False)
+        out["children_reaped"] = len(kids)
+        out["workers"] = len(workers)
+        out["phase_s"] = time.perf_counter() - t_phase
+        say(f"  5e SIGTERM: the --procs 2 coordinator and its {len(kids)} child processes "
+            f"(shards and multiprocessing's resource tracker) gone; imports (python -X "
+            f"importtime): no jax, jaxlib or tpuminter module anywhere, no torch in the "
+            f"coordinators (parent and shard processes) and the clients; phase "
+            f"{out['phase_s']:.1f} s")
+        return out
+    except BaseException:
+        for name, log in logs:
+            log.flush()
+            print(f"--- 5e {name} log tail ---\n{log_text(name)[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for _, log in logs:
+            log.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to test", file=sys.stderr)
@@ -4322,6 +4655,10 @@ def main() -> int:
           "killed mid-job, the standby promoted, the old primary fenced")
     failover = phase_port_failover(scrypt_job, port_seconds, card_tag)
 
+    phase("5e. the sharded coordinator on the port: --loops 2 with a writer journal, killed "
+          "mid-job and restarted as --procs 2 on it")
+    sharded = phase_port_sharded(scrypt_job, hc_expect, port_seconds, card_tag)
+
     paths = {"fixed": fixed, "profiled": profiled, "rolled": rolled, "hashcore": hashcore,
              "scrypt": scrypt, "pod": pod_launches, "audit": audit_launches}
     rows = []
@@ -4360,6 +4697,7 @@ def main() -> int:
     say(json.dumps({"pod": pod_info}))
     say(json.dumps({"policies": {"audit_shape_ms": audit_ms, **policies}}))
     say(json.dumps({"failover": failover}))
+    say(json.dumps({"sharded": sharded}))
     say(json.dumps({"scrypt": {"rates": scrypt_rates, "kernels": {
         k: v for k, v in scrypt_info.items() if k != "kernel_mhs"}}}))
     say(f"  total {time.perf_counter() - t_start:.1f} s")

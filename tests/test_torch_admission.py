@@ -398,10 +398,11 @@ def test_winners_ttl_and_unbound_ttl_evict_as_the_reference():
 
 
 def test_the_cli_takes_the_references_admission_flags():
-    """The thirteen policy flags parse with the reference's defaults;
-    malformed tiers and weights are the reference's parse errors, as is
-    ``--replicate-to`` without ``--journal``; the flags of later slices
-    are argparse errors, not silent no-ops."""
+    """The thirteen policy flags parse with the reference's defaults, and
+    the help lists the sharded coordinators' four; malformed tiers and
+    weights are the reference's parse errors, as is ``--replicate-to``
+    without ``--journal``; the federation's flag, of a later slice, is an
+    argparse error, not a silent no-op."""
     import contextlib
     import io
 
@@ -414,14 +415,13 @@ def test_the_cli_takes_the_references_admission_flags():
                  "--quota-rate R", "--quota-burst N", "--quota-tier NAME=MULT",
                  "--max-jobs N", "--retry-after-ms MS", "--winners-ttl SECONDS",
                  "--unbound-ttl SECONDS", "--park-queue N", "--workload-weight LIST",
-                 "--emit-interval SECONDS"):
+                 "--emit-interval SECONDS", "--loops N", "--procs N", "--io-batch {on,off}",
+                 "--journal-mode {writer,segments}"):
         assert flag in text, flag
     for default in ("(default 8)", "(default 250;", "default 0.5"):
         assert default in text
     for argv in (["0", "--quota-tier", "gold"], ["0", "--workload-weight", "mine=1,dict"],
-                 ["0", "--loops", "2"], ["0", "--procs", "2"], ["0", "--io-batch", "on"],
-                 ["0", "--journal-mode", "writer"], ["0", "--replicate-to", "h:1"],
-                 ["0", "--steal-after", "1"]):
+                 ["0", "--replicate-to", "h:1"], ["0", "--steal-after", "1"]):
         err = io.StringIO()
         with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as exit_:
             port_coordinator.main(argv)

@@ -1,6 +1,8 @@
 """The port's boundary: tpuminter_torch and chip_smoke.py never import
 JAX or the JAX package, and the port's control plane (coordinator,
-client, journal, replication, LSP server) loads no torch either.
+client, journal, replication, the sharded coordinators, the affinity
+detector, LSP server) loads no torch either, in a sharded coordinator's
+shard processes included.
 
 The runtime check runs in a subprocess, because this test process has
 already imported JAX (tests/conftest.py does, for the JAX package's
@@ -11,6 +13,8 @@ import ast
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tpuminter_torch"
@@ -58,7 +62,8 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
 _CONTROL_PLANE_PROBE = r"""
 import sys
 import tpuminter_torch.coordinator, tpuminter_torch.client, tpuminter_torch.journal
-import tpuminter_torch.replication
+import tpuminter_torch.replication, tpuminter_torch.multiloop, tpuminter_torch.multiproc
+import tpuminter_torch.analysis.affinity
 import tpuminter_torch.lsp.server, tpuminter_torch.lsp.srunner, tpuminter_torch.lsp.crunner
 from tpuminter_torch import workloads
 assert workloads.names() == ("dict", "hashcore")
@@ -180,3 +185,57 @@ def test_standby_cli_promotes_fenced_and_loads_neither_torch_nor_jax(tmp_path):
     assert {"tpuminter_torch.replication", "tpuminter_torch.coordinator"} <= mods
     assert sorted(m for m in mods
                   if m.split(".")[0] in ("torch", "jax", "jaxlib", "tpuminter")) == []
+
+
+_SHARDED = ("multiloop.py", "multiproc.py", "analysis/__init__.py", "analysis/affinity.py")
+
+
+def test_the_sharded_modules_import_no_torch():
+    offenders = {name: sorted(set(_imported_roots(PORT / name)) & (FORBIDDEN | {"torch"}))
+                 for name in _SHARDED}
+    assert {n: roots for n, roots in offenders.items() if roots} == {}
+
+
+@pytest.mark.parametrize("flags, copies", [(["--loops", "2"], 1), (["--procs", "2"], 2)])
+def test_a_sharded_coordinator_and_its_shards_load_neither_torch_nor_jax(tmp_path, flags,
+                                                                          copies):
+    """``python -X importtime -m tpuminter_torch.coordinator`` sharded with
+    a journal: it comes up and dumps its per-shard stats on SIGUSR1, and
+    no module of torch, JAX or the JAX package appears in the import log
+    of the parent or of any spawned shard process (``-X importtime``
+    passes to them; the parent runs the coordinator as ``__main__`` and
+    imports it by name once more for its loops, while each of two shard
+    processes imports it by name once)."""
+    import re
+    import signal
+    import time
+
+    log = tmp_path / "coordinator.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "tpuminter_torch.coordinator", "0",
+             "--journal", str(tmp_path / "c.wal"), *flags],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 30
+            while "coordinator listening on port" not in log.read_text():
+                assert proc.poll() is None and time.monotonic() < deadline, log.read_text()
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGUSR1)
+            while "stats: " not in log.read_text():
+                assert proc.poll() is None and time.monotonic() < deadline, log.read_text()
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=20)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = log.read_text()
+    # a module imported on a loop thread while another thread imports
+    # can log a negative self time
+    mods = re.findall(r"^import time:\s+-?\d+\s+\|\s+-?\d+\s+\|\s+(\S+)", text, re.M)
+    assert [m.strip() for m in mods].count("tpuminter_torch.coordinator") == copies, text[-2000:]
+    assert sorted({m for m in mods
+                   if m.split(".")[0] in ("torch", "jax", "jaxlib", "tpuminter")}) == []
+    assert '"shards"' in text or '"seam"' in text

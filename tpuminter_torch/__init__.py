@@ -16,17 +16,25 @@ three more (``kernels/csrc/scrypt.cu``) and computes hashcore workload
 chunks on another (``kernels/csrc/splitmix.cu``), returning the Results
 and WorkResults the reference workers return; its entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``, which runs the
-kernels' plain PyTorch versions. The coordinator, the client, the
-journal and the LSP server run on the host and import no ``torch``.
+kernels' plain PyTorch versions. The coordinator (single-loop, or
+sharded with ``--loops`` or ``--procs``), the client, the journal, the
+replication standby and the LSP server run on the host and import no
+``torch``.
 
 Module counterparts (each module's docstring names its own):
 
 - ``chain`` ← ``tpuminter.chain``
 - ``protocol`` ← ``tpuminter.protocol`` (both codecs of the three roles' kinds)
 - ``lsp`` ← ``tpuminter.lsp`` (client, server, the echo runners)
-- ``coordinator`` ← ``tpuminter.coordinator`` (single loop)
+- ``coordinator`` ← ``tpuminter.coordinator`` (its shard hooks and CLI
+  included)
+- ``multiloop`` ← ``tpuminter.multiloop`` (N shards on N event loops)
+- ``multiproc`` ← ``tpuminter.multiproc`` (N shard processes and their seam)
+- ``replication`` ← ``tpuminter.replication``
+- ``analysis`` ← ``tpuminter.analysis`` (the runtime ``affinity``
+  detector; the static checkers run over the port from the tests)
 - ``client`` ← ``tpuminter.client``
-- ``journal`` ← ``tpuminter.journal`` (the single-file journal)
+- ``journal`` ← ``tpuminter.journal`` (the file, and the shards' segments)
 - ``ops.sha256`` ← ``tpuminter.ops.sha256`` + the integer half of
   ``tpuminter.ops.symbolic``
 - ``ops.merkle`` ← ``tpuminter.ops.merkle``

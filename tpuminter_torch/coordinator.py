@@ -71,11 +71,22 @@ every later event. A ``RepHello`` that reaches a coordinator is a stale
 primary's and is rejected (``replication_fenced``). A promoted standby
 builds its coordinator through :meth:`Coordinator.adopt_recovered`.
 
-What waits for later slices, in this order: the multi-loop and
-multi-process coordinators (with the multi-loop ``replica_gate``),
-federation and chaos. Until then this coordinator has no flag for them,
-and it denies every ``Steal`` (counted in ``steals_denied``), as the
-reference does with ``--steal-after`` unset.
+**Shards** (:mod:`tpuminter_torch.multiloop`, :mod:`tpuminter_torch.
+multiproc`): one coordinator a shard, on its own loop or in its own
+process. ``job_id_start``/``job_id_stride`` give shard *k* of *N* the
+job ids ≡ *k*+1 (mod *N*), so recovery re-partitions the journal by id;
+``replica_gate`` routes a shard's replica-ack gates to the writer loop's
+lanes; ``seam`` (the multi-process shard seam) is told of each durable
+bind and admission and consulted on a durable re-submission this shard
+does not know, and :meth:`Coordinator.seam_rebind` and
+:meth:`Coordinator.seam_quota_debit` are its home-shard halves. The CLI
+runs them with ``--loops``, ``--procs``, ``--journal-mode`` and
+``--io-batch``.
+
+What waits for later slices, in this order: federation and chaos. Until
+then this coordinator has no flag for them, and it denies every
+``Steal`` (counted in ``steals_denied``), as the reference does with
+``--steal-after`` unset.
 """
 
 from __future__ import annotations
@@ -93,6 +104,7 @@ from dataclasses import replace as dc_replace
 from typing import Deque, Dict, List, Optional, Set, Tuple
 
 from tpuminter_torch import chain, workloads
+from tpuminter_torch.analysis import affinity
 from tpuminter_torch.journal import (
     WINNERS_CAP,
     Journal,
@@ -365,6 +377,10 @@ class Coordinator:
         emit_interval: float = 0.5,
         replicate_to: Optional[List[Tuple[str, int]]] = None,
         replica_ack: bool = False,
+        job_id_start: int = 1,
+        job_id_stride: int = 1,
+        replica_gate=None,
+        seam=None,
         clock=None,
     ):
         if pipeline_depth < 1:
@@ -383,6 +399,8 @@ class Coordinator:
             raise ValueError("audit_rate must be in [0, 1]")
         if hedge_after is not None and hedge_after <= 0:
             raise ValueError("hedge_after must be positive seconds (or None to disable)")
+        if job_id_stride < 1 or not 0 < job_id_start <= job_id_stride:
+            raise ValueError("job_id_start must be in [1, job_id_stride]")
         self._server = server
         self._chunk_size = chunk_size
         #: the clock seam: admission, TTL and winner-age decisions read
@@ -419,8 +437,17 @@ class Coordinator:
         self.fenced = False
         for rep in self._replicas:
             rep.on_fenced = self._fence_self
+        #: a shard's replica-ack router to the writer loop's lanes
+        #: (multi-loop), called as ``(target_offset, cb)``
+        self._replica_gate = replica_gate
         #: winners wait for a standby's ack past their finish record too
-        self._replica_ack = replica_ack and bool(self._replicas)
+        self._replica_ack = replica_ack and (bool(self._replicas) or replica_gate is not None)
+        # -- the multi-process shard seam
+        #: sibling-shard gossip and rebind hooks; None makes each a no-op
+        self._seam = seam
+        #: (ckey, cjid) → [(origin shard, its conn id)]: other shards'
+        #: clients parked on a live job or a not-yet-durable winner here
+        self._remote_waiters: Dict[Tuple[str, int], List[Tuple[int, int]]] = {}
         # -- audits and hedging
         self._audit_rate = audit_rate
         self._audit_rng = random.Random(audit_seed)
@@ -468,7 +495,9 @@ class Coordinator:
         self._clients: Dict[int, set] = {}        # client conn → its job ids
         self._jobs: Dict[int, _Job] = {}
         self._rotation: Deque[int] = deque()      # job ids with queued ranges
-        self._next_job_id = 1
+        #: this shard's job-id lane: ids ≡ job_id_start (mod job_id_stride)
+        self._job_id_stride = job_id_stride
+        self._next_job_id = job_id_start
         self._next_chunk_id = 1
         #: answered winners by (client_key, client_job_id): a re-submitted
         #: request is answered from here, never re-mined
@@ -476,9 +505,8 @@ class Coordinator:
         #: live jobs by (client_key, client_job_id): a redialing client
         #: re-binds to its running job
         self._bound: Dict[Tuple[str, int], int] = {}
-        #: the reference's counters, key for key; those of subsystems this
-        #: coordinator does not run (federation, the multi-process seam)
-        #: stay 0
+        #: the reference's counters, key for key; those of the subsystem
+        #: this coordinator does not run (federation) stay 0
         self.stats = {
             "hashes": 0,
             "jobs_done": 0,
@@ -518,6 +546,9 @@ class Coordinator:
             "park_queue_high_water": 0,
             "emits_sent": 0,
         }
+        # TPUMINTER_LOOP_AFFINITY=1: a coordinator is single-loop (one a
+        # shard); a mutation from another loop's thread is a recorded race
+        affinity.stamp(self)
 
     @classmethod
     async def create(
@@ -527,6 +558,7 @@ class Coordinator:
         params: Optional[Params] = None,
         host: str = "127.0.0.1",
         recover_from: Optional[str] = None,
+        io_batch: Optional[bool] = None,
         **kwargs,
     ) -> "Coordinator":
         """Listen on ``host:port``. ``recover_from`` names a journal file:
@@ -534,8 +566,9 @@ class Coordinator:
         un-settled ranges, answered winners return to the dedup table,
         tenants' token buckets to their balances) and every transition
         is journaled onward; the journal's monotone boot epoch becomes
-        the LSP server's, so a redialing peer sees the restart. Other
-        keywords go to the constructor."""
+        the LSP server's, so a redialing peer sees the restart.
+        ``io_batch`` picks the transport's I/O mode (None: its default).
+        Other keywords go to the constructor."""
         journal = None
         recovered: Optional[RecoveredState] = None
         boot_epoch: Optional[int] = None
@@ -543,7 +576,8 @@ class Coordinator:
             journal, recovered = Journal.open(
                 recover_from, winners_cap=kwargs.get("winners_cap", WINNERS_CAP))
             boot_epoch = recovered.boot_epoch
-        server = await LspServer.create(port, params or FAST, host=host, boot_epoch=boot_epoch)
+        server = await LspServer.create(port, params or FAST, host=host, boot_epoch=boot_epoch,
+                                        io_batch=io_batch)
         coord = cls(server, journal=journal, **kwargs)
         if recovered is not None:
             coord._adopt(recovered)
@@ -563,7 +597,12 @@ class Coordinator:
         burst, its refill clock restarting now (accrual while down is
         forfeited, which only under-grants). The federation leases that
         replay also folds have no role here yet."""
-        self._next_job_id = max(self._next_job_id, recovered.next_job_id)
+        if recovered.next_job_id > self._next_job_id:
+            # the first id of this shard's lane at or past the recovered
+            # high water (stride 1: the dense sequence)
+            stride = self._job_id_stride
+            nxt = recovered.next_job_id
+            self._next_job_id = nxt + (self._next_job_id % stride - nxt % stride) % stride
         now_wall = self._wall()
         for (ckey, cjid), rec in recovered.winners.items():
             ts = float(rec.get("ts", now_wall))
@@ -868,9 +907,11 @@ class Coordinator:
             self._journal_quota()
             cur = self.stats["hashes"]
             if self._rotation and not self._miners:
-                log.warning("%d job(s) queued but NO miners are connected to this coordinator "
-                            "— they will not progress until a worker joins here",
-                            len(self._rotation))
+                # on a shard: jobs mine on their client's shard, and
+                # this one drew clients but no miners
+                log.warning("%d job(s) queued but NO miners are connected to this %s — they "
+                            "will not progress until a worker joins here", len(self._rotation),
+                            "shard" if self._job_id_stride > 1 else "coordinator")
             if cur == last and not self._jobs:
                 continue
             busy = sum(1 for m in self._miners.values() if m.busy)
@@ -1083,6 +1124,9 @@ class Coordinator:
             strikes = 0
             if msg.client_key:
                 self._quota_dirty.add(ckey)
+                if self._seam is not None:
+                    # sibling shard processes debit their copy of the bucket
+                    self._seam.on_admit(ckey)
         else:
             ms = min(MAX_RETRY_AFTER_MS,
                      max(1, int((1.0 - tokens) / rate * 1000.0)) << min(strikes, 8))
@@ -1195,6 +1239,11 @@ class Coordinator:
                 if job is not None and not job.done:
                     self._rebind_job(job, conn_id)  # still running: re-bind it
                     return
+            if self._seam is not None and self._seam.consult(conn_id, msg):
+                # a sibling shard process owns this (ckey, cjid): the seam
+                # parked the submission and asks the home shard, whose
+                # answer (or miss, which re-enters here) comes back over it
+                return
         self._reap_unbound()
         retry_ms = self._admit(conn_id, msg)
         if retry_ms:
@@ -1223,7 +1272,7 @@ class Coordinator:
                 self._send_refuse(conn_id, msg.job_id, 0)
                 return
         job_id = self._next_job_id
-        self._next_job_id += 1
+        self._next_job_id += self._job_id_stride
         job = _Job(job_id=job_id, client_conn=conn_id, client_job_id=msg.job_id, request=msg)
         job.discipline = discipline
         job.ranges.append((msg.lower, msg.upper))
@@ -1233,6 +1282,9 @@ class Coordinator:
         self._hw("sessions_high_water", len(self._clients))
         if msg.client_key:
             self._bound[(msg.client_key, msg.job_id)] = job_id
+            if self._seam is not None:
+                # a re-submission landing on a sibling shard re-binds here
+                self._seam.on_bind(msg.client_key, msg.job_id)
         self._rotation.append(job_id)
         # the job record is also the client binding: it carries the key
         self._journal_append("job", {"id": job_id, "req": request_to_obj(msg)})
@@ -1253,6 +1305,59 @@ class Coordinator:
         self._hw("sessions_high_water", len(self._clients))
         self._journal_append("bind", {"id": job.job_id})
         log.info("client %d re-bound to running job %d", conn_id, job.job_id)
+
+    # -- the multi-process shard seam ------------------------------------
+
+    def seam_rebind(self, ckey: str, cjid: int, origin: int, remote_conn: int):
+        """Home-shard half of the rebind registry: a durable client
+        re-submitted ``(ckey, cjid)`` on shard ``origin``. Returns the
+        encoded durable winner (answered now over the seam), True once
+        the foreign client is parked on the live job or the in-flight
+        winner (the durability callback answers it), or None on a miss
+        (the origin mints a job of its own)."""
+        wkey = (ckey, cjid)
+        winner = self._winners.get(wkey)
+        if winner is not None:
+            self.stats["seam_rebinds_honored"] += 1
+            if winner.durable:
+                return encode_msg(winner.result)
+            self._remote_waiters.setdefault(wkey, []).append((origin, remote_conn))
+            return True
+        bound = self._bound.get(wkey)
+        if bound is not None:
+            job = self._jobs.get(bound)
+            if job is not None and not job.done:
+                self.stats["seam_rebinds_honored"] += 1
+                job.unbound_since = 0.0  # waited for again: out of the reaper's hands
+                self._remote_waiters.setdefault(wkey, []).append((origin, remote_conn))
+                return True
+        self.stats["seam_rebind_misses"] += 1
+        return None
+
+    def seam_quota_debit(self, ckey: str, delta: float) -> None:
+        """Charge ``delta`` admissions a sibling shard granted ``ckey``
+        to this shard's copy of its bucket, so a tenant sliced across
+        shard processes spends one budget: refill to now, debit, floor
+        at ``-burst``."""
+        if self._quota_rate <= 0 or delta <= 0:
+            return
+        tier = self._tier(ckey)
+        rate = self._quota_rate * tier
+        burst = max(1.0, self._quota_burst * tier)
+        now = self._mono()
+        bucket = self._buckets.pop(ckey, None)
+        if bucket is None:
+            tokens, strikes = burst, 0
+        else:
+            tokens, last, strikes = bucket
+            tokens = min(burst, tokens + max(0.0, now - last) * rate)
+        tokens = max(-burst, tokens - delta)
+        self._buckets[ckey] = (tokens, now, strikes)
+        while len(self._buckets) > QUOTA_BUCKETS_CAP:
+            self._buckets.popitem(last=False)
+        self._hw("quota_buckets_high_water", len(self._buckets))
+        self.stats["quota_foreign_debits"] += 1
+        self._quota_dirty.add(ckey)
 
     # -- the park queue --------------------------------------------------
 
@@ -1824,9 +1929,9 @@ class Coordinator:
             result = Result(job.client_job_id, job.request.mode, nonce, hash_value, found,
                             searched=job.hashes_done)
         ckey = job.request.client_key
+        wkey = (ckey, job.client_job_id) if ckey else None
         winner: Optional[_Winner] = None
         if ckey:
-            wkey = (ckey, job.client_job_id)
             self._winners.pop(wkey, None)
             winner = _Winner(result, durable=self._journal is None, ts=self._wall())
             self._winners[wkey] = winner
@@ -1845,7 +1950,8 @@ class Coordinator:
             if job.discipline is not None:
                 rec["wid"] = workloads.get(job.workload).wid
                 rec["wp"] = wpayload.hex()
-            on_durable = functools.partial(self._finish_durable, client_conn, result, winner)
+            on_durable = functools.partial(self._finish_durable, client_conn, result, winner,
+                                           wkey)
             if self._replica_ack:
                 # and then a standby's ack past the record: the answer
                 # survives the loss of this machine
@@ -1853,6 +1959,7 @@ class Coordinator:
             self._journal.append("finish", rec, on_durable=on_durable)
         else:
             self._deliver_finish(client_conn, result)
+            self._drain_remote_waiters(wkey, result)
         elapsed = time.monotonic() - job.started
         rate = job.hashes_done / elapsed if elapsed > 0 else 0.0
         log.info("job %d done in %.3fs: found=%s nonce=%d (%.2f MH/s across workers)",
@@ -1866,12 +1973,18 @@ class Coordinator:
 
     def _gate_on_replicas(self, cb) -> None:
         """The finish record is fsynced (``journal.size`` covers it):
-        release ``cb`` once a standby has acked past it."""
+        release ``cb`` once a standby has acked past it, through the
+        injected ``replica_gate`` on a multi-loop shard."""
+        if self._replica_gate is not None:
+            self._replica_gate(self._journal.size, cb)
+            return
         gate_any(self._replicas, self._journal.size, cb)
 
-    def _finish_durable(self, client_conn: int, result, winner: Optional[_Winner]) -> None:
-        """The finish record is on disk: answer the owning client and any
-        re-submitter that raced the flush."""
+    def _finish_durable(self, client_conn: int, result, winner: Optional[_Winner],
+                        wkey: Optional[Tuple[str, int]] = None) -> None:
+        """The finish record is on disk: answer the owning client, any
+        re-submitter that raced the flush and any other shard process's
+        client parked on this job."""
         waiters = []
         if winner is not None:
             winner.durable = True
@@ -1880,6 +1993,21 @@ class Coordinator:
         for conn_id in waiters:
             if conn_id != client_conn:
                 self._deliver_finish(conn_id, result)
+        self._drain_remote_waiters(wkey, result)
+
+    def _drain_remote_waiters(self, wkey: Optional[Tuple[str, int]], result) -> None:
+        """Answer each other shard's client parked on ``wkey``: with the
+        durable answer, or (``result`` None, a job retired without one)
+        with a miss, so its origin mines the job itself."""
+        if wkey is None:
+            return
+        parked = self._remote_waiters.pop(wkey, None)
+        if not parked or self._seam is None:
+            return
+        payload = b"" if result is None else encode_msg(result)
+        for origin, remote_conn in parked:
+            self._seam.answer_remote(origin, remote_conn, wkey[1], payload,
+                                     miss=result is None)
 
     def _deliver_finish(self, client_conn: int, result) -> None:
         """Send a finished job's answer; an unbound or dead client is
@@ -1943,7 +2071,12 @@ class Coordinator:
             pass
         self._jobs.pop(job.job_id, None)
         if job.request.client_key:
-            self._bound.pop((job.request.client_key, job.client_job_id), None)
+            wkey = (job.request.client_key, job.client_job_id)
+            self._bound.pop(wkey, None)
+            if wkey not in self._winners:
+                # retired with no winner: a foreign client parked here
+                # gets a miss and its shard mines the job itself
+                self._drain_remote_waiters(wkey, None)
         client_jobs = self._clients.get(job.client_conn)
         if client_jobs is not None:
             client_jobs.discard(job.job_id)
@@ -2216,6 +2349,31 @@ def main(argv: Optional[list] = None) -> None:
         help="codec spoken to workers that advertise the binary fast path (default "
         "binary; json forces JSON everywhere; decode always takes both)")
     parser.add_argument(
+        "--loops", type=int, default=1, metavar="N",
+        help="shard the coordinator across N event loops, one SO_REUSEPORT socket each "
+        "(tpuminter_torch.multiloop): peers are partitioned by a stable connection hash and, "
+        "where the kernel allows, steered by a reuseport BPF program (default 1). N > 1 on a "
+        "host that cannot shard is an ERROR, never a silent fallback")
+    parser.add_argument(
+        "--procs", type=int, default=1, metavar="N",
+        help="shard the coordinator across N OS PROCESSES, one SO_REUSEPORT socket + private "
+        "WAL segment + verifier executor each (tpuminter_torch.multiproc), past the GIL that "
+        "--loops cannot reach. Shards keep exactly-once across the boundary over a local "
+        "datagram seam: a cross-shard rebind registry (a re-submitted in-flight job is "
+        "answered by its home shard, never re-mined) and gossiped per-tenant quota buckets "
+        "(one fleet-wide budget). Default 1; exclusive with --loops; N > 1 where "
+        "SO_REUSEPORT is missing is an ERROR, never a silent fallback")
+    parser.add_argument(
+        "--io-batch", choices=("on", "off"), default="on",
+        help="batched socket I/O: drain a bounded recvfrom burst per epoll wakeup and group "
+        "each tick's sends (default on; off = the stdlib asyncio transport, the A/B "
+        "baseline)")
+    parser.add_argument(
+        "--journal-mode", choices=("writer", "segments"), default="writer",
+        help="with --loops N > 1 and --journal: 'writer' keeps ONE WAL on the writer loop fed "
+        "by per-shard queues (default; required for --replicate-to), 'segments' gives each "
+        "loop a private WAL merged at recovery")
+    parser.add_argument(
         "--journal", metavar="PATH", default=None,
         help="write-ahead job journal: every job, settle and winner is appended, and a "
         "coordinator restarted on the same file resumes the jobs and never loses an "
@@ -2285,6 +2443,24 @@ def main(argv: Optional[list] = None) -> None:
         parser.error("--replicate-to requires --journal")
     if args.pipeline_depth < 1:
         parser.error("--pipeline-depth must be >= 1")
+    if args.loops < 1 or args.procs < 1:
+        parser.error("--loops and --procs must be >= 1")
+    if args.procs > 1:
+        if args.loops > 1:
+            parser.error("--procs and --loops are mutually exclusive")
+        if args.replicate_to:
+            parser.error("--replicate-to is not available with --procs yet (per-shard "
+                         "segments have no single shipping stream)")
+        if args.hedge_after is not None or args.audit_rate:
+            parser.error("--hedge-after/--audit-rate are not plumbed through --procs yet")
+    if args.loops > 1 and args.replicate_to and args.journal_mode != "writer":
+        parser.error("--replicate-to ships ONE coherent WAL stream: segmented journals cannot "
+                     "ship — use --journal-mode writer")
+    if args.stats_port is not None and (args.loops > 1 or args.procs > 1):
+        # the endpoint serves one coordinator's snapshot; a sharded one
+        # dumps its per-shard stats on SIGUSR1 instead
+        parser.error("--stats-port is not available with --loops or --procs; SIGUSR1 dumps "
+                     "the per-shard stats to the log instead")
     if not 0 <= args.roll_budget <= 0xFFFFFFFF:
         parser.error("--roll-budget must be in [0, 2^32-1]")
     quota_tiers = _parse_pairs(parser, "--quota-tier", args.quota_tier or (), "NAME=MULT")
@@ -2298,24 +2474,79 @@ def main(argv: Optional[list] = None) -> None:
     logging.basicConfig(level=logging.INFO)
 
     async def _run() -> None:
+        import signal
+
+        admission = dict(
+            quota_rate=args.quota_rate, quota_burst=args.quota_burst, quota_tiers=quota_tiers,
+            max_jobs=args.max_jobs, retry_after_ms=args.retry_after_ms,
+            winners_ttl=args.winners_ttl, unbound_ttl=args.unbound_ttl,
+            workload_weights=weights, park_capacity=args.park_queue,
+            emit_interval=args.emit_interval)
+        loop = asyncio.get_running_loop()
+        if args.procs > 1:
+            from tpuminter_torch.multiproc import MultiProcCoordinator
+
+            coord = await MultiProcCoordinator.create(
+                args.port, procs=args.procs, chunk_size=args.chunk_size,
+                stats_interval=args.stats_interval, recover_from=args.journal,
+                pipeline_depth=args.pipeline_depth, binary_codec=args.codec == "binary",
+                io_batch=args.io_batch == "on", roll_budget=args.roll_budget, **admission)
+            log.info("coordinator listening on port %d (%d shard processes)", coord.port,
+                     args.procs)
+
+            async def _dump_proc_stats() -> None:
+                log.info("stats: %s", json.dumps(await coord.stats_all()))
+
+            loop.add_signal_handler(signal.SIGUSR1,
+                                    lambda: asyncio.ensure_future(_dump_proc_stats()))
+            # SIGTERM/SIGINT run the graceful group stop: a parent dying
+            # uncleanly would orphan the shard processes
+            stop = asyncio.Event()
+            for signum in (signal.SIGINT, signal.SIGTERM):
+                loop.add_signal_handler(signum, stop.set)
+            try:
+                # the parent only supervises; a dead shard takes the group
+                # down loudly, since its peers are steered to it by conn id
+                while all(coord.alive()) and not stop.is_set():
+                    try:
+                        await asyncio.wait_for(stop.wait(), 1.0)
+                    except asyncio.TimeoutError:
+                        pass
+                if not stop.is_set():
+                    log.error("shard process died (alive=%s); stopping the group",
+                              coord.alive())
+            finally:
+                await coord.close()
+            return
+        if args.loops > 1:
+            from tpuminter_torch.multiloop import MultiLoopCoordinator
+
+            coord = await MultiLoopCoordinator.create(
+                args.port, loops=args.loops, chunk_size=args.chunk_size,
+                hedge_after=args.hedge_after, audit_rate=args.audit_rate,
+                stats_interval=args.stats_interval, recover_from=args.journal,
+                journal_mode=args.journal_mode, pipeline_depth=args.pipeline_depth,
+                binary_codec=args.codec == "binary",
+                journal_tick_flush=args.journal_flush == "tick", replicate_to=replicate_to,
+                replica_ack=args.replica_ack, io_batch=args.io_batch == "on",
+                roll_budget=args.roll_budget, **admission)
+            log.info("coordinator listening on port %d (%d loops)", coord.port, args.loops)
+            loop.add_signal_handler(signal.SIGUSR1, lambda: log.info("stats: %s", json.dumps(
+                {"stats": coord.stats, "shards": coord.shard_metrics()})))
+            await coord.serve()
+            return
         coord = await Coordinator.create(
             args.port, chunk_size=args.chunk_size, hedge_after=args.hedge_after,
             audit_rate=args.audit_rate, stats_interval=args.stats_interval,
             recover_from=args.journal, pipeline_depth=args.pipeline_depth,
             binary_codec=args.codec == "binary",
             journal_tick_flush=args.journal_flush == "tick", roll_budget=args.roll_budget,
-            quota_rate=args.quota_rate, quota_burst=args.quota_burst, quota_tiers=quota_tiers,
-            max_jobs=args.max_jobs, retry_after_ms=args.retry_after_ms,
-            winners_ttl=args.winners_ttl, unbound_ttl=args.unbound_ttl,
-            workload_weights=weights, park_capacity=args.park_queue,
-            emit_interval=args.emit_interval, replicate_to=replicate_to,
-            replica_ack=args.replica_ack)
+            replicate_to=replicate_to, replica_ack=args.replica_ack,
+            io_batch=args.io_batch == "on", **admission)
         log.info("coordinator listening on port %d", coord.port)
         if args.stats_port is not None:
             await coord.start_stats_server(args.stats_port)
-        import signal
-
-        asyncio.get_running_loop().add_signal_handler(
+        loop.add_signal_handler(
             signal.SIGUSR1, lambda: log.info("stats: %s", json.dumps(coord.stats_snapshot())))
         await coord.serve()
 

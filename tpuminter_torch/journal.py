@@ -42,9 +42,22 @@ to the file, with its start offset and raw framed bytes; a hook that
 raises is detached and the WAL goes on. :func:`scan_with_cursor`,
 :func:`read_span` and :func:`cursor_valid` are a standby's resume cursor
 and a primary's tail reader, and :meth:`Journal.adopt` opens a promoted
-standby's copy without a rescan. What waits for later slices: the
-multi-loop segment files (``segment_paths``, ``merge_states``), the
-cross-job group-commit window and the disk fault plan.
+standby's copy without a rescan.
+
+**Segments** (the sharded coordinators, :mod:`tpuminter_torch.multiloop`
+and :mod:`tpuminter_torch.multiproc`): shard *k* may keep its own WAL at
+``path.s<k>`` (:func:`segment_paths`). Jobs are shard-affine, so
+:func:`merge_states` rebuilds the single-journal state from the
+segments' replays; :meth:`Journal.fresh` writes a recovered layout anew
+(fsynced before it replaces the old file), and :meth:`Journal.open`
+absorbs segments an earlier sharded run left, so a restart may cross
+journal modes and shard counts. :meth:`Journal.compact_now` is the
+writer journal's compaction for a caller that stopped the world itself.
+
+**Group commit across jobs** (:attr:`Journal.group_commit`, off by
+default as in the reference): a batch that gates a reply waits
+:data:`GROUP_COMMIT_WINDOW_S` so a burst of finishes shares one fsync.
+The disk fault plan waits for a later slice.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from tpuminter_torch.analysis import affinity
 from tpuminter_torch.protocol import Request, request_from_obj, request_to_obj
 
 log = logging.getLogger("tpuminter_torch.journal")
@@ -78,6 +92,9 @@ __all__ = [
     "cursor_valid",
     "replay",
     "merge_ranges",
+    "merge_states",
+    "scan_file",
+    "segment_paths",
     "intersect_ranges",
     "subtract_range",
     "WINNERS_CAP",
@@ -101,6 +118,12 @@ INLINE_FSYNC_BUDGET_S = 0.002
 #: How long a callback-free batch may wait for more records to share
 #: its write (task flush mode).
 BATCH_WINDOW_S = 0.002
+
+#: How long a reply-gating batch waits for more finishes to share its
+#: fsync when :attr:`Journal.group_commit` is on. It adds its length to
+#: every winner's answer, which is why the knob is off by default: it
+#: pays only where an fsync costs milliseconds.
+GROUP_COMMIT_WINDOW_S = 0.005
 
 
 # -- record codec (pure) -----------------------------------------------------
@@ -439,6 +462,75 @@ def replay(records: List[dict], *, winners_cap: int = WINNERS_CAP) -> RecoveredS
     return state
 
 
+def segment_paths(path: str) -> List[str]:
+    """The per-shard WAL segments beside ``path`` (``path.s<k>``),
+    sorted; the merge does not depend on their order."""
+    import glob as _glob
+
+    return sorted(_glob.glob(path + ".s[0-9]*"))
+
+
+def scan_file(path: str) -> List[dict]:
+    """The valid record prefix of the journal at ``path`` (a missing
+    file has none). A pure read: the sharded recovery that calls it
+    rewrites the files whole."""
+    if not os.path.exists(path):
+        return []
+    with open(path, "rb") as fh:
+        data = fh.read()
+    records, _clean = scan(data)
+    return records
+
+
+def merge_states(states: List[RecoveredState]) -> RecoveredState:
+    """The single-journal state of WAL segments each replayed on its own
+    (a segment's snapshot resets only its own stream). Jobs are
+    shard-affine, so the union is well defined; a job id in two streams
+    (a crash between a sharded start's rewrite and its unlinks) merges
+    conservatively: remaining coverage intersects, the min-fold keeps
+    the smaller best, hashes take the max, and a job any stream saw
+    finish or abandon stays finished. Quota buckets merge to the
+    emptiest balance and the most strikes, which only under-grants."""
+    out = RecoveredState(
+        winners_cap=max((st.winners_cap for st in states), default=WINNERS_CAP))
+    for st in states:
+        out.boot_epoch = max(out.boot_epoch, st.boot_epoch)
+        out.next_job_id = max(out.next_job_id, st.next_job_id)
+        out.records += st.records
+        out.finished |= st.finished
+        out.leases.update(st.leases)
+        for ck, (tok, strikes) in st.quota.items():
+            cur = out.quota.get(ck)
+            out.quota[ck] = ([tok, strikes] if cur is None
+                             else [min(cur[0], tok), max(cur[1], strikes)])
+        for jid, job in st.jobs.items():
+            cur = out.jobs.get(jid)
+            if cur is None:
+                out.jobs[jid] = RecoveredJob(
+                    job_id=job.job_id, request=job.request, remaining=list(job.remaining),
+                    best=job.best, hashes_done=job.hashes_done, wstate=job.wstate)
+                continue
+            cur.remaining = intersect_ranges(cur.remaining, job.remaining)
+            cur.hashes_done = max(cur.hashes_done, job.hashes_done)
+            if job.best is not None and (cur.best is None or job.best < cur.best):
+                cur.best = job.best
+            if job.wstate is not None or cur.wstate is not None:
+                # fold states merge by the workload's own discipline
+                from tpuminter_torch import workloads
+
+                fold = workloads.fold_of(cur.request)
+                if fold is not None:
+                    cur.wstate = workloads.merge_states(fold, cur.wstate, job.wstate)
+        for key, w in st.winners.items():
+            out.winners.pop(key, None)
+            out.winners[key] = dict(w)
+    for jid in out.finished:
+        out.jobs.pop(jid, None)
+    while len(out.winners) > out.winners_cap:
+        out.winners.popitem(last=False)
+    return out
+
+
 # -- the journal itself ------------------------------------------------------
 
 class Journal:
@@ -478,13 +570,23 @@ class Journal:
         #: replication hook, called on the event loop with ``(start,
         #: blob)`` once each batch is in the file
         self.on_batch: Optional[Callable[[int, bytes], None]] = None
+        #: a reply-gating batch waits GROUP_COMMIT_WINDOW_S for company
+        self.group_commit = False
         self.stats = {"records": 0, "flushes": 0, "syncs": 0, "bytes": 0, "compactions": 0}
+        # TPUMINTER_LOOP_AFFINITY=1: a mutation from another loop's thread
+        # is a recorded race (executor threads are exempt: _write_sync
+        # bumps self.size off the loop by design); the multi-loop
+        # coordinator rebinds the journal when it hands it over
+        affinity.stamp(self)
 
     @classmethod
     def open(cls, path: str, *, winners_cap: int = WINNERS_CAP,
              **kwargs) -> Tuple["Journal", RecoveredState]:
         """Open (or create) the journal at ``path`` and replay it;
-        ``winners_cap`` bounds the rebuilt dedup table to the caller's."""
+        ``winners_cap`` bounds the rebuilt dedup table to the caller's.
+        Segments a sharded run left beside it (``path.s<k>``) are merged
+        in, written into this file as one snapshot in the same durable
+        write as the boot record, and only then deleted."""
         records: List[dict] = []
         if os.path.exists(path):
             with open(path, "rb") as fh:
@@ -496,14 +598,59 @@ class Journal:
                 with open(path, "r+b") as fh:
                     fh.truncate(clean)
         state = replay(records, winners_cap=winners_cap)
+        seg_paths = segment_paths(path)
+        if seg_paths:
+            state = merge_states([state] + [replay(scan_file(p), winners_cap=winners_cap)
+                                            for p in seg_paths])
         state.boot_epoch += 1
         journal = cls(path, **kwargs)
         journal.boot_epoch = state.boot_epoch
         journal._fh = open(path, "ab")
         journal.size = journal._fh.tell()
+        blob = encode_record({"k": "boot", "epoch": state.boot_epoch})
         journal.stats["records"] += 1
-        journal._write_sync(encode_record({"k": "boot", "epoch": state.boot_epoch}), True)
+        if seg_paths:
+            blob += encode_record(state.snapshot_obj())
+            journal.stats["records"] += 1
+        journal._write_sync(blob, True)
+        for p in seg_paths:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
         return journal, state
+
+    @classmethod
+    def fresh(cls, path: str, epoch: int, snapshot: Optional[dict] = None,
+              **kwargs) -> "Journal":
+        """Create ``path`` anew as a durable ``boot`` record and an
+        optional ``snapshot``: a sharded start's rewrite of the
+        recovered layout. The new prefix is fsynced in a temporary file
+        and ``os.replace``d over ``path``, so a crash mid-start leaves
+        the old file or the whole new one, never an empty WAL."""
+        blob = encode_record({"k": "boot", "epoch": epoch})
+        records = 1
+        if snapshot is not None:
+            blob += encode_record(snapshot)
+            records += 1
+        journal = cls(path, **kwargs)
+        journal.boot_epoch = epoch
+        tmp = path + ".rewrite"
+        with open(tmp, "wb") as fh:
+            fh.write(blob)
+            fh.flush()
+            if journal._fsync:
+                os.fsync(fh.fileno())
+        os.replace(tmp, path)
+        journal._fh = open(path, "ab")
+        journal.size = len(blob)
+        journal._bytes_since_compact = len(blob)
+        journal.stats["records"] += records
+        journal.stats["flushes"] += 1
+        journal.stats["bytes"] += len(blob)
+        if journal._fsync:
+            journal.stats["syncs"] += 1
+        return journal
 
     @classmethod
     def adopt(cls, path: str, epoch: int, **kwargs) -> "Journal":
@@ -618,6 +765,9 @@ class Journal:
         while self._buffer and not self._crashed and not self._closed:
             if not self.tick_flush and all(cb is None for _, cb in self._buffer):
                 await asyncio.sleep(BATCH_WINDOW_S)  # let the burst grow
+            elif self.group_commit and any(cb is not None for _, cb in self._buffer):
+                # finishes of other jobs arriving meanwhile share the fsync
+                await asyncio.sleep(GROUP_COMMIT_WINDOW_S)
             buf, self._buffer = self._buffer, []
             if not buf:
                 continue
@@ -702,6 +852,36 @@ class Journal:
             except Exception:
                 log.exception("journal on_batch hook failed; detaching it")
                 self.on_batch = None
+
+    def compact_now(self, snapshot: Optional[dict] = None) -> bool:
+        """Compact at once, for a caller that stopped the world itself
+        (the multi-loop writer journal's barrier) and hands in the
+        merged ``snapshot`` (else :attr:`snapshot_provider`'s). Buffered
+        records reach the file first, their callbacks firing as usual;
+        then the file becomes ``boot ‖ snapshot``. False when nothing
+        was compacted."""
+        if self._closed or self._crashed or self._failed:
+            return False
+        if snapshot is None:
+            if self.snapshot_provider is None:
+                return False
+            snapshot = self.snapshot_provider()
+        try:
+            self._flush_buffered_sync()
+            blob = (encode_record({"k": "boot", "epoch": self.boot_epoch})
+                    + encode_record(snapshot))
+            swapped = self._compact_sync(blob)
+        except (OSError, ValueError):
+            self._failed = True
+            log.exception("journal compaction of %s FAILED — journaling disabled for this "
+                          "incarnation", self.path)
+            return False
+        if swapped:
+            self.size = len(blob)
+            self.generation += 1
+            self._bytes_since_compact = 0
+            self.stats["compactions"] += 1
+        return swapped
 
     def _compact_sync(self, blob: bytes) -> bool:
         """Replace the file by ``boot ‖ snapshot``, atomically."""

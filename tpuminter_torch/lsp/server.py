@@ -15,16 +15,23 @@ grouped pass.
 For replication, :meth:`LspServer.reject_conn` drops a connection at
 once and forgets its address, so the peer's next datagram draws a reset
 ack, and :meth:`LspServer.set_boot_epoch` re-brands a promoted standby's
-listener. What the reference adds for its multi-loop coordinator
-(conn-id striping, an ingress filter) and its slow-peer read deadlines
-are not copied.
+listener.
+
+For the sharded coordinators (:mod:`tpuminter_torch.multiloop`,
+:mod:`tpuminter_torch.multiproc`): ``conn_id_start``/``conn_id_stride``
+give shard *k* of *N* the conn ids ≡ *k* (mod *N*), which the kernel's
+reuseport steering program reads off each frame; ``ingress_filter``
+sees every datagram first and swallows the ones it hands to another
+shard, which replays them through :meth:`LspServer.deliver_datagram`;
+``reuse_port`` and ``io_batch`` go to the transport. The reference's
+slow-peer read deadlines are not copied.
 """
 
 from __future__ import annotations
 
 import asyncio
 import random
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from tpuminter_torch.lsp.connection import ACK_DELAY_S, ConnState
 from tpuminter_torch.lsp.message import (
@@ -54,6 +61,8 @@ class LspServer:
         self._by_id: Dict[int, ConnState] = {}
         self._addr_of: Dict[int, Addr] = {}
         self._next_conn_id = 1
+        #: conn-id allocation stride (shard k of N allocates ids ≡ k mod N)
+        self._conn_id_stride = 1
         #: while set, conn flushes append (addr, wires) here and
         #: _flush_dirty hands the whole tick to send_grouped
         self._tick_pairs = None
@@ -74,19 +83,39 @@ class LspServer:
         host: str = "127.0.0.1",
         seed: Optional[int] = None,
         boot_epoch: Optional[int] = None,
+        reuse_port: bool = False,
+        io_batch: Optional[bool] = None,
+        conn_id_start: int = 1,
+        conn_id_stride: int = 1,
+        ingress_filter: Optional[Callable[[bytes, Addr], bool]] = None,
     ) -> "LspServer":
         """Listen on ``host:port`` (port 0 binds an ephemeral one).
         ``boot_epoch`` is a journaled owner's durable, monotone epoch;
         without one the server draws a random nonzero epoch, distinct
         across restarts but for a 2^-63 chance. ``seed`` seeds the
-        endpoint's fault-injection PRNG."""
+        endpoint's fault-injection PRNG. ``ingress_filter(data, addr)``
+        returns False for a datagram it handed to another shard."""
         self = cls()
         self._params = params or Params()
+        self._next_conn_id = conn_id_start
+        self._conn_id_stride = max(1, conn_id_stride)
         self._boot_epoch = boot_epoch if boot_epoch is not None else (random.getrandbits(63) | 1)
-        self._endpoint = await UdpEndpoint.create(self._on_datagram, local_addr=(host, port),
-                                                  seed=seed)
+        if ingress_filter is None:
+            on_datagram = self._on_datagram
+        else:
+            def on_datagram(data, addr, _f=ingress_filter):
+                if _f(data, addr):
+                    self._on_datagram(data, addr)
+        self._endpoint = await UdpEndpoint.create(on_datagram, local_addr=(host, port),
+                                                  seed=seed, reuse_port=reuse_port,
+                                                  io_batch=io_batch)
         self._epoch_task = asyncio.ensure_future(self._epoch_loop())
         return self
+
+    def deliver_datagram(self, data: bytes, addr: Addr) -> None:
+        """Take one datagram as if the socket had received it: the
+        delivery seam of a datagram that another shard's socket got."""
+        self._on_datagram(data, addr)
 
     # -- wiring ----------------------------------------------------------
 
@@ -133,7 +162,7 @@ class LspServer:
 
     def _new_conn(self, addr: Addr) -> ConnState:
         conn_id = self._next_conn_id
-        self._next_conn_id += 1
+        self._next_conn_id += self._conn_id_stride
         conn = ConnState(
             conn_id,
             self._params,

@@ -19,8 +19,19 @@ set_fault_plan` installs a plan object that this module reads through
 ``decide(direction, addr)`` and ``arm()`` only. A datagram the plan
 rules on (``("drop", reason)`` or ``("deliver", delays)``) is governed by
 it instead of the rates; ``None`` falls through to them. The plan class
-itself is the chaos module's. The reference's stdlib-transport mode is
-not copied.
+itself is the chaos module's.
+
+**The stdlib mode** (``io_batch=False``, the coordinator's ``--io-batch
+off``): the endpoint is an ``asyncio.DatagramProtocol`` on the stdlib
+datagram transport, one wakeup a datagram, the A/B baseline of the
+batched mode. The faults act above the I/O mode, so both modes draw the
+same faults from the same seed.
+
+**Shared ports** (``reuse_port=True``): the socket binds with
+``SO_REUSEPORT``, so the sharded coordinators (:mod:`tpuminter_torch.
+multiloop`, :mod:`tpuminter_torch.multiproc`) bind one socket a shard to
+one port; :attr:`UdpEndpoint.sock` is where they attach the kernel's
+steering program.
 """
 
 from __future__ import annotations
@@ -36,8 +47,12 @@ Addr = Tuple[str, int]
 #: Datagrams drained per readability wakeup.
 RECV_BURST = 64
 
+#: I/O mode of a new endpoint when the caller names none (False: the
+#: stdlib datagram transport).
+IO_BATCH_DEFAULT = True
 
-class UdpEndpoint:
+
+class UdpEndpoint(asyncio.DatagramProtocol):
     """A non-blocking UDP socket driven by the running event loop, with
     injectable loss, duplication and reordering (rates in [0, 1])."""
 
@@ -45,7 +60,10 @@ class UdpEndpoint:
                  seed: Optional[int] = None):
         self._on_datagram = on_datagram
         self._loop = asyncio.get_running_loop()
+        #: batched mode's raw socket (None in the stdlib mode)
         self._sock: Optional[_socket.socket] = None
+        #: stdlib mode's transport (None in the batched mode)
+        self._transport: Optional[asyncio.DatagramTransport] = None
         self._send_backlog: Deque[Tuple[bytes, Addr]] = deque()
         self._writer_armed = False
         self._closed = self._loop.create_future()
@@ -68,16 +86,34 @@ class UdpEndpoint:
         self.reordered_in = 0
         self.partitioned_out = 0
         self.partitioned_in = 0
+        #: datagrams that left and arrived (after the faults), and
+        #: readability wakeups of the batched mode
+        self.sent = 0
+        self.received = 0
+        self.read_wakeups = 0
 
     @classmethod
     async def create(cls, on_datagram: Callable[[bytes, Addr], None],
                      local_addr: Optional[Addr] = None,
-                     seed: Optional[int] = None) -> "UdpEndpoint":
+                     seed: Optional[int] = None, *, reuse_port: bool = False,
+                     io_batch: Optional[bool] = None) -> "UdpEndpoint":
         """An endpoint bound to ``local_addr`` (an ephemeral port on
-        every interface when None); ``seed`` seeds the fault PRNG."""
+        every interface when None); ``seed`` seeds the fault PRNG,
+        ``reuse_port`` binds with ``SO_REUSEPORT`` and ``io_batch``
+        picks the I/O mode (None: :data:`IO_BATCH_DEFAULT`)."""
+        loop = asyncio.get_running_loop()
+        if io_batch is None:
+            io_batch = IO_BATCH_DEFAULT
+        if not io_batch:
+            _, protocol = await loop.create_datagram_endpoint(
+                lambda: cls(on_datagram, seed=seed), local_addr=local_addr or ("0.0.0.0", 0),
+                reuse_port=reuse_port or None)
+            return protocol
         self = cls(on_datagram, seed=seed)
         sock = _socket.socket(_socket.AF_INET, _socket.SOCK_DGRAM)
         try:
+            if reuse_port:
+                sock.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEPORT, 1)
             sock.setblocking(False)
             sock.bind(local_addr or ("0.0.0.0", 0))
         except BaseException:
@@ -87,12 +123,38 @@ class UdpEndpoint:
         self._loop.add_reader(sock.fileno(), self._on_readable)
         return self
 
+    # -- asyncio.DatagramProtocol (the stdlib mode) ----------------------
+
+    def connection_made(self, transport) -> None:
+        self._transport = transport
+
+    def connection_lost(self, exc: Optional[Exception]) -> None:
+        if not self._closed.done():
+            self._closed.set_result(None)
+
+    def datagram_received(self, data: bytes, addr) -> None:
+        self._received(data, addr[:2])
+
     @property
     def local_addr(self) -> Addr:
-        assert self._sock is not None
-        return self._sock.getsockname()[:2]
+        if self._sock is not None:
+            return self._sock.getsockname()[:2]
+        assert self._transport is not None
+        return self._transport.get_extra_info("sockname")[:2]
+
+    @property
+    def sock(self) -> Optional[_socket.socket]:
+        """The batched mode's socket (None in the stdlib mode): where a
+        sharded coordinator attaches its reuseport steering program."""
+        return self._sock
+
+    def _is_closing(self) -> bool:
+        if self._sock is not None:
+            return False
+        return self._transport is None or self._transport.is_closing()
 
     def _on_readable(self) -> None:
+        self.read_wakeups += 1
         for _ in range(RECV_BURST):
             sock = self._sock
             if sock is None:
@@ -158,8 +220,10 @@ class UdpEndpoint:
                 emit(data, addr)
 
     def _deliver(self, data: bytes, addr: Addr) -> None:
-        if self._sock is not None:  # a held-back datagram may outlive the socket
-            self._on_datagram(data, addr)
+        if self._is_closing():
+            return  # a held-back datagram outlived the socket
+        self.received += 1
+        self._on_datagram(data, addr)
 
     def _faulty(self) -> bool:
         return (self.write_drop_rate > 0 or self.write_dup_rate > 0
@@ -167,7 +231,7 @@ class UdpEndpoint:
 
     def send(self, data: bytes, addr: Addr) -> None:
         """Send one datagram, subject to the injected write faults."""
-        if self._sock is None:
+        if self._is_closing():
             return
         if self.fault_plan is not None:
             verdict = self.fault_plan.decide("out", addr)
@@ -204,7 +268,11 @@ class UdpEndpoint:
 
     def _send_raw(self, data: bytes, addr: Addr) -> None:
         """UDP may lose the datagram; this endpoint does not."""
+        if self._is_closing():
+            return  # a held-back datagram outlived the socket
+        self.sent += 1
         if self._sock is None:
+            self._transport.sendto(data, addr)
             return
         if self._send_backlog:
             self._send_backlog.append((data, addr))
@@ -215,7 +283,12 @@ class UdpEndpoint:
             self._send_backlog.append((data, addr))
             self._arm_writer()
         except OSError:
-            self.dropped_out += 1  # unreachable/iface error: lost, as UDP allows
+            self._unsent()  # unreachable/iface error: lost, as UDP allows
+
+    def _unsent(self) -> None:
+        """A datagram booked as sent never left."""
+        self.sent -= 1
+        self.dropped_out += 1
 
     def _arm_writer(self) -> None:
         if not self._writer_armed and self._sock is not None:
@@ -233,7 +306,7 @@ class UdpEndpoint:
             except (BlockingIOError, InterruptedError):
                 return
             except OSError:
-                self.dropped_out += 1  # lost, as above
+                self._unsent()  # lost, as above
             self._send_backlog.popleft()
         self._writer_armed = False
         self._loop.remove_writer(sock.fileno())
@@ -262,13 +335,17 @@ class UdpEndpoint:
             plan.arm()
 
     def close(self) -> None:
-        sock, self._sock = self._sock, None
-        if sock is None:
+        if self._sock is None:
+            if self._transport is not None and not self._transport.is_closing():
+                self._transport.close()
             return
+        sock, self._sock = self._sock, None
         self._loop.remove_reader(sock.fileno())
         if self._writer_armed:
             self._loop.remove_writer(sock.fileno())
         sock.close()
+        for _ in self._send_backlog:
+            self._unsent()
         self._send_backlog.clear()
         if not self._closed.done():
             self._closed.set_result(None)

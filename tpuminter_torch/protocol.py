@@ -36,10 +36,20 @@ workloads it advertises. Clients are always answered in JSON.
 in binary (``0xB8 ‖ offset:u64 ‖ raw journal bytes ‖ crc32``; its JSON
 form, hex data, is decoded too).
 
-The kinds of the reference's multi-process seam and federation leases
-(``0xBC``/``0xBD``: the reference stamps lease epochs only toward peers
-that sent the aggregator hello) belong to roles the port does not have
-yet, and its binary admission Refuse
+**The shard seam** (:mod:`tpuminter_torch.multiproc`): the five frames
+``0xD1``–``0xD5`` cross the host-local UNIX datagram channel between
+shard processes, never the UDP port: ``encode_seam_fwd`` (a mis-steered
+datagram with its source), ``encode_seam_bind`` (rebind-registry
+gossip), ``encode_seam_rebind`` (ask the home shard),
+``encode_seam_answer`` (its encoded Result, or a miss) and
+``encode_seam_quota`` (a cumulative admission count), decoded by
+:func:`decode_seam`. Each is ``head ‖ variable tail ‖ crc32``, the
+reference's bytes.
+
+The kinds of the reference's federation leases (``0xBC``/``0xBD``: the
+reference stamps lease epochs only toward peers that sent the
+aggregator hello) belong to a role the port does not have yet, and its
+binary admission Refuse
 (``0xB6``) goes only to clients, which it answers in JSON; the decoder
 raises :class:`ProtocolError` on them, which a role logs and drops.
 """
@@ -80,6 +90,13 @@ __all__ = [
     "payload_is_binary",
     "request_to_obj",
     "request_from_obj",
+    "SEAM_CKEY_MAX",
+    "encode_seam_fwd",
+    "encode_seam_bind",
+    "encode_seam_rebind",
+    "encode_seam_answer",
+    "encode_seam_quota",
+    "decode_seam",
 ]
 
 #: ``hash_value`` of an exhausted TARGET Result from a worker that does
@@ -817,3 +834,136 @@ def decode_msg(raw) -> Message:
     except (KeyError, ValueError, TypeError) as exc:
         raise ProtocolError(f"malformed {kind} message: {exc}") from exc
     raise ProtocolError(f"unknown message kind: {kind!r}")
+
+
+# -- the shard seam's frames --------------------------------------------------
+# They travel the host-local channel between shard processes, in the
+# process-wide '{'-disjoint tag namespace, so a seam frame is never
+# mistaken for an app message or a journal record. Every kind is
+# variable-length (a ckey, a raw datagram or an encoded Result follows
+# its head), so the trailing CRC32 carries the corruption contract.
+
+_TAG_SEAM_FWD = 0xD1     # a mis-steered datagram, for its owner shard
+_TAG_SEAM_BIND = 0xD2    # rebind-registry gossip: shard k owns (ckey, cjid)
+_TAG_SEAM_REBIND = 0xD3  # foreign shard -> home shard: re-bind, do not re-mine
+_TAG_SEAM_ANSWER = 0xD4  # home -> foreign: the winner's Result, or a miss
+_TAG_SEAM_QUOTA = 0xD5   # a cumulative per-ckey admission count
+
+_BIN_SEAM_FWD_HEAD = struct.Struct("<B4sH")     # tag, ip4, port (datagram follows)
+_BIN_SEAM_BIND_HEAD = struct.Struct("<BBQ")     # tag, origin, cjid (ckey follows)
+_BIN_SEAM_REBIND_HEAD = struct.Struct("<BBIQ")  # tag, origin, conn_id, cjid (ckey follows)
+_BIN_SEAM_ANSWER_HEAD = struct.Struct("<BBIQ")  # tag, flags, conn_id, cjid (Result follows)
+_BIN_SEAM_QUOTA_HEAD = struct.Struct("<BBQ")    # tag, origin, admitted (ckey follows)
+
+_SEAM_ANSWER_MISS = 0x01
+
+#: Longest ckey (utf-8 bytes) a seam frame carries: a frame is one
+#: datagram and the registry a hint, so a longer key stays shard-local.
+SEAM_CKEY_MAX = 512
+
+
+def encode_seam_fwd(addr, payload: bytes) -> bytes:
+    """One mis-steered datagram with its source address, for the owning
+    shard to take as if the kernel had delivered it there."""
+    import socket as _socket
+
+    host, port = addr[0], addr[1]
+    if not 0 <= port < (1 << 16):
+        raise ProtocolError(f"seam fwd port out of range: {port}")
+    try:
+        ip4 = _socket.inet_aton(host)
+    except OSError as exc:
+        raise ProtocolError(f"seam fwd needs an IPv4 source: {host!r}") from exc
+    return _seal(_BIN_SEAM_FWD_HEAD.pack(_TAG_SEAM_FWD, ip4, port) + bytes(payload))
+
+
+def _seam_ckey_bytes(ckey: str) -> bytes:
+    raw = ckey.encode("utf-8", "strict")
+    if not raw or len(raw) > SEAM_CKEY_MAX:
+        raise ProtocolError(f"seam ckey must be 1..{SEAM_CKEY_MAX} utf-8 bytes")
+    return raw
+
+
+def encode_seam_bind(origin: int, ckey: str, cjid: int) -> bytes:
+    if not (0 <= origin < 256 and 0 <= cjid < _U64):
+        raise ProtocolError("seam bind fields out of range")
+    return _seal(_BIN_SEAM_BIND_HEAD.pack(_TAG_SEAM_BIND, origin, cjid)
+                 + _seam_ckey_bytes(ckey))
+
+
+def encode_seam_rebind(origin: int, conn_id: int, ckey: str, cjid: int) -> bytes:
+    if not (0 <= origin < 256 and 0 <= conn_id < (1 << 32) and 0 <= cjid < _U64):
+        raise ProtocolError("seam rebind fields out of range")
+    return _seal(_BIN_SEAM_REBIND_HEAD.pack(_TAG_SEAM_REBIND, origin, conn_id, cjid)
+                 + _seam_ckey_bytes(ckey))
+
+
+def encode_seam_answer(conn_id: int, cjid: int, payload: bytes, *, miss: bool = False) -> bytes:
+    if not (0 <= conn_id < (1 << 32) and 0 <= cjid < _U64):
+        raise ProtocolError("seam answer fields out of range")
+    if miss and payload:
+        raise ProtocolError("a seam miss carries no payload")
+    flags = _SEAM_ANSWER_MISS if miss else 0
+    return _seal(_BIN_SEAM_ANSWER_HEAD.pack(_TAG_SEAM_ANSWER, flags, conn_id, cjid)
+                 + bytes(payload))
+
+
+def encode_seam_quota(origin: int, ckey: str, admitted: int) -> bytes:
+    if not (0 <= origin < 256 and 0 <= admitted < _U64):
+        raise ProtocolError("seam quota fields out of range")
+    return _seal(_BIN_SEAM_QUOTA_HEAD.pack(_TAG_SEAM_QUOTA, origin, admitted)
+                 + _seam_ckey_bytes(ckey))
+
+
+_SEAM_HEADS = {
+    _TAG_SEAM_FWD: _BIN_SEAM_FWD_HEAD,
+    _TAG_SEAM_BIND: _BIN_SEAM_BIND_HEAD,
+    _TAG_SEAM_REBIND: _BIN_SEAM_REBIND_HEAD,
+    _TAG_SEAM_ANSWER: _BIN_SEAM_ANSWER_HEAD,
+    _TAG_SEAM_QUOTA: _BIN_SEAM_QUOTA_HEAD,
+}
+
+
+def decode_seam(raw) -> tuple:
+    """One seam frame as a ``(kind, ...)`` tuple:
+
+    - ``("fwd", (host, port), payload)``
+    - ``("bind", origin, ckey, cjid)``
+    - ``("rebind", origin, conn_id, ckey, cjid)``
+    - ``("answer", miss, conn_id, cjid, payload)``
+    - ``("quota", origin, ckey, admitted)``
+
+    Truncation, a failed CRC, an unknown tag or a malformed ckey raise
+    :class:`ProtocolError`; the receiving shard drops the frame."""
+    import socket as _socket
+
+    n = len(raw)
+    if n < 1:
+        raise ProtocolError("empty seam frame")
+    head = _SEAM_HEADS.get(raw[0])
+    if head is None:
+        raise ProtocolError(f"unknown seam frame tag {raw[0]:#04x}")
+    if n < head.size + _CRC.size:
+        raise ProtocolError(f"seam frame truncated: {n} bytes")
+    view = memoryview(raw)
+    if zlib.crc32(view[:n - _CRC.size]) != _CRC.unpack_from(raw, n - _CRC.size)[0]:
+        raise ProtocolError("seam frame failed its checksum")
+    tail = bytes(view[head.size:n - _CRC.size])
+    tag = raw[0]
+    try:
+        if tag == _TAG_SEAM_FWD:
+            _, ip4, port = head.unpack_from(raw)
+            return ("fwd", (_socket.inet_ntoa(ip4), port), tail)
+        if tag == _TAG_SEAM_BIND:
+            _, origin, cjid = head.unpack_from(raw)
+            return ("bind", origin, tail.decode("utf-8"), cjid)
+        if tag == _TAG_SEAM_REBIND:
+            _, origin, conn_id, cjid = head.unpack_from(raw)
+            return ("rebind", origin, conn_id, tail.decode("utf-8"), cjid)
+        if tag == _TAG_SEAM_ANSWER:
+            _, flags, conn_id, cjid = head.unpack_from(raw)
+            return ("answer", bool(flags & _SEAM_ANSWER_MISS), conn_id, cjid, tail)
+        _, origin, admitted = head.unpack_from(raw)
+        return ("quota", origin, tail.decode("utf-8"), admitted)
+    except (struct.error, UnicodeDecodeError) as exc:
+        raise ProtocolError(f"malformed seam frame: {exc}") from exc

@@ -49,9 +49,10 @@ CLI (the standby, promoted once the primary has been lost for
     python -m tpuminter_torch.replication PRIMARY_HOST:PORT --wal standby.wal \\
         --port 9100 --promote-after 3
 
-The reference's ``affinity.stamp`` calls (its loop-affinity checker)
-wait for the port of ``tpuminter.analysis``; the multi-loop
-coordinator's ``replica_gate`` waits for the multi-loop slice.
+Both roles are stamped for the loop-affinity detector
+(:mod:`tpuminter_torch.analysis.affinity`). A multi-loop primary
+(:mod:`tpuminter_torch.multiloop`, writer journal mode) runs its lanes
+on the writer loop and routes every shard's replica-ack gate there.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ import logging
 import os
 from typing import Callable, List, Optional, Tuple
 
+from tpuminter_torch.analysis import affinity
 from tpuminter_torch.journal import (
     Journal,
     RecoveredState,
@@ -154,6 +156,9 @@ class ReplicationPrimary:
             self._wake.set()
 
         journal.on_batch = hook
+        # TPUMINTER_LOOP_AFFINITY=1: a shipping lane lives on the
+        # journal's writer loop; a poke from another loop is a race
+        affinity.stamp(self)
 
     # -- lifecycle -------------------------------------------------------
 
@@ -415,6 +420,8 @@ class ReplicationStandby:
         self._chain_lanes: List[ReplicationPrimary] = []
         self.stats = {"batches": 0, "records_applied": 0, "bytes": 0, "resyncs": 0,
                       "rejects": 0, "acks_sent": 0}
+        # TPUMINTER_LOOP_AFFINITY=1: the standby is single-loop
+        affinity.stamp(self)
 
     @classmethod
     async def create(cls, wal_path: str, *, port: int = 0, host: str = "127.0.0.1",
